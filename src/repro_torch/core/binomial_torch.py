@@ -129,3 +129,24 @@ def binomial_lookup_dyn(keys: torch.Tensor, n, omega: int = 16) -> torch.Tensor:
     keys' device): any-int keys -> int32 buckets in [0, n)."""
     n = u32(n).to(keys.device).reshape(())
     return binomial_lookup_body(u32(keys), n, omega).to(torch.int32)
+
+
+def fold_pow2(n: int) -> tuple[int, int]:
+    """Static n >= 2 -> ``(E, M)``: ``E = 2^ceil(log2 n)`` and ``M = E/2``,
+    folded on the host as the static-n reference does
+    (``repro.kernels.binomial_hash._kernel``).  Like the reference, raises
+    OverflowError once E leaves u32 (n > 2^31)."""
+    bits = (n - 1).bit_length()
+    if bits > 31:
+        raise OverflowError(f"n = {n}: E = 2^{bits} is out of bounds for uint32")
+    return 1 << bits, 1 << (bits - 1)
+
+
+def binomial_lookup_vec(keys: torch.Tensor, n: int, omega: int = 16) -> torch.Tensor:
+    """Bulk lookup, n a static Python int: any-int keys -> int32 buckets in
+    [0, n); n <= 1 gives zeros.  E and M are folded on the host."""
+    keys = u32(keys)
+    if n <= 1:
+        return torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    E, M = fold_pow2(n)
+    return _unrolled_body(keys, E, M, n, omega).to(torch.int32)

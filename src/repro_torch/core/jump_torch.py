@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.binomial_torch import _shr64, mix64_lo32, u32
+from repro_torch.core.binomial_torch import MASK32, _shr64, mix64_lo32, u32
 from repro_torch.core.jump import JUMP_LCG
 from repro_torch.core.memento_torch import fused_route_impl
 
@@ -44,6 +44,26 @@ def jump_lookup_dyn(keys: torch.Tensor, n, omega: int = 16) -> torch.Tensor:
     any-int keys -> int32 buckets."""
     n = u32(n).to(keys.device).reshape(())
     return jump_unrolled_body(u32(keys), n, omega).to(torch.int32)
+
+
+def jump_fold(n: int) -> tuple[int, int]:
+    """The static-n kernel's host constants for jump: none (``(0, 0)``);
+    raises OverflowError for n past u32, as the reference does."""
+    if n > MASK32:
+        raise OverflowError(f"n = {n} is out of bounds for uint32")
+    return 0, 0
+
+
+def jump_lookup_vec(keys: torch.Tensor, n: int, omega: int = 16) -> torch.Tensor:
+    """Bulk jump lookup, n a static Python int: any-int keys -> int32
+    buckets; n <= 1 gives zeros, and n past u32 raises OverflowError as the
+    reference's ``np.uint32(n)`` does."""
+    keys = u32(keys)
+    if n <= 1:
+        return torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    jump_fold(n)
+    n_t = torch.tensor(n, dtype=torch.int64, device=keys.device)
+    return jump_unrolled_body(keys, n_t, omega).to(torch.int32)
 
 
 def jump_memento_route(keys, packed, table, state, omega: int = 16) -> torch.Tensor:

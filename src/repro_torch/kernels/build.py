@@ -29,12 +29,14 @@ NVCC_FLAGS = (*CODEGEN_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _N = ctypes.c_longlong
 #: C signatures of the entry points (every pointer and the stream as void*)
 SIGNATURES = {
     "routing_route": (_I, _P, _P, _I, _P, _I, _P, _I, _P, _N, _P),
     "routing_ingest": (_I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _N, _P),
     "routing_lookup_dyn": (_I, _P, _P, _I, _P, _N, _P),
+    "routing_lookup_vec": (_I, _P, _U, _U, _U, _I, _P, _N, _P),
 }
 
 

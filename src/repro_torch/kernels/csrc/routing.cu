@@ -1,4 +1,4 @@
-// The routing datapath's three CUDA kernels for sm_90a, each instantiated for
+// The routing datapath's four CUDA kernels for sm_90a, each instantiated for
 // both lookup engines (binomial, jump):
 //
 //   route_kernel<Engine, KeySource>  replaces src/repro/kernels/fused.py
@@ -7,20 +7,29 @@
 //   route_kernel<Engine, IdSource>   replaces _kernel_ingest (fused.py:255):
 //       splitmix64 of the u64 id halves, then the same body;
 //   lookup_dyn_kernel<Engine>        replaces _kernel_lookup_dyn
-//       (fused.py:295): the bare lookup with n read from the device.
+//       (fused.py:295): the bare lookup with n read from the device;
+//   lookup_vec_kernel<Engine>        replaces src/repro/kernels/binomial_hash.py
+//       _kernel (pallas_call at binomial_hash.py:91, binomial_bulk_lookup_2d):
+//       the bare lookup with n static.  The TPU kernel bakes n, E = 2^ceil(log2 n)
+//       and M = E/2 into its trace; here the host folds them and passes them
+//       by value, so they sit in the constant bank: no device read of n and
+//       no per-thread next-pow2 cascade.  The jump instance is the card's
+//       form of jump_lookup_vec, so a jump-routed MoE runs a kernel too.
 //
 // Layout: flat 1-D operands, one thread per key in a grid-stride loop, the
 // tail masked by the loop bound.  The fleet state [n_total, n_alive] and n
-// are read from device memory, so a launch needs no host copy of them.
+// are read from device memory, so a launch needs no host copy of them
+// (lookup_vec excepted: its n is a launch argument, as it is static on the
+// TPU).
 //
-// Bound: instructions, not bytes.  route and lookup_dyn move 8 B/key and
-// ingest 12 B/key (keys or id halves in, ids out).  In the sm_90a SASS
+// Bound: instructions, not bytes.  route, lookup_dyn and lookup_vec move
+// 8 B/key and ingest 12 B/key (keys or id halves in, ids out).  In the sm_90a SASS
 // (CUDA 12.9) a binomial loop iteration is 44 instructions and a jump step
 // 31-32 (the IEEE division is an MUFU.RCP + FFMA refinement with a rarely
 // taken slow path); with the per-key prologue, loads, fold and divert a key
 // costs ~110-160 instructions on binomial (about one loop trip per key) and
 // ~270-320 on jump at n = 1000 (~7.5 steps).  Over the H100 SXM data-sheet
-// peaks (700 W) that instruction time exceeds the byte time for all six
+// peaks (700 W) that instruction time exceeds the byte time for all eight
 // instances; the bound is derived, not measured.  chip_smoke.py holds the
 // SASS table behind these counts, checks it against each build, and works
 // out the bound from each run's trip counts; PERF.md section 5 has the
@@ -66,6 +75,17 @@ __global__ void lookup_dyn_kernel(const uint32_t* __restrict__ keys,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     out[i] = static_cast<int32_t>(Engine::lookup(keys[i], n_buckets, omega));
+  }
+}
+
+template <class Engine>
+__global__ void lookup_vec_kernel(const uint32_t* __restrict__ keys, uint32_t n_buckets,
+                                  uint32_t E, uint32_t M, int omega,
+                                  int32_t* __restrict__ out, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    out[i] = static_cast<int32_t>(Engine::lookup_folded(keys[i], n_buckets, E, M, omega));
   }
 }
 
@@ -123,6 +143,23 @@ extern "C" int routing_lookup_dyn(int engine, const void* keys, const void* n_bu
   switch (engine) {
     case 0: lookup_dyn_kernel<Binomial><<<blocks_for(n), THREADS, 0, s>>>(k, nb, omega, o, n); break;
     case 1: lookup_dyn_kernel<Jump><<<blocks_for(n), THREADS, 0, s>>>(k, nb, omega, o, n); break;
+    default: return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n_buckets >= 2; E and M as binomial_hash.py:64-66 computes them (jump
+// ignores them).  The wrapper answers n <= 1 with zeros and no launch.
+extern "C" int routing_lookup_vec(int engine, const void* keys, unsigned int n_buckets,
+                                  unsigned int E, unsigned int M, int omega, void* out,
+                                  long long n, void* stream) {
+  using namespace routing;
+  const auto k = static_cast<const uint32_t*>(keys);
+  const auto o = static_cast<int32_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (engine) {
+    case 0: lookup_vec_kernel<Binomial><<<blocks_for(n), THREADS, 0, s>>>(k, n_buckets, E, M, omega, o, n); break;
+    case 1: lookup_vec_kernel<Jump><<<blocks_for(n), THREADS, 0, s>>>(k, n_buckets, E, M, omega, o, n); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());

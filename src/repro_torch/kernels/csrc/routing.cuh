@@ -57,7 +57,13 @@ struct Binomial {
     m |= m >> 8;
     m |= m >> 16;
     const uint32_t E = m + 1u;
-    const uint32_t M = E >> 1;
+    return lookup_folded(key, n, E, E >> 1, omega);
+  }
+
+  // The loop with E = 2^ceil(log2 n) and M = E/2 given (folded on the host
+  // for the static-n kernel); n >= 2.
+  __device__ __forceinline__ static uint32_t lookup_folded(uint32_t key, uint32_t n,
+                                                           uint32_t E, uint32_t M, int omega) {
     const uint32_t h0 = mix32(key);
     uint32_t hi = h0;
     uint32_t kacc = key;
@@ -90,6 +96,12 @@ struct Jump {
       b = __float2uint_rz(fj);
     }
     return b;
+  }
+
+  // Jump needs no folded constants: the static-n kernel passes n alone.
+  __device__ __forceinline__ static uint32_t lookup_folded(uint32_t key, uint32_t n, uint32_t,
+                                                           uint32_t, int omega) {
+    return lookup(key, n, omega);
   }
 };
 

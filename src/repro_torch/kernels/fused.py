@@ -1,5 +1,6 @@
-"""The routing kernels' wrappers: for each engine, ``route``, ``ingest`` and
-``lookup_dyn``, each beside its plain torch version and with a launch count.
+"""The routing kernels' wrappers: for each engine, ``route``, ``ingest``,
+``lookup_dyn`` and ``lookup_vec``, each beside its plain torch version and
+with a launch count.
 
 A wrapper given CPU tensors returns its plain version's result.  Given CUDA
 tensors it launches the hand-written kernel (``csrc/routing.cu``, built by
@@ -11,12 +12,15 @@ TPU's Pallas kernels of ``repro.kernels.fused.make_fused_kernels``
     route       ``_kernel_route``      (pallas_call at fused.py:202)
     ingest      ``_kernel_ingest``     (pallas_call at fused.py:255)
     lookup_dyn  ``_kernel_lookup_dyn`` (pallas_call at fused.py:295)
+    lookup_vec  ``repro.kernels.binomial_hash._kernel`` (pallas_call at
+                binomial_hash.py:91; the jump instance is the card's form
+                of ``repro.core.jump_jax.jump_lookup_vec``)
 
 Operands: keys and id halves are int32 tensors holding u32 bit patterns;
 the fleet operands are those of ``repro_torch.core.bulk.FleetState``
 (packed mask ``(W,)``, table ``(C,)``, state ``(2,)``, all int32); ``n`` of
-``lookup_dyn`` is a 1-element int32 tensor.  Outputs are int32 tensors of
-the keys' shape.
+``lookup_dyn`` is a 1-element int32 tensor, that of ``lookup_vec`` a Python
+int.  Outputs are int32 tensors of the keys' shape.
 """
 from __future__ import annotations
 
@@ -25,13 +29,19 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.binomial_torch import binomial_lookup_dyn
-from repro_torch.core.jump_torch import jump_ingest_route, jump_lookup_dyn, jump_memento_route
+from repro_torch.core.binomial_torch import binomial_lookup_dyn, binomial_lookup_vec, fold_pow2
+from repro_torch.core.jump_torch import (
+    jump_fold,
+    jump_ingest_route,
+    jump_lookup_dyn,
+    jump_lookup_vec,
+    jump_memento_route,
+)
 from repro_torch.core.memento_torch import binomial_ingest_route, binomial_memento_route
 from repro_torch.kernels import build
 
 #: kernel kinds, as the launch counts are keyed
-KINDS = ("route", "ingest", "lookup_dyn")
+KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -73,21 +83,25 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 class RoutingKernels:
-    """One engine's three kernels.
+    """One engine's four kernels.
 
     ``launches[kind]`` grows by one at each kernel launch and nowhere else
-    (plain-version calls do not count).
+    (plain-version calls do not count).  ``fold(n)`` gives the static-n
+    kernel's host constants ``(E, M)`` and raises where the reference does.
     """
 
     def __init__(
         self, name: str, engine_id: int, route_plain: Callable,
         ingest_plain: Callable, lookup_dyn_plain: Callable,
+        lookup_vec_plain: Callable, fold: Callable[[int], tuple[int, int]],
     ):
         self.name = name
         self.engine_id = engine_id  # the C entry points' engine switch
         self.route_plain = route_plain
         self.ingest_plain = ingest_plain
         self.lookup_dyn_plain = lookup_dyn_plain
+        self.lookup_vec_plain = lookup_vec_plain
+        self.fold = fold
         self.launches = dict.fromkeys(KINDS, 0)
 
     def reset_launches(self) -> None:
@@ -151,7 +165,31 @@ class RoutingKernels:
         return out
 
 
+    def lookup_vec(self, keys, n: int, omega: int = 16) -> torch.Tensor:
+        """Bare lookup with n a static Python int: keys -> int32 buckets.
+        n <= 1 gives zeros without a launch."""
+        if _on_cpu(keys):
+            return self.lookup_vec_plain(keys, n, omega)
+        if n <= 1:
+            return torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+        E, M = self.fold(n)
+        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        if keys.numel():
+            with torch.cuda.device(keys.device):
+                rc = build.library().routing_lookup_vec(
+                    self.engine_id, _ptr(keys), n, E, M, omega, _ptr(out),
+                    keys.numel(), _stream(keys),
+                )
+            _check(rc, f"{self.name} lookup_vec")
+            self.launches["lookup_vec"] += 1
+        return out
+
+
 BINOMIAL = RoutingKernels(
-    "binomial", 0, binomial_memento_route, binomial_ingest_route, binomial_lookup_dyn
+    "binomial", 0, binomial_memento_route, binomial_ingest_route, binomial_lookup_dyn,
+    binomial_lookup_vec, fold_pow2,
 )
-JUMP = RoutingKernels("jump", 1, jump_memento_route, jump_ingest_route, jump_lookup_dyn)
+JUMP = RoutingKernels(
+    "jump", 1, jump_memento_route, jump_ingest_route, jump_lookup_dyn, jump_lookup_vec,
+    jump_fold,
+)

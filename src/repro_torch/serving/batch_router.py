@@ -37,20 +37,10 @@ from repro_torch.core import bits
 from repro_torch.core.bulk import FleetState, RouterSpec
 from repro_torch.core.memento_torch import memento_remap_table
 from repro_torch.core.registry import make_bulk
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.serving.lifecycle.errors import FleetUnavailableError
 from repro_torch.serving.router import SessionRouter, hash_session_ids
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` -> the CUDA device; raises if CUDA is asked for and absent."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device available; the routing datapath runs on the GPU "
-            "(pass device='cpu' to run the kernels' plain torch versions)"
-        )
-    return device
 
 
 class BatchRouter:

@@ -35,7 +35,8 @@ def _env() -> dict:
 def test_every_submodule_imports_without_jax_or_repro():
     mods = _submodules()
     assert {"repro_torch.serving.batch_router", "repro_torch.kernels.fused",
-            "repro_torch.interop"} <= set(mods)
+            "repro_torch.interop", "repro_torch.serving.engine", "repro_torch.models.model",
+            "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -100,4 +101,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         BINOMIAL.lookup_dyn(keys.to("meta"), keys[:1].to("meta"))
     with pytest.raises(ValueError, match="agree in shape"):
         BINOMIAL.ingest(keys, keys[:3], keys, keys, keys[:2])
-    assert BINOMIAL.launches == {"route": 0, "ingest": 0, "lookup_dyn": 0}
+    with pytest.raises(ValueError, match="CUDA devices"):
+        BINOMIAL.lookup_vec(keys.to("meta"), 10)
+    assert BINOMIAL.launches == {"route": 0, "ingest": 0, "lookup_dyn": 0, "lookup_vec": 0}
