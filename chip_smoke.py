@@ -7,32 +7,49 @@ datapath and the hash-routed MoE serving path.
 Needs one CUDA card and ``nvcc``; builds the kernels from
 ``src/repro_torch/kernels/csrc`` at first use.  Phases, one line each:
 
-1. the card (``nvidia-smi`` name and power limit), the build time, the
-   PTX check (the jump step's ``div.rn.f32``) and the SASS size of each
-   kernel;
+1. the card (``nvidia-smi`` name and power limit), the build time and each
+   kernel's registers (``-Xptxas -v``), the PTX check (the jump step's
+   ``div.rn.f32``) and the SASS size of each kernel;
 2. every kernel instance (route, ingest, lookup_dyn, lookup_vec x
    binomial, jump) against its plain torch version on the card,
    bit-exact, at 2^20 keys over several fleets (lookup_vec: over several
-   static n), and a 4,096-key sample against the scalar oracle;
+   static n), and a 4,096-key sample against the scalar oracle; the
+   redesigned kernels at ragged sizes around a warp, a warp's chunk and a
+   block's pass; ``lookup_router`` (the MoE router's keys built in the launch)
+   at the serve path's shapes and at 2^20 keys;
 3. the two main paths, each with the kernels' launch counts set to 0
    just before it and read just after:
-   - ``BatchRouter`` on the card, both engines, fused and two-pass:
-     ``route_keys`` (CUDA tensor and numpy), ``route_ids``, ``route_batch``
-     and fleet events, bit-exact with a router running the plain versions
-     on the CPU; route, ingest and lookup_dyn must have run;
+   - the routing datapath: ``BatchRouter`` on the card, both engines, fused
+     and two-pass: ``route_keys`` (CUDA tensor and numpy), ``route_ids``,
+     ``route_batch`` and fleet events, bit-exact with a router running the
+     plain versions on the CPU; then the bulk static-n lookup through its
+     entry points (``ops.binomial_bulk_lookup``, the jump engine's
+     ``kernels.lookup_vec``); route, ingest, lookup_dyn and lookup_vec must
+     have run;
    - ``ServingTier`` serving Qwen3-235B-A22B at its published widths, cut
      to 4 layers, bf16, random weights from a seeded generator, with the
      BinomialHash MoE router: 3 replicas, 24 requests of 8 tokens, 8 new
      tokens each, then replica 1 fails and the batch is served again, per
      engine.  Every request is answered, only the failed replica's
      sessions move, every expert id equals the plain lookup's, and the
-     static-n lookup ran layers x (1 + new tokens) times per group
-     served; one more call runs under ``torch.profiler`` for the
-     device's busy share.  Before it, a reduced float32 model served on
-     the card agrees with the same tier on the CPU;
-4. each kernel's time at 2^24 keys (CUDA events, median of repeats)
-   beside its bound and its plain version's time; the static-n lookup
-   also at the serve path's own sizes.
+     static-n lookup ran once per router call, layers x (1 + new tokens)
+     times per group served, with none of the key build's torch operators
+     in the router call; one more call runs under ``torch.profiler`` for
+     the device's busy share and its operator count.  Before it, a reduced
+     float32 model served on the card agrees with the same tier on the CPU;
+4. each kernel's time at 2^24 keys (CUDA events around back-to-back
+   launches) beside its bound and its plain version's time; the static-n
+   lookup also at n = 1025; ``lookup_router`` at 2^24 router keys and, as
+   the serve path calls it, at the serve path's own sizes: device time per
+   launch (the launches queued behind a sleeping kernel, so the card runs
+   them back to back) and the wrapper's host time per call.
+
+``--baseline DIR [DIR ...]`` also builds each ``DIR/routing.cu`` (another
+build of the kernels with the same C interface: the parent commit's, or a
+variant of this one) and times it against this one in turns (baseline,
+this, this, baseline), three rounds: every instance at 2^24 keys, and the
+router call at the serve path's sizes (a baseline without
+``routing_lookup_router`` builds its keys with torch).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -41,6 +58,7 @@ this file without the rest of the repository.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import shutil
@@ -62,6 +80,7 @@ REPLACES = {
     "ingest": "src/repro/kernels/fused.py:255",
     "lookup_dyn": "src/repro/kernels/fused.py:295",
     "lookup_vec": "src/repro/kernels/binomial_hash.py:91",
+    "lookup_router": "src/repro/kernels/binomial_hash.py:91",
 }
 ENGINES = ("binomial", "jump")
 #: the kernels that read a fleet (the routing datapath), and all kernels
@@ -79,51 +98,89 @@ KINDS = (*FLEET_KINDS, "lookup_vec")
 #: per-pipe count would be.
 HBM_BYTES_S = 3.35e12
 LANE_INSTR_S = 67e12 / 2
-#: SASS instructions each key executes, counted by hand along the common
-#: path in ``cuobjdump -sass`` of the sm_90a build (CUDA 12.9): ``key``
-#: outside the lookup loop (thread prologue — the grid gives each thread
-#: one key —, loads, the splitmix64 of ingest, the mask test, the store;
+#: The per-key SASS instruction counts of the kernels' first build (the
+#: yardstick): counted by hand along the common path in ``cuobjdump -sass``
+#: of that sm_90a build (CUDA 12.9), whose kernels ran one thread per key
+#: through an early-exit loop: ``key`` outside the lookup loop (thread
+#: prologue, loads, the splitmix64 of ingest, the mask test, the store;
 #: less the part of the exiting iteration it skips), ``iter`` per loop
-#: iteration, ``fold`` for binomial's block A/C relocation, ``divert`` for
-#: a removed bucket and ``deep`` for its second redirect.  The bound
-#: multiplies them by this run's per-key trip counts.  ``static`` is the
-#: function's whole SASS size in the build the table was counted from:
-#: phase 1 fails if the build differs, so an edit of ``routing.cu`` or
-#: another compiler forces a recount.
-SASS = {
-    ("binomial", "route"): dict(static=472, key=68, iter=44, fold=26, divert=31, deep=11),
-    ("binomial", "ingest"): dict(static=232, key=90, iter=44, fold=26, divert=31, deep=11),
-    ("binomial", "lookup_dyn"): dict(static=312, key=53, iter=44, fold=26, divert=0, deep=0),
-    ("jump", "route"): dict(static=640, key=52, iter=32, fold=0, divert=31, deep=11),
-    ("jump", "ingest"): dict(static=600, key=74, iter=32, fold=0, divert=31, deep=11),
-    ("jump", "lookup_dyn"): dict(static=440, key=37, iter=31, fold=0, divert=0, deep=0),
+#: trip, ``fold`` for binomial's block A/C relocation, ``divert`` for a
+#: removed bucket and ``deep`` for its second redirect.  Phase 4 prints the
+#: share against it (the fold charged wherever block A or C is the exit)
+#: beside the bound, so that the first build's shares can be compared.
+YARDSTICK = {
+    ("binomial", "route"): dict(key=68, iter=44, fold=26, divert=31, deep=11),
+    ("binomial", "ingest"): dict(key=90, iter=44, fold=26, divert=31, deep=11),
+    ("binomial", "lookup_dyn"): dict(key=53, iter=44, fold=26, divert=0, deep=0),
+    ("jump", "route"): dict(key=52, iter=32, fold=0, divert=31, deep=11),
+    ("jump", "ingest"): dict(key=74, iter=32, fold=0, divert=31, deep=11),
+    ("jump", "lookup_dyn"): dict(key=37, iter=31, fold=0, divert=0, deep=0),
     # the static-n kernel: n, E and M arrive as launch arguments, so the
     # binomial key path drops the n load and the next-pow2 cascade (-14)
     # and the jump key path the n load (-1); the loops are the same
-    ("binomial", "lookup_vec"): dict(static=496, key=39, iter=44, fold=26, divert=0, deep=0),
-    ("jump", "lookup_vec"): dict(static=440, key=36, iter=31, fold=0, divert=0, deep=0),
+    ("binomial", "lookup_vec"): dict(key=39, iter=44, fold=26, divert=0, deep=0),
+    ("jump", "lookup_vec"): dict(key=36, iter=31, fold=0, divert=0, deep=0),
 }
-#: each kernel instance's mangled name in the library
+#: SASS instructions of one step of the redesigned jump chains
+#: (``jump_chains`` in routing.cu, sm_90a, n <= 2^23): the LCG, the I2F and
+#: the IEEE division (``MUFU.RCP``, its ``FCHK`` and refinement), the
+#: product, the compare and the b + 1 update; counted like the yardstick.
+#: The first build's step took 31-32 (``iter`` above).
+JUMP_STEP = 24
+#: The bound's counts: the yardstick's, with every jump step at the fewest
+#: instructions a build of this repo takes for it (``JUMP_STEP``).  The
+#: bound charges the fold only where the lookup needs it (block A left on a
+#: trip after the first, or block C): on the first trip block A's fold
+#: equals the candidate (``Binomial::first_trip``).  A kernel that does the
+#: same work in fewer instructions can beat the bound: its bound/time share
+#: then exceeds 1, and phase 4 prints it so.
+WORK = {key: dict(c, iter=JUMP_STEP) if key[0] == "jump" else c for key, c in YARDSTICK.items()}
+#: each kernel function's whole SASS size (instructions) in the build this
+#: table was counted from (sm_90a, by the card machine's nvcc);
+#: ``lookup_router`` is the static-n kernel over the router's key source,
+#: a separate function, so it has its own row in the kernels line.
+#: Phase 1 fails if the build differs, so an edit of ``routing.cu`` or
+#: another compiler forces a recount.
+SASS_STATIC = {
+    ("binomial", "route"): 1568, ("binomial", "ingest"): 1968, ("binomial", "lookup_dyn"): 312,
+    ("binomial", "lookup_vec"): 1088, ("binomial", "lookup_router"): 1264,
+    ("jump", "route"): 1216, ("jump", "ingest"): 1296, ("jump", "lookup_dyn"): 440,
+    ("jump", "lookup_vec"): 928, ("jump", "lookup_router"): 1136,
+}
+#: each kernel instance's mangled name in the library, up to its parameters
 FUNCTIONS = {
     (engine, kind): name.format(E=mangled)
     for engine, mangled in (("binomial", "8Binomial"), ("jump", "4Jump"))
     for kind, name in (
-        ("route", "_ZN7routing12route_kernelINS_{E}ENS_9KeySourceEEEvT0_PKjiPKiiS7_iPil"),
-        ("ingest", "_ZN7routing12route_kernelINS_{E}ENS_8IdSourceEEEvT0_PKjiPKiiS7_iPil"),
-        ("lookup_dyn", "_ZN7routing17lookup_dyn_kernelINS_{E}EEEvPKjPKiiPil"),
-        ("lookup_vec", "_ZN7routing17lookup_vec_kernelINS_{E}EEEvPKjjjjiPil"),
+        ("route", "_ZN7routing12route_kernelINS_{E}ENS_9KeySourceEEEv"),
+        ("ingest", "_ZN7routing12route_kernelINS_{E}ENS_8IdSourceEEEv"),
+        ("lookup_dyn", "_ZN7routing17lookup_dyn_kernelINS_{E}EEEv"),
+        ("lookup_vec", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_9KeySourceEEEv"),
+        ("lookup_router", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_15RouterKeySourceEEEv"),
     )
 }
 #: bytes each kernel must move per key: keys (or two id halves) in, ids out
 BYTES_PER_KEY = {"route": 8, "ingest": 12, "lookup_dyn": 8, "lookup_vec": 8}
+#: the kernels line's rows: every kind, then the router's static-n lookup
+ROWS = (*KINDS, "lookup_router")
 
 N_CHECK = 1 << 20  # the repo's acceptance batch (benchmarks/bench_router.py)
 N_TIME = 1 << 24
 N_ORACLE = 4096
-#: static n for the lookup_vec checks: the pow2 edges and the paper's
-#: cluster sizes (configs.PAPER_BENCH); n = 1000 for its times, as lookup_dyn
-VEC_NS = (2, 3, 10, 11, 100, 128, 1000, 1023, 1024, 1025, 10000, 65536, 100000)
+#: static n for the lookup_vec checks: the pow2 edges, the paper's cluster
+#: sizes (configs.PAPER_BENCH) and 2^23 + 1, past which the jump chains
+#: leave their exact-f32 step; n = 1000 for its times, as lookup_dyn
+VEC_NS = (2, 3, 10, 11, 100, 128, 1000, 1023, 1024, 1025, 10000, 65536, 100000, (1 << 23) + 1)
 VEC_N_TIME = 1000
+#: n where half the binomial keys go past the loop's first trip
+VEC_N_HALF = 1025
+#: key counts around a warp (32), a warp's chunk (256 = 32 lanes x 8 keys)
+#: and a block's pass (2,048) of the redesigned kernels, and past two passes
+TAIL_SIZES = (1, 31, 33, 255, 257, 2047, 2049, 4097)
+#: token-id shapes of the router calls checked: the serve path's (decode and
+#: prefill groups of 1-16 requests of 8 tokens), then 2^20 keys at top-8
+ROUTER_SHAPES = ((1, 1), (13, 1), (16, 1), (13, 8), (16, 8), (1024, 128))
+ROUTER_SALTS = (0, 1, 93)
 
 #: the serve phase: Qwen3-235B-A22B (its published config, in
 #: repro_torch.configs) with the hash router, cut from 94 layers to 4; the
@@ -285,11 +342,81 @@ def phase_lookup_vec(engine, kernels, keys, max_err: dict) -> None:
     print(f"phase 2 lookup_vec[{engine}] n=1: zeros, no launch")
 
 
+def phase_tails(max_err: dict) -> None:
+    """The kernels at ragged sizes: every instance against its plain
+    version (lookup_vec at n = 1000 and 1025) on a fleet with 250 of 1000
+    replicas failed."""
+    from repro_torch.core.registry import make_bulk
+
+    rng = np.random.default_rng(3)
+    keys = u32_tensor(rng, max(TAIL_SIZES)).cuda()
+    hi = u32_tensor(rng, max(TAIL_SIZES)).cuda()
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        _, fleet = make_fleet(engine, 1000, 1024, 250, 2)
+        worst = 0
+        for size in TAIL_SIZES:
+            k, h = keys[:size], hi[:size]
+            pairs = [(kind, run_kind(kernels, kind, k, h, fleet, plain=False),
+                      run_kind(kernels, kind, k, h, fleet, plain=True)) for kind in KINDS]
+            pairs.append(("lookup_vec", kernels.lookup_vec(k, VEC_N_HALF),
+                          kernels.lookup_vec_plain(k, VEC_N_HALF)))
+            torch.cuda.synchronize()
+            for kind, got, want in pairs:
+                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                max_err[engine, kind] = max(max_err.get((engine, kind), 0), err)
+                worst = max(worst, err)
+                if err or got.shape != want.shape:
+                    fail(f"{kind}[{engine}] at {size} keys disagrees with its plain version")
+        print(f"phase 2 tails[{engine}]: route, ingest, lookup_dyn, lookup_vec (n = {VEC_N_TIME}, "
+              f"{VEC_N_HALF}) at {', '.join(map(str, TAIL_SIZES))} keys: max |kernel - plain| = "
+              f"{worst}")
+
+
+def phase_lookup_router(max_err: dict) -> None:
+    """``lookup_router`` (the static-n kernel building the MoE router's
+    keys from token ids) against its plain version, for int64 and int32
+    ids, bit-exact; a 4,096-key sample against the scalar oracle."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.binomial import binomial_lookup32
+    from repro_torch.core.binomial_torch import router_keys
+    from repro_torch.core.jump import jump_lookup32
+    from repro_torch.core.registry import make_bulk
+
+    m = get_config(SERVE_ARCH).moe
+    rng = np.random.default_rng(4)
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        oracle32 = binomial_lookup32 if engine == "binomial" else jump_lookup32
+        worst, n_ok = 0, 0
+        for shape in ROUTER_SHAPES:
+            tokens = torch.from_numpy(rng.integers(0, get_config(SERVE_ARCH).vocab_size,
+                                                   size=shape)).cuda()
+            for salt in ROUTER_SALTS:
+                want = kernels.lookup_router_plain(tokens, salt, m.top_k, m.num_experts)
+                for ids in (tokens, tokens.to(torch.int32)):
+                    got = kernels.lookup_router(ids, salt, m.top_k, m.num_experts)
+                    torch.cuda.synchronize()
+                    if got.shape != want.shape:
+                        fail(f"lookup_router[{engine}] gave shape {tuple(got.shape)}")
+                    worst = max(worst, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+            keys = router_keys(tokens, salt, m.top_k).reshape(-1)[:N_ORACLE].cpu().tolist()
+            expect = np.asarray([oracle32(k, m.num_experts, 16) for k in keys])
+            n_ok += int((got.reshape(-1)[:N_ORACLE].cpu().numpy() == expect).all())
+        max_err[engine, "lookup_router"] = worst
+        print(f"phase 2 lookup_router[{engine}]: token ids {list(ROUTER_SHAPES)} (int64 and int32) "
+              f"x layer salts {ROUTER_SALTS}, top-{m.top_k} of n = {m.num_experts}: "
+              f"max |kernel - plain| = {worst}; oracle agrees on {n_ok}/{len(ROUTER_SHAPES)} shapes")
+        if worst or n_ok != len(ROUTER_SHAPES):
+            fail(f"lookup_router[{engine}] disagrees")
+
+
 # --- the main path ----------------------------------------------------------
 
 
 def phase_router() -> dict:
     from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.kernels import ops
     from repro_torch.serving.batch_router import BatchRouter
 
     for eng in BULK_ENGINES.values():
@@ -355,8 +482,19 @@ def phase_router() -> dict:
             print(f"phase 3 BatchRouter {tag}: route_keys/route_ids on {N_CHECK} keys, "
                   f"route_batch on {len(sessions)} ids, {events} fleet events, "
                   f"epoch {gpu.routing_epoch}: bit-exact with the plain-version router")
+    # the bulk static-n lookup, through the entry point each engine has
+    for engine in ENGINES:
+        kernels = BULK_ENGINES[engine].kernels
+        for n in (VEC_N_TIME, VEC_N_HALF):
+            got = (ops.binomial_bulk_lookup(keys, n) if engine == "binomial"
+                   else kernels.lookup_vec(keys, n))
+            want = kernels.lookup_vec_plain(keys.cpu(), n)
+            if not (got.is_cuda and torch.equal(got.cpu(), want)):
+                fail(f"bulk lookup_vec[{engine}] at n = {n} differs from the plain version")
+        print(f"phase 3 bulk lookup_vec[{engine}] on {N_CHECK} keys, n = {VEC_N_TIME} and "
+              f"{VEC_N_HALF}: bit-exact with the plain version on the CPU")
     torch.cuda.synchronize()
-    launches = {(e, k): BULK_ENGINES[e].kernels.launches[k] for e in ENGINES for k in FLEET_KINDS}
+    launches = {(e, k): BULK_ENGINES[e].kernels.launches[k] for e in ENGINES for k in KINDS}
     print("phase 3 router launches " + json.dumps({f"{k}[{e}]": n for (e, k), n in launches.items()}))
     missing = [f"{k}[{e}]" for (e, k), n in launches.items() if n == 0]
     if missing:
@@ -464,7 +602,9 @@ def profile_serve(engine, tier, reqs, n_steps: int, step_floor_ms: float, card: 
         tier.serve(reqs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    n_ops = sum(e.count for e in events if e.key.startswith("aten::"))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kernels:
         print(f"phase 3 serve[{engine}] profiled serve() call: the profiler recorded no "
               f"device time (wall {wall_ms:.1f} ms)")
@@ -472,19 +612,64 @@ def profile_serve(engine, tier, reqs, n_steps: int, step_floor_ms: float, card: 
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     print(f"phase 3 serve[{engine}] profiled serve() call: wall {wall_ms:.1f} ms for {n_steps} "
-          f"steps, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}; floor "
+          f"steps, {n_ops} torch operators ({n_ops / n_steps:.0f} per step), "
+          f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}; floor "
           f"{n_steps * step_floor_ms:.1f} ms) on {card}; top kernels by device time: "
           + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
                       for e in top))
 
 
+def aten_ops(fn) -> dict[str, int]:
+    """The torch operators one call of ``fn`` dispatches, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return {e.key: e.count for e in prof.key_averages() if e.key.startswith("aten::")}
+
+
+#: operators that allocate or view but compute nothing (the router call
+#: allocates its output and gates too)
+ALLOCATING_OPS = {"aten::empty", "aten::empty_strided", "aten::empty_like", "aten::resize_",
+                  "aten::as_strided", "aten::unsqueeze", "aten::view", "aten::expand"}
+
+
+def check_router_call(cfg, engine: str) -> None:
+    """One hash-router call of ``moe.route`` at a prefill group's shape:
+    one lookup_vec launch and none of the operators that building the
+    keys with torch (``router_keys``) dispatches."""
+    from repro_torch.core.binomial_torch import router_keys
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.models.layers import moe
+
+    kernels = BULK_ENGINES[engine].kernels
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, size=(16, SERVE_PROMPT))).cuda()
+    x = torch.zeros((*tokens.shape, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+    moe.route(None, x, tokens, 3, cfg)  # warm
+    before = kernels.launches["lookup_vec"]
+    route_ops = aten_ops(lambda: moe.route(None, x, tokens, 3, cfg))
+    launched = kernels.launches["lookup_vec"] - before
+    key_ops = {op: n for op, n in aten_ops(lambda: router_keys(tokens, 3, cfg.moe.top_k)).items()
+               if op not in ALLOCATING_OPS}
+    shared = sorted(set(route_ops) & set(key_ops))
+    print(f"phase 3 serve[{engine}] one moe.route call (tokens {tuple(tokens.shape)}): "
+          f"{launched} launch (lookup_router, counted under lookup_vec), torch operators "
+          f"{json.dumps(route_ops)}; building the "
+          f"keys with torch computes with {sum(key_ops.values())} ({', '.join(sorted(key_ops))}), "
+          f"of which the call runs {shared or 'none'}")
+    if launched != 1 or shared:
+        fail(f"serve[{engine}]: the router call made {launched} launches and ran the key "
+             f"build's operators {shared}")
+
+
 def phase_serve(card: str) -> tuple[dict, dict]:
-    """ServingTier at full width: -> (launches, the router keys each
-    lookup_vec launch took, by phase and engine)."""
+    """ServingTier at full width: -> (launches, the largest router call's
+    token ids and layer salt, by phase and engine)."""
     from repro_torch.configs import get_config
     from repro_torch.core.registry import BULK_ENGINES
     from repro_torch.models import model as M
-    from repro_torch.models.layers.moe import router_keys
     from repro_torch.serving.engine import ServingTier
 
     check_small_model()
@@ -505,7 +690,7 @@ def phase_serve(card: str) -> tuple[dict, dict]:
           f"vocab {base.vocab_size} padded to {base.padded_vocab}), {base.dtype}, layers cut "
           f"94 -> {SERVE_LAYERS}; random weights in {init_s:.2f} s; parameters {held / 1e9:.3f} GB "
           f"(reckoned: 4 x 4.975 GB per layer + 2.491 GB embeddings = 22.39 GB)")
-    launches, keys_seen = {}, {"prefill": {}, "decode": {}}
+    launches, calls_seen = {}, {"prefill": {}, "decode": {}}
     for engine in ENGINES:
         cfg = hash_routed(base, engine)
         kernels = BULK_ENGINES[engine].kernels
@@ -533,27 +718,30 @@ def phase_serve(card: str) -> tuple[dict, dict]:
                 check_answers(f"serve[{engine}]", out, reqs, cfg.padded_vocab)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        launches[engine] = {k: kernels.launches[k] for k in ("route", "lookup_vec")}
+        # moe.route's static-n lookup is lookup_router, whose launches the
+        # wrapper counts under lookup_vec; no other lookup_vec runs here
+        launches[engine] = {"route": kernels.launches["route"],
+                            "lookup_router": kernels.launches["lookup_vec"]}
         after = [tier.router.route(i) for i in ids]
         moved = [i for i, a, b in zip(ids, before, after) if a != b]
         if any(b != SERVE_FAIL for i, a, b in zip(ids, after, before) if a != b) \
                 or SERVE_FAIL in after:
             fail(f"serve[{engine}]: sessions moved that were not on replica {SERVE_FAIL}")
         want = SERVE_LAYERS * (1 + SERVE_NEW) * groups
-        if launches[engine]["lookup_vec"] != want or launches[engine]["route"] != 2:
-            fail(f"serve[{engine}]: launches {launches[engine]}, expected lookup_vec = "
+        if launches[engine]["lookup_router"] != want or launches[engine]["route"] != 2:
+            fail(f"serve[{engine}]: launches {launches[engine]}, expected lookup_router = "
                  f"{SERVE_LAYERS} layers x (1 + {SERVE_NEW}) x {groups} groups = {want}, route = 2")
         if len(log.calls) != want:
             fail(f"serve[{engine}]: {len(log.calls)} router calls for {want} launches")
         m = cfg.moe
         for salt, tokens, expert_ids in log.calls:
-            keys = router_keys(tokens, salt, m.top_k)
-            plain = kernels.lookup_vec_plain(keys, m.num_experts, m.router_hash_omega)
+            plain = kernels.lookup_router_plain(tokens, salt, m.top_k, m.num_experts,
+                                                m.router_hash_omega)
             if not torch.equal(expert_ids, plain):
                 fail(f"serve[{engine}]: the expert ids of layer {salt} differ from the plain lookup's")
             phase = "prefill" if tokens.shape[1] > 1 else "decode"
-            if keys.numel() > keys_seen[phase].get(engine, torch.empty(0)).numel():
-                keys_seen[phase][engine] = keys.to(torch.int32)
+            if tokens.numel() > calls_seen[phase].get(engine, (torch.empty(0), 0))[0].numel():
+                calls_seen[phase][engine] = (tokens, salt)
         tokens_out = SERVE_REQUESTS * SERVE_NEW
         print(f"phase 3 serve[{engine}]: {SERVE_REQUESTS} requests x {SERVE_NEW} new tokens on "
               f"{SERVE_REPLICAS} replicas, all answered; fail({SERVE_FAIL}) moved "
@@ -561,7 +749,7 @@ def phase_serve(card: str) -> tuple[dict, dict]:
               f"{len(log.calls)} router calls, every expert id equal to the plain lookup's")
         print(f"phase 3 serve[{engine}] launches " + json.dumps(
             {f"{k}[{engine}]": n for k, n in launches[engine].items()})
-            + f" (lookup_vec = {SERVE_LAYERS} x (1 + {SERVE_NEW}) x {groups} groups)")
+            + f" (lookup_router = {SERVE_LAYERS} x (1 + {SERVE_NEW}) x {groups} groups)")
         print(f"phase 3 serve[{engine}] wall per serve() call: "
               + ", ".join(f"{w * 1e3:.1f} ms ({tokens_out / w:.1f} new tokens/s; {n} model steps, "
                           f"{w * 1e3 / n:.2f} ms per step)" for w, n in zip(walls, steps))
@@ -569,6 +757,7 @@ def phase_serve(card: str) -> tuple[dict, dict]:
               f"(every weight but the embedding table read once at {HBM_BYTES_S / 1e12} TB/s); "
               f"peak memory {peak / 1e9:.3f} GB (parameters {held / 1e9:.3f} GB; init peak "
               f"{init_peak / 1e9:.3f} GB) on {card}")
+        check_router_call(cfg, engine)
         profile_serve(engine, tier, reqs, steps[-1], step_floor_ms, card)
     probe = make_requests(base.vocab_size, 12)[:2]
     prompts = torch.from_numpy(np.stack([r.prompt for r in probe])).cuda()
@@ -578,23 +767,25 @@ def phase_serve(card: str) -> tuple[dict, dict]:
              f"{bool(torch.isfinite(logits).all())}")
     del params, logits
     torch.cuda.empty_cache()
-    return launches, keys_seen
+    return launches, calls_seen
 
 
 # --- times and bounds -------------------------------------------------------
 
 
 def trip_counts(engine, keys, n):
-    """Per key: loop iterations, whether the binomial fold ran, and the
-    bucket the loop settles on — what this run's data makes each kernel
-    thread execute, for ``n`` buckets.  The bucket is held against the
-    plain lookup, so the trip counts follow the same loop."""
+    """Per key: loop iterations, whether the loop leaves through binomial's
+    fold (block A or C), whether the lookup needs that fold (not on the
+    first trip, where it equals the candidate), and the bucket the loop
+    settles on, for ``n`` buckets.  The bucket is held against the plain
+    lookup, so the trip counts follow the same loop."""
     from repro_torch.core import binomial_torch as bt
 
     k = bt.u32(keys)
     n = bt.u32(n)
     iters = torch.full_like(k, 16)
     fold = torch.zeros_like(k, dtype=torch.bool)
+    needed = torch.zeros_like(fold)
     done = torch.zeros_like(fold)
     if engine == "binomial":
         E = bt.next_pow2_u32(n)
@@ -607,11 +798,13 @@ def trip_counts(engine, keys, n):
             stop = ~done & ((c < M) | (c < n))
             iters = torch.where(stop, i + 1, iters)
             fold = fold | (stop & (c < M))
+            if i:
+                needed = needed | (stop & (c < M))
             bucket = torch.where(stop & (c >= M), c, bucket)
             done = done | stop
             kacc = (kacc + bt.GOLDEN32) & bt.MASK32
             hi = bt.mix32(kacc)
-        fold = fold | ~done
+        fold, needed = fold | ~done, needed | ~done
     else:
         lk, bucket = k, torch.zeros_like(k)
         top = torch.tensor(2.0**31, dtype=torch.float32, device=k.device)
@@ -623,67 +816,165 @@ def trip_counts(engine, keys, n):
             iters = torch.where(stop, i + 1, iters)
             bucket = torch.where(~done & ~stop, fj.to(torch.int64), bucket)
             done = done | stop
-    return iters, fold, torch.where(n <= 1, 0, bucket)
+    return iters, fold, needed, torch.where(n <= 1, 0, bucket)
 
 
-def time_ms(fn, repeats: int) -> float:
+def time_ms(fn, launches: int = 10, repeats: int = 5) -> float:
+    """Device time per launch of ``fn``, a call that keeps the card busier
+    than the host's enqueue: CUDA events around ``launches`` back-to-back
+    calls, median over ``repeats``."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
-def bound(engine, kind, keys, fleet, n_vec: int = VEC_N_TIME) -> dict:
+#: clock cycles a sleeping kernel holds the stream (~25 ms at 1.98 GHz)
+SLEEP_CYCLES = 50_000_000
+
+
+def small_call_ms(fn, launches: int = 200, repeats: int = 5) -> tuple[float, bool]:
+    """Device time per launch of a call too small to outlast its own host
+    enqueue: the launches are queued behind a sleeping kernel, so once it
+    wakes the card runs them back to back, and the events bracket only
+    them.  -> (ms per launch, whether every enqueue finished within the
+    sleep, without which the time would be the host's)."""
+    fn()
+    torch.cuda.synchronize()
+    times, held = [], True
+    for _ in range(repeats):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        held = held and host_ms < ev[0].elapsed_time(ev[1])
+        times.append(ev[1].elapsed_time(ev[2]) / launches)
+    return statistics.median(times), held
+
+
+def host_ms(fn, calls: int = 1000) -> float:
+    """The wrapper's host time per call: ``perf_counter`` over ``calls``
+    calls, then one synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
+
+
+def bound(engine, kind, keys, fleet, n_vec: int = VEC_N_TIME, nbytes: int | None = None) -> dict:
     """The least time the card could take for ``kind`` on these keys: the
-    larger of the SASS lane instructions this data makes the kernel run
-    (at the issue rate) and the bytes it must move (at the HBM rate).  The
-    static-n lookup takes ``n_vec`` as a launch argument and reads no
-    fleet."""
+    larger of ``WORK``'s SASS lane instructions for the trips this data
+    needs (at the issue rate) and the bytes the call must move (at the HBM
+    rate; ``nbytes`` where its inputs are not the keys).  Also the same
+    bound by the first build's ``YARDSTICK``.  The static-n lookup takes ``n_vec`` as
+    a launch argument and reads no fleet."""
     from repro_torch.core import binomial_torch as bt
     from repro_torch.core.registry import make_bulk
 
     kernels = make_bulk(engine).kernels
     count = keys.numel()
     n = fleet.state[0] if kind != "lookup_vec" else torch.tensor(n_vec, device=keys.device)
-    iters, fold, settled = trip_counts(engine, keys, n)
+    iters, fold, needed, settled = trip_counts(engine, keys, n)
     if kind == "lookup_vec":
         routed = kernels.lookup_vec_plain(keys, n_vec)
     else:
         routed = kernels.lookup_dyn_plain(keys.to(torch.int32), fleet.state[:1])
     if not torch.equal(settled, routed.to(torch.int64)):
         fail(f"the trip counts of {kind}[{engine}] follow another loop than the plain lookup")
-    c = SASS[engine, kind]
-    ops = c["key"] * count + c["iter"] * int(iters.sum()) + c["fold"] * int(fold.sum())
-    nbytes = BYTES_PER_KEY[kind] * count
+    trips = int(iters.sum())
+    per = {}
+    for name, table, folds in (("work", WORK, needed), ("yardstick", YARDSTICK, fold)):
+        c = table[engine, kind]
+        per[name] = c["key"] * count + c["iter"] * trips + c["fold"] * int(folds.sum())
+    if nbytes is None:
+        nbytes = BYTES_PER_KEY[kind] * count
+    # one thread per key (the yardstick's layout): a warp of 32 consecutive
+    # keys runs as many trips as its slowest lane
+    flat = iters.reshape(-1)
+    whole = count // 32 * 32
+    warp_trips = flat[:whole].reshape(-1, 32).max(1).values if whole else flat.max().reshape(1)
+    diverted = 0.0
     if kind in ("route", "ingest"):
         b = bt.u32(routed)
         hit = ((bt.u32(fleet.packed)[b >> 5] >> (b & 31)) & 1) != 0
         q = bt.mulhi32(bt.hash_pair(bt.u32(keys), b), bt.u32(fleet.state[0]))
         deep = hit & (q >= bt.u32(fleet.state[1]))
-        ops += c["divert"] * int(hit.sum()) + c["deep"] * int(deep.sum())
+        for name, table in (("work", WORK), ("yardstick", YARDSTICK)):
+            c = table[engine, kind]
+            per[name] += c["divert"] * int(hit.sum()) + c["deep"] * int(deep.sum())
+        diverted = float(hit.double().mean())
         nbytes += 4 * (fleet.packed.numel() + fleet.table.numel() + fleet.state.numel())
     elif kind == "lookup_dyn":
         nbytes += 4  # n
-    t_ops, t_bytes = ops / LANE_INSTR_S * 1e3, nbytes / HBM_BYTES_S * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                t_ops=t_ops, t_bytes=t_bytes, per_key=ops / count,
-                trips=float(iters.double().mean()))
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = {name: ops / LANE_INSTR_S * 1e3 for name, ops in per.items()}
+    return dict(bound_ms=max(t_ops["work"], t_bytes),
+                bound_by="operations" if t_ops["work"] >= t_bytes else "bytes",
+                yardstick_bound_ms=max(t_ops["yardstick"], t_bytes), t_ops=t_ops["work"],
+                t_bytes=t_bytes, per_key=per["work"] / count,
+                yardstick_per_key=per["yardstick"] / count,
+                trips=float(flat.double().mean()), warp_trips=float(warp_trips.double().mean()),
+                first_trip=float((flat == 1).double().mean()),
+                folds=float(needed.double().mean()), diverted=diverted)
 
 
-def phase_times(serve_keys: dict, n_experts: int) -> dict:
+def trips_text(b: dict) -> str:
+    """This data's loop trips: per key, per warp of 32 consecutive keys (one
+    thread per key), the share of keys settled on the first trip, the share
+    that needs binomial's fold, and the share of keys diverted."""
+    return (f"mean trips {b['trips']:.3f} per key, {b['warp_trips']:.3f} per warp of 32 keys, "
+            f"{b['first_trip']:.1%} settled on the first trip"
+            + (f", {b['folds']:.2%} need the fold" if b["folds"] else "")
+            + (f", {b['diverted']:.1%} diverted" if b["diverted"] else ""))
+
+
+def share(bound_ms: float, ms: float) -> str:
+    """bound / time; above 1 the kernel did the work in fewer instructions
+    than the bound counts."""
+    r = bound_ms / ms
+    return f"{r:.3f}" + (" (above 1: fewer instructions than the bound counts)" if r > 1 else "")
+
+
+def bound_text(b: dict, ms: float) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms (instructions {b['t_ops']:.4f} ms = "
+            f"{b['per_key']:.1f}/key, {trips_text(b)}; bytes {b['t_bytes']:.4f} ms), bound/time "
+            f"{share(b['bound_ms'], ms)}; by the first build's yardstick {b['yardstick_bound_ms']:.4f} ms "
+            f"({b['yardstick_per_key']:.1f}/key), bound/time {share(b['yardstick_bound_ms'], ms)}")
+
+
+def bound_row(b: dict) -> dict:
+    return dict(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                yardstick_bound_ms=b["yardstick_bound_ms"])
+
+
+def phase_times(serve_calls: dict, moe_cfg) -> dict:
+    from repro_torch.configs import get_config
     from repro_torch.core import binomial_torch as bt
     from repro_torch.core.registry import make_bulk
 
     rng = np.random.default_rng(2)
     keys = u32_tensor(rng, N_TIME).cuda()
     hi = u32_tensor(rng, N_TIME).cuda()
+    vocab = get_config(SERVE_ARCH).vocab_size
+    tokens_big = torch.from_numpy(rng.integers(0, vocab, size=N_TIME // moe_cfg.top_k)).cuda()
     rows = {}
     for engine in ENGINES:
         kernels = make_bulk(engine).kernels
@@ -691,32 +982,169 @@ def phase_times(serve_keys: dict, n_experts: int) -> dict:
         for kind in KINDS:
             src = bt.mix64_lo32(keys, hi) if kind == "ingest" else keys
             b = bound(engine, kind, src, fleet)
-            ms = time_ms(lambda: run_kind(kernels, kind, keys, hi, fleet, plain=False), 21)
-            plain_ms = time_ms(lambda: run_kind(kernels, kind, keys, hi, fleet, plain=True), 3)
-            rows[engine, kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                                      bound_by=b["bound_by"])
-            what = "n = 1000" if kind == "lookup_vec" else "fleet 1000/1024 with 250 failed"
+            ms = time_ms(lambda: run_kind(kernels, kind, keys, hi, fleet, plain=False))
+            plain_ms = time_ms(lambda: run_kind(kernels, kind, keys, hi, fleet, plain=True), 1, 3)
+            rows[engine, kind] = dict(ms=ms, plain_ms=plain_ms, **bound_row(b))
+            what = f"n = {VEC_N_TIME}" if kind == "lookup_vec" else "fleet 1000/1024 with 250 failed"
             print(f"phase 4 {kind}[{engine}] {N_TIME} keys, {what}: "
-                  f"{ms:.4f} ms ({N_TIME / ms / 1e6:.3f} Gkeys/s), bound {b['bound_ms']:.4f} ms "
-                  f"(instructions {b['t_ops']:.4f} ms = {b['per_key']:.1f}/key, mean trips "
-                  f"{b['trips']:.3f}; bytes {b['t_bytes']:.4f} ms), "
+                  f"{ms:.4f} ms ({N_TIME / ms / 1e6:.3f} Gkeys/s), {bound_text(b, ms)}, "
                   f"plain version {plain_ms:.3f} ms")
-        for phase, by_engine in serve_keys.items():
-            # the router's own keys at the serve path's largest group
-            vk = by_engine[engine]
-            b = bound(engine, "lookup_vec", vk, None, n_experts)
-            ms = time_ms(lambda: kernels.lookup_vec(vk, n_experts), 101)
-            plain_ms = time_ms(lambda: kernels.lookup_vec_plain(vk, n_experts), 11)
-            rows[engine, "lookup_vec"].update({
-                f"{phase}_keys": vk.numel(), f"{phase}_ms": ms, f"{phase}_plain_ms": plain_ms,
-                f"{phase}_bound_ms": b["bound_ms"]})
-            print(f"phase 4 lookup_vec[{engine}] at the serve path's {phase} size, "
-                  f"{vk.numel()} router keys, n = {n_experts}: {ms:.4f} ms per launch, bound "
-                  f"{b['bound_ms']:.6f} ms ({b['bound_by']}), plain version {plain_ms:.3f} ms")
+        # half the binomial keys continue past the first trip
+        b = bound(engine, "lookup_vec", keys, None, VEC_N_HALF)
+        ms = time_ms(lambda: kernels.lookup_vec(keys, VEC_N_HALF))
+        rows[engine, "lookup_vec"].update({"n1025_ms": ms, "n1025_bound_ms": b["bound_ms"],
+                                           "n1025_yardstick_bound_ms": b["yardstick_bound_ms"]})
+        print(f"phase 4 lookup_vec[{engine}] {N_TIME} keys, n = {VEC_N_HALF}: {ms:.4f} ms, "
+              f"{bound_text(b, ms)}")
+        # the router's static-n lookup, keys built in the launch: at 2^24
+        # router keys (the bound does not count the key build), then at the
+        # serve path's largest group
+        calls = {"2^24": (tokens_big, 3), **{p: c[engine] for p, c in serve_calls.items()}}
+        for phase, (tokens, salt) in calls.items():
+            args = (tokens, salt, moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.router_hash_omega)
+            vk = bt.router_keys(tokens, salt, moe_cfg.top_k)
+            b = bound(engine, "lookup_vec", vk, None, moe_cfg.num_experts,
+                      nbytes=tokens.numel() * tokens.element_size() + 4 * vk.numel())
+            head = (f"phase 4 lookup_router[{engine}] token ids {tuple(tokens.shape)} -> "
+                    f"{vk.numel()} router keys, n = {moe_cfg.num_experts}")
+            if phase == "2^24":
+                ms = time_ms(lambda: kernels.lookup_router(*args))
+                plain_ms = time_ms(lambda: kernels.lookup_router_plain(*args), 1, 3)
+                rows[engine, "lookup_router"] = dict(ms=ms, plain_ms=plain_ms, **bound_row(b))
+                print(f"{head}: {ms:.4f} ms ({vk.numel() / ms / 1e6:.3f} Gkeys/s), "
+                      f"{bound_text(b, ms)}, plain version {plain_ms:.3f} ms")
+                continue
+            ms, held = small_call_ms(lambda: kernels.lookup_router(*args))
+            enqueue_ms = host_ms(lambda: kernels.lookup_router(*args))
+            plain_ms = time_ms(lambda: kernels.lookup_router_plain(*args), 1, 11)
+            rows[engine, "lookup_router"].update({
+                f"{phase}_keys": vk.numel(), f"{phase}_ms": ms, f"{phase}_host_ms": enqueue_ms,
+                f"{phase}_plain_ms": plain_ms, f"{phase}_bound_ms": b["bound_ms"]})
+            print(f"{head}, the serve path's {phase} size: device {ms * 1e3:.2f} us per launch "
+                  f"(launches queued back to back"
+                  f"{'' if held else '; NOT all enqueued within the sleep: host-bound'}), "
+                  f"wrapper host {enqueue_ms * 1e3:.2f} us per call, bound {b['bound_ms'] * 1e3:.4f} "
+                  f"us ({b['bound_by']}), plain version {plain_ms:.3f} ms")
+            if not held:
+                fail(f"lookup_router[{engine}] at the {phase} size: the launches outlasted the sleep")
     return rows
 
 
+def baseline_library(src_dir: Path):
+    """Another build of the kernels (``src_dir/routing.cu``, the same C
+    interface), compiled with this build's flags and loaded."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import build
+
+    digest = hashlib.sha256(b"".join((src_dir / f).read_bytes() for f in build.SOURCES))
+    out = build.BUILD_DIR / f"baseline_{digest.hexdigest()[:16]}.so"
+    if not out.is_file():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                               str(src_dir / "routing.cu")], capture_output=True, text=True)
+        if proc.returncode:
+            fail(f"the baseline build of {src_dir} failed:\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    print(f"phase 4 baseline {src_dir.resolve().name} build ({out.name}); ptxas: " + " | ".join(
+        line.strip() for line in out.with_suffix(".log").read_text().splitlines()
+        if "registers" in line))
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in build.SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = list(argtypes)
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def in_turns(libs: dict, cases: dict, measure, rounds: int) -> dict:
+    """``measure(fn)`` of each case under each library, in turns (baseline,
+    this, this, baseline) for ``rounds`` rounds -> {library: [readings]}."""
+    from repro_torch.kernels import build
+
+    loaded = build.library
+    times = {w: [] for w in libs}
+    for _ in range(rounds):
+        for which in ("baseline", "this", "this", "baseline"):
+            build.library = lambda lib=libs[which]: lib
+            try:
+                times[which].append(measure(cases[which]))
+            finally:
+                build.library = loaded
+    return times
+
+
+def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
+                   rounds: int = 3) -> None:
+    """This build against ``src_dir``'s, in turns (baseline, this, this,
+    baseline) for ``rounds`` rounds, medians: every instance at 2^24 keys,
+    and the router call at the serve path's sizes, where a baseline without
+    ``routing_lookup_router`` builds the keys with torch (``router_keys``)
+    before its lookup_vec.  Rows gain ``in_turns[<directory name>]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.binomial_torch import router_keys
+    from repro_torch.core.registry import make_bulk
+    from repro_torch.kernels import build
+
+    name = src_dir.resolve().name
+    libs = {"baseline": baseline_library(src_dir), "this": build.library()}
+    fused = hasattr(libs["baseline"], "routing_lookup_router")
+    rng = np.random.default_rng(2)
+    keys = u32_tensor(rng, N_TIME).cuda()
+    hi = u32_tensor(rng, N_TIME).cuda()
+    tokens_big = torch.from_numpy(rng.integers(0, get_config(SERVE_ARCH).vocab_size,
+                                               size=N_TIME // moe_cfg.top_k)).cuda()
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        _, fleet = make_fleet(engine, 1000, 1024, 250, 2)
+        cases = {(kind, "ms"): (lambda kind=kind: run_kind(kernels, kind, keys, hi, fleet, plain=False))
+                 for kind in KINDS}
+        cases["lookup_vec", "n1025_ms"] = lambda: kernels.lookup_vec(keys, VEC_N_HALF)
+        if fused:
+            cases["lookup_router", "ms"] = lambda: kernels.lookup_router(
+                tokens_big, 3, moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.router_hash_omega)
+        for (kind, field), fn in cases.items():
+            times = in_turns(libs, {"baseline": fn, "this": fn}, time_ms, rounds)
+            med = {w: statistics.median(t) for w, t in times.items()}
+            turns = rows[engine, kind].setdefault("in_turns", {}).setdefault(name, {})
+            turns[field] = {"baseline": med["baseline"], "this": med["this"]}
+            label = kind + (f" n={VEC_N_HALF}" if field == "n1025_ms" else "")
+            print(f"phase 4 baseline {name} {label}[{engine}] {N_TIME} keys, in turns x{rounds}: "
+                  f"baseline {med['baseline']:.4f} ms, this build {med['this']:.4f} ms "
+                  f"({med['baseline'] / med['this']:.3f}x); baseline "
+                  f"{', '.join(f'{t:.4f}' for t in times['baseline'])}; this "
+                  f"{', '.join(f'{t:.4f}' for t in times['this'])}")
+        for phase, by_engine in serve_calls.items():
+            tokens, salt = by_engine[engine]
+            k, n, omega = moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.router_hash_omega
+            this = lambda: kernels.lookup_router(tokens, salt, k, n, omega)  # noqa: E731
+            cases = {"this": this, "baseline": this if fused else lambda: kernels.lookup_vec(
+                router_keys(tokens, salt, k).to(torch.int32), n, omega)}
+            # 20 calls: a torch key build's ~20 launches per call must all queue
+            dev = in_turns(libs, cases, lambda fn: small_call_ms(fn, 20), rounds)
+            host = in_turns(libs, cases, lambda fn: host_ms(fn, 200), rounds)
+            med = {w: statistics.median(t for t, _ in v) for w, v in dev.items()}
+            held = all(h for v in dev.values() for _, h in v)
+            hmed = {w: statistics.median(v) for w, v in host.items()}
+            turns = rows[engine, "lookup_router"].setdefault("in_turns", {}).setdefault(name, {})
+            turns[f"{phase}_ms"] = {"baseline": med["baseline"], "this": med["this"]}
+            turns[f"{phase}_host_ms"] = {"baseline": hmed["baseline"], "this": hmed["this"]}
+            how = "lookup_router" if fused else "torch key build + lookup_vec"
+            print(f"phase 4 baseline {name} router call[{engine}] at the serve path's {phase} size "
+                  f"{tuple(tokens.shape)}, in turns x{rounds}: device per call baseline ({how}) "
+                  f"{med['baseline'] * 1e3:.2f} us, this build (lookup_router) "
+                  f"{med['this'] * 1e3:.2f} us{'' if held else ' (NOT all enqueued within the sleep)'}; "
+                  f"host per call baseline {hmed['baseline'] * 1e3:.2f} us, this "
+                  f"{hmed['this'] * 1e3:.2f} us")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline", type=Path, nargs="+", default=[],
+                        help="directories each holding another build's routing.cu/.cuh to time "
+                             "against")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -740,10 +1168,11 @@ def main() -> int:
         fail("the jump step is not compiled to an IEEE round-to-nearest division")
     print(f"phase 1 ptx: div.rn.f32 x{text.count('div.rn.f32')}, no approximate division")
     sizes = sass_sizes(lib, build.nvcc())
+    found = {key: [n for name, n in sizes.items() if name.startswith(prefix)]
+             for key, prefix in FUNCTIONS.items()}
     print("phase 1 sass instructions " + json.dumps(
-        {f"{k}[{e}]": sizes.get(name) for (e, k), name in FUNCTIONS.items()}))
-    stale = [f"{k}[{e}]" for (e, k), name in FUNCTIONS.items()
-             if sizes.get(name) != SASS[e, k]["static"]]
+        {f"{k}[{e}]": n for (e, k), n in found.items()}))
+    stale = [f"{k}[{e}]" for (e, k), n in found.items() if n != [SASS_STATIC[e, k]]]
     if stale:
         fail(f"the SASS of {stale} differs from the build the SASS table was counted "
              "from: recount the table")
@@ -751,15 +1180,20 @@ def main() -> int:
 
     max_err: dict = {}
     phase_kernels(max_err)
+    phase_tails(max_err)
+    phase_lookup_router(max_err)
     by_path = {"router": phase_router()}
-    serve_launches, serve_keys = phase_serve(card)
+    serve_launches, serve_calls = phase_serve(card)
     by_path["serve"] = {(e, k): n for e, counts in serve_launches.items() for k, n in counts.items()}
     from repro_torch.configs import get_config
 
-    rows = phase_times(serve_keys, get_config(SERVE_ARCH).moe.num_experts)
+    moe_cfg = get_config(SERVE_ARCH).moe
+    rows = phase_times(serve_calls, moe_cfg)
+    for src_dir in args.baseline:
+        phase_baseline(src_dir, rows, serve_calls, moe_cfg)
     kernels = []
     for engine in ENGINES:
-        for kind in KINDS:
+        for kind in ROWS:
             paths = {p: c[engine, kind] for p, c in by_path.items() if (engine, kind) in c}
             kernels.append(dict(
                 name=f"{kind}[{engine}]", route="cuda", source=SRC, replaces=REPLACES[kind],

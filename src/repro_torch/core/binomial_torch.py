@@ -150,3 +150,14 @@ def binomial_lookup_vec(keys: torch.Tensor, n: int, omega: int = 16) -> torch.Te
         return torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
     E, M = fold_pow2(n)
     return _unrolled_body(keys, E, M, n, omega).to(torch.int32)
+
+
+def router_keys(token_ids: torch.Tensor, layer_salt: int, top_k: int) -> torch.Tensor:
+    """The MoE hash router's u32 keys (as int64 values): token ids (B,S) ->
+    ``mix32(token_id ^ salt(layer, k))`` (B,S,K), every product wrapping
+    in u32 as the reference's does.  ``layer_salt`` is the absolute layer
+    index."""
+    salt0 = (layer_salt * 1000003) & MASK32
+    k_salts = torch.arange(top_k, dtype=torch.int64, device=token_ids.device) * 7919 + 1
+    salts = (((salt0 + k_salts) & MASK32) * GOLDEN32) & MASK32
+    return mix32(u32(token_ids)[..., None] ^ salts)

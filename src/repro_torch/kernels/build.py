@@ -37,6 +37,7 @@ SIGNATURES = {
     "routing_ingest": (_I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _N, _P),
     "routing_lookup_dyn": (_I, _P, _P, _I, _P, _N, _P),
     "routing_lookup_vec": (_I, _P, _U, _U, _U, _I, _P, _N, _P),
+    "routing_lookup_router": (_I, _P, _I, _U, _U, _U, _U, _U, _I, _P, _N, _P),
 }
 
 

@@ -1,69 +1,329 @@
-// The routing datapath's four CUDA kernels for sm_90a, each instantiated for
-// both lookup engines (binomial, jump):
+// The routing datapath's CUDA kernels for sm_90a, each instantiated for both
+// lookup engines (binomial, jump):
 //
-//   route_kernel<Engine, KeySource>  replaces src/repro/kernels/fused.py
+//   route_kernel<Engine, KeySource>   replaces src/repro/kernels/fused.py
 //       _kernel_route (pallas_call at fused.py:202): lookup, removed-bit
 //       test, replacement-table divert -> i32 replica ids;
-//   route_kernel<Engine, IdSource>   replaces _kernel_ingest (fused.py:255):
+//   route_kernel<Engine, IdSource>    replaces _kernel_ingest (fused.py:255):
 //       splitmix64 of the u64 id halves, then the same body;
-//   lookup_dyn_kernel<Engine>        replaces _kernel_lookup_dyn
+//   lookup_dyn_kernel<Engine>         replaces _kernel_lookup_dyn
 //       (fused.py:295): the bare lookup with n read from the device;
-//   lookup_vec_kernel<Engine>        replaces src/repro/kernels/binomial_hash.py
+//   lookup_vec_kernel<Engine, Source> replaces src/repro/kernels/binomial_hash.py
 //       _kernel (pallas_call at binomial_hash.py:91, binomial_bulk_lookup_2d):
 //       the bare lookup with n static.  The TPU kernel bakes n, E = 2^ceil(log2 n)
 //       and M = E/2 into its trace; here the host folds them and passes them
-//       by value, so they sit in the constant bank: no device read of n and
-//       no per-thread next-pow2 cascade.  The jump instance is the card's
-//       form of jump_lookup_vec, so a jump-routed MoE runs a kernel too.
+//       by value.  Over KeySource it takes u32 keys; over RouterKeySource it
+//       builds the MoE hash router's keys from token ids in-register, so a
+//       router call is one launch.  The jump instances are the card's form of
+//       jump_lookup_vec.
 //
-// Layout: flat 1-D operands, one thread per key in a grid-stride loop, the
-// tail masked by the loop bound.  The fleet state [n_total, n_alive] and n
-// are read from device memory, so a launch needs no host copy of them
-// (lookup_vec excepted: its n is a launch argument, as it is static on the
-// TPU).
+// What bounds them: instruction issue, never bytes (8 B/key moved, 12 for
+// ingest: 0.040-0.060 ms at 2^24 keys on the H100, against 0.11-0.34 ms of
+// kernel time).  The keys are hashes, so the lanes of a warp leave the
+// lookup loops at different trips, and a warp issues the union of its lanes'
+// paths.  One thread per key, at n = 1000 a binomial warp runs 1.55 loop
+// trips and block A/C's fold where its keys need 1.02 trips, a jump warp
+// 12.9 steps where its keys need 7.5, and nearly every route warp the
+// divert that a quarter of its lanes need (chip_smoke.py phase 4 counts
+// these for its data).  So route and lookup_vec give each
+// warp a chunk of up to 32 x MAX_ITEMS keys (a grid of resident blocks walks
+// the chunks; SMs x blocks per SM comes from the occupancy query) and keep
+// its lanes on the same work:
 //
-// Bound: instructions, not bytes.  route, lookup_dyn and lookup_vec move
-// 8 B/key and ingest 12 B/key (keys or id halves in, ids out).  In the sm_90a SASS
-// (CUDA 12.9) a binomial loop iteration is 44 instructions and a jump step
-// 31-32 (the IEEE division is an MUFU.RCP + FFMA refinement with a rarely
-// taken slow path); with the per-key prologue, loads, fold and divert a key
-// costs ~110-160 instructions on binomial (about one loop trip per key) and
-// ~270-320 on jump at n = 1000 (~7.5 steps).  Over the H100 SXM data-sheet
-// peaks (700 W) that instruction time exceeds the byte time for all eight
-// instances; the bound is derived, not measured.  chip_smoke.py holds the
-// SASS table behind these counts, checks it against each build, and works
-// out the bound from each run's trip counts; PERF.md section 5 has the
-// card's times beside it.
+// - Binomial settles a key on the loop's first trip whenever the candidate
+//   is below n (Binomial::first_trip: block A's fold equals the candidate
+//   there): 97.6 % of keys at n = 1000, all of them at n = 128.  The rest
+//   go onto a queue in the warp's shared memory with one ballot (no
+//   atomics), and the warp finishes them densely after the chunk.  Where
+//   a key is a plain load (KeySource) all of a lane's loads are issued
+//   before its hashing starts.
+// - Jump stages the chunk's keys in shared memory with coalesced loads.
+//   Each lane runs one chain, four steps per trip; when it ends the lane
+//   writes its bucket and takes the chunk's next key, so the warp runs the
+//   chunk's total steps rather than 32 times its longest chains.  With
+//   n <= 2^23 a chain keeps b + 1 as an exact f32, skipping two of a step's
+//   three conversions.  The buckets go back to device memory coalesced.
+// - route writes each settled bucket unless it is removed; the removed ones
+//   are queued the same way and redirected densely.
 //
-// The design spends nothing on memory: the mask word and the slot are read
-// by direct index (the TPU's select cascades are gone), and each thread
-// leaves its loop at the first accepting iteration instead of running all
-// omega iterations with a masked blend.
+// Warps share nothing, so no block barrier is needed; __syncwarp() orders
+// each warp's shared memory.
+//
+// lookup_dyn is not redesigned: one thread per key in a grid-stride loop.
+// The fleet state [n_total, n_alive] and n are read from device memory, so
+// a launch needs no host copy of them (lookup_vec excepted: its n is a launch
+// argument, as it is static on the TPU).  chip_smoke.py holds the SASS sizes
+// of each build and the card's times beside the bound.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "routing.cuh"
 
 namespace routing {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_ITEMS = 8;          // keys per lane in a warp's chunk
+constexpr int SEG = 32 * MAX_ITEMS;   // a warp's chunk, at most
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// One warp's area of shared memory: its chunk's keys and buckets, and a
+// queue of chunk offsets (front: binomial keys whose loop goes on; back:
+// removed buckets to divert).  Only its own warp touches it, so __syncwarp()
+// orders it and the block never waits on a barrier.
+struct WarpArea {
+  uint32_t key[SEG];
+  uint32_t out[SEG];
+  uint8_t queue[SEG];
+};
+
+// The lookup's constants: n, E = 2^ceil(log2 n) and M = E/2 (binomial), omega.
+struct Lookup {
+  uint32_t n, E, M;
+  int omega;
+};
+
+__device__ __forceinline__ Lookup fold(uint32_t n, int omega) {
+  uint32_t m = n - 1u;
+  m |= m >> 1;
+  m |= m >> 2;
+  m |= m >> 4;
+  m |= m >> 8;
+  m |= m >> 16;
+  return {n, m + 1u, (m + 1u) >> 1, omega};
+}
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// What happens to a settled bucket: route diverts the removed ones through
+// the replacement table, the bare lookup keeps every bucket.
+struct Divert {
+  static constexpr bool kDiverts = true;
+  Fleet fleet;
+  uint32_t n_total, n_alive;
+  __device__ __forceinline__ bool removed(uint32_t b) const { return fleet.removed(b); }
+  __device__ __forceinline__ uint32_t redirect(uint32_t key, uint32_t b) const {
+    return fleet.redirect(key, b, n_total, n_alive);
+  }
+};
+
+struct Keep {
+  static constexpr bool kDiverts = false;
+  __device__ __forceinline__ bool removed(uint32_t) const { return false; }
+  __device__ __forceinline__ uint32_t redirect(uint32_t, uint32_t b) const { return b; }
+};
+
+// Binomial over one warp's chunk of `count` keys (base .. base + count - 1):
+// every key whose first-trip candidate settles it is written at once; the
+// keys whose loop goes on (front) and the removed buckets (back) are queued
+// with one ballot each and finished densely by the warp afterwards.
+template <class Source, class D>
+__device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const Lookup& p,
+                               int32_t* __restrict__ out, int64_t base, int count) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = lanemask_lt();
+  int front = 0, back = 0;
+  // a source that only loads has all its loads issued before the hashing
+  // starts; one that computes its key (IdSource, RouterKeySource) loads as
+  // it goes, where preloading held more registers and ran slower
+  uint32_t keys[MAX_ITEMS];
+  if constexpr (Source::kPreload) {
+#pragma unroll
+    for (int j = 0; j < MAX_ITEMS; ++j) {
+      const int e = j * 32 + lane;
+      keys[j] = j * 32 < count ? src(base + (e < count ? e : 0)) : 0u;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MAX_ITEMS; ++j) {
+    if (j * 32 >= count) break;
+    const int e = j * 32 + lane;
+    const bool in = e < count;
+    uint32_t key;
+    if constexpr (Source::kPreload) {
+      key = keys[j];
+    } else {
+      key = src(base + (in ? e : 0));
+    }
+    uint32_t c = 0;
+    bool more = false;
+    if (p.n > 1) {
+      c = Binomial::first_trip(key, p.E);
+      more = in && !(p.omega >= 1 && c < p.n);
+    }
+    const bool hit = in && !more && d.removed(c);
+    if (in && !more && !hit) out[base + e] = static_cast<int32_t>(c);
+    const unsigned mf = __ballot_sync(FULL, more);
+    if (more) {
+      w.queue[front + __popc(mf & below)] = static_cast<uint8_t>(e);
+      w.key[e] = key;
+    }
+    front += __popc(mf);
+    if constexpr (D::kDiverts) {
+      const unsigned mb = __ballot_sync(FULL, hit);
+      if (hit) {
+        w.queue[SEG - 1 - back - __popc(mb & below)] = static_cast<uint8_t>(e);
+        w.key[e] = key;
+        w.out[e] = c;
+      }
+      back += __popc(mb);
+    }
+  }
+  __syncwarp();
+  for (int q = lane; q < front + back; q += 32) {
+    const bool goes_on = q < front;
+    const int e = goes_on ? w.queue[q] : w.queue[SEG - 1 - (q - front)];
+    const uint32_t key = w.key[e];
+    uint32_t b = goes_on ? Binomial::rest(key, p.n, p.E, p.M, p.omega) : w.out[e];
+    if (!goes_on || d.removed(b)) b = d.redirect(key, b);
+    out[base + e] = static_cast<int32_t>(b);
+  }
+  __syncwarp();
+}
+
+// Jump chains over the keys in w.key[0, count): each lane runs one chain,
+// four steps per trip (a chain that ends early keeps its value through the
+// trip's remaining steps), and a lane whose chain has ended writes its
+// bucket and takes the warp's next key.  Four steps amortise the refill's
+// bookkeeping (a ballot, two popcounts, a shared load) over more work, at
+// the cost of 1.5 idle steps per key on average.  With n <= 2^23 (kExact) b + 1 stays an exact f32:
+// for a continuing chain fj < n, so fj + 2^23 rounded toward zero is
+// 2^23 + floor(fj) and subtracting 2^23 - 1 gives floor(fj) + 1, what the
+// general path's u32 round trip gives, without its two conversions (24
+// SASS instructions a step against 27; PERF.md §6 has its timings).
+template <bool kExact>
+__device__ void jump_chains(WarpArea& w, int count, uint32_t n, int omega) {
+  const unsigned below = lanemask_lt();
+  const float fn = __uint2float_rn(n);
+  int idx = threadIdx.x & 31;
+  int cursor = 32;
+  bool live = idx < count;
+  uint64_t k = live ? w.key[idx] : 0u;
+  uint32_t b = 0;   // the bucket (general path)
+  float b1 = 1.0f;  // the bucket + 1 (kExact)
+  int left = omega;
+  while (__any_sync(FULL, live)) {
+    bool done = false;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float fj;
+      if constexpr (kExact) {
+        fj = Jump::step(k, b1);
+      } else {
+        fj = Jump::step(k, __uint2float_rn(b + 1u));
+      }
+      const bool go = !done && fj < fn;
+      if constexpr (kExact) {
+        b1 = go ? __fsub_rn(__fadd_rz(fj, 8388608.0f), 8388607.0f) : b1;
+      } else {
+        b = go ? __float2uint_rz(fj) : b;
+      }
+      left -= go;
+      done = done || !go || left == 0;
+    }
+    // refill without branching: finished lanes store, then take the next keys
+    const bool fin = done && live;
+    if constexpr (kExact) {
+      if (fin) w.out[idx] = __float2uint_rz(b1) - 1u;
+    } else {
+      if (fin) w.out[idx] = b;
+    }
+    const unsigned m = __ballot_sync(FULL, fin);
+    idx = fin ? cursor + __popc(m & below) : idx;
+    cursor += __popc(m);
+    live = idx < count;
+    const uint32_t next = fin && live ? w.key[idx] : 0u;
+    k = fin ? next : k;
+    b = fin ? 0u : b;
+    b1 = fin ? 1.0f : b1;
+    left = fin ? omega : left;
+  }
+}
+
+// Jump over one warp's chunk: stage the keys (coalesced), run the chains,
+// write the buckets back (coalesced), removed ones queued and diverted
+// densely.
+template <class Source, class D>
+__device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Lookup& p,
+                           int32_t* __restrict__ out, int64_t base, int count) {
+  const int lane = threadIdx.x & 31;
+  for (int e = lane; e < count; e += 32) w.key[e] = src(base + e);
+  __syncwarp();
+  if (p.n <= 1 || p.omega <= 0) {
+    for (int e = lane; e < count; e += 32) w.out[e] = 0u;
+  } else if (p.n <= (1u << 23)) {
+    jump_chains<true>(w, count, p.n, p.omega);
+  } else {
+    jump_chains<false>(w, count, p.n, p.omega);
+  }
+  __syncwarp();
+  if constexpr (D::kDiverts) {
+    const unsigned below = lanemask_lt();
+    int hits = 0;
+    for (int j = 0; j * 32 < count; ++j) {
+      const int e = j * 32 + lane;
+      const bool in = e < count;
+      const uint32_t b = in ? w.out[e] : 0u;
+      const bool hit = in && d.removed(b);
+      if (in && !hit) out[base + e] = static_cast<int32_t>(b);
+      const unsigned m = __ballot_sync(FULL, hit);
+      if (hit) w.queue[hits + __popc(m & below)] = static_cast<uint8_t>(e);
+      hits += __popc(m);
+    }
+    __syncwarp();
+    for (int q = lane; q < hits; q += 32) {
+      const int e = w.queue[q];
+      out[base + e] = static_cast<int32_t>(d.redirect(w.key[e], w.out[e]));
+    }
+  } else {
+    for (int e = lane; e < count; e += 32) out[base + e] = static_cast<int32_t>(w.out[e]);
+  }
+  __syncwarp();
+}
+
+// Every warp of the grid walks the chunks of 32 * items keys.
+template <class Engine, class Source, class D>
+__device__ __forceinline__ void chunks(WarpArea& w, const Source& src, const D& d,
+                                       const Lookup& p, int32_t* __restrict__ out, int64_t n,
+                                       int items) {
+  const int64_t seg = 32 * items;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * WARPS * seg;
+  for (int64_t base = (static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * seg;
+       base < n; base += stride) {
+    const int count = static_cast<int>(n - base < seg ? n - base : seg);
+    if constexpr (std::is_same_v<Engine, Binomial>) {
+      binomial_chunk(w, src, d, p, out, base, count);
+    } else {
+      jump_chunk(w, src, d, p, out, base, count);
+    }
+  }
+}
 
 template <class Engine, class Source>
-__global__ void route_kernel(Source src, const uint32_t* __restrict__ mask, int n_words,
-                             const int32_t* __restrict__ slots, int n_slots,
-                             const int32_t* __restrict__ state, int omega,
-                             int32_t* __restrict__ out, int64_t n) {
+__global__ void __launch_bounds__(THREADS)
+route_kernel(Source src, Fleet fleet, const int32_t* __restrict__ state, int omega,
+             int32_t* __restrict__ out, int64_t n, int items) {
+  __shared__ WarpArea area[WARPS];
   const uint32_t n_total = static_cast<uint32_t>(state[0]);
   const uint32_t n_alive = static_cast<uint32_t>(state[1]);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const uint32_t key = src(i);
-    const uint32_t b = Engine::lookup(key, n_total, omega);
-    out[i] = static_cast<int32_t>(
-        divert(key, b, mask, n_words, slots, n_slots, n_total, n_alive));
-  }
+  chunks<Engine>(area[threadIdx.x >> 5], src, Divert{fleet, n_total, n_alive},
+                 fold(n_total, omega), out, n, items);
+}
+
+template <class Engine, class Source>
+__global__ void __launch_bounds__(THREADS)
+lookup_vec_kernel(Source src, uint32_t n_buckets, uint32_t E, uint32_t M, int omega,
+                  int32_t* __restrict__ out, int64_t n, int items) {
+  __shared__ WarpArea area[WARPS];
+  chunks<Engine>(area[threadIdx.x >> 5], src, Keep{}, Lookup{n_buckets, E, M, omega}, out, n,
+                 items);
 }
 
 template <class Engine>
@@ -78,28 +338,57 @@ __global__ void lookup_dyn_kernel(const uint32_t* __restrict__ keys,
   }
 }
 
-template <class Engine>
-__global__ void lookup_vec_kernel(const uint32_t* __restrict__ keys, uint32_t n_buckets,
-                                  uint32_t E, uint32_t M, int omega,
-                                  int32_t* __restrict__ out, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = static_cast<int32_t>(Engine::lookup_folded(keys[i], n_buckets, E, M, omega));
-  }
-}
-
 inline int blocks_for(int64_t n) {
   const int64_t b = (n + THREADS - 1) / THREADS;
   return static_cast<int>(b < (int64_t{1} << 30) ? b : (int64_t{1} << 30));
 }
 
+// Keys per lane and chunk, and the grid: as many keys per lane (up to
+// MAX_ITEMS) as fill the blocks the card holds at once, then at most one
+// block per THREADS * items keys.  `resident` caches, per device, the blocks of `kernel` that
+// fit at once (SMs x the occupancy query), so each kernel queries it once.
+struct Shape {
+  int grid, items;
+};
+
+template <class Kernel>
+Shape shape_for(Kernel kernel, int64_t n, int (&resident)[64]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int slot = dev >= 0 && dev < 64 ? dev : 0;
+  if (!resident[slot]) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    resident[slot] = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  const int64_t blocks = resident[slot];
+  int64_t items = (n + blocks * THREADS - 1) / (blocks * THREADS);
+  items = items < 1 ? 1 : (items > MAX_ITEMS ? MAX_ITEMS : items);
+  const int64_t tiles = (n + THREADS * items - 1) / (THREADS * items);
+  return {static_cast<int>(tiles < blocks ? tiles : blocks), static_cast<int>(items)};
+}
+
 template <class Engine, class Source>
 int launch_route(Source src, const void* mask, int n_words, const void* slots, int n_slots,
                  const void* state, int omega, void* out, int64_t n, cudaStream_t stream) {
-  route_kernel<Engine, Source><<<blocks_for(n), THREADS, 0, stream>>>(
-      src, static_cast<const uint32_t*>(mask), n_words, static_cast<const int32_t*>(slots),
-      n_slots, static_cast<const int32_t*>(state), omega, static_cast<int32_t*>(out), n);
+  static int resident[64] = {};
+  const Shape shape = shape_for(route_kernel<Engine, Source>, n, resident);
+  const Fleet fleet{static_cast<const uint32_t*>(mask), n_words,
+                    static_cast<const int32_t*>(slots), n_slots};
+  route_kernel<Engine, Source><<<shape.grid, THREADS, 0, stream>>>(
+      src, fleet, static_cast<const int32_t*>(state), omega, static_cast<int32_t*>(out), n,
+      shape.items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Engine, class Source>
+int launch_lookup_vec(Source src, unsigned n_buckets, unsigned E, unsigned M, int omega,
+                      void* out, int64_t n, cudaStream_t stream) {
+  static int resident[64] = {};
+  const Shape shape = shape_for(lookup_vec_kernel<Engine, Source>, n, resident);
+  lookup_vec_kernel<Engine, Source><<<shape.grid, THREADS, 0, stream>>>(
+      src, n_buckets, E, M, omega, static_cast<int32_t*>(out), n, shape.items);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -149,18 +438,33 @@ extern "C" int routing_lookup_dyn(int engine, const void* keys, const void* n_bu
 }
 
 // n_buckets >= 2; E and M as binomial_hash.py:64-66 computes them (jump
-// ignores them).  The wrapper answers n <= 1 with zeros and no launch.
+// ignores E and M).  The wrapper answers n <= 1 with zeros and no launch.
 extern "C" int routing_lookup_vec(int engine, const void* keys, unsigned int n_buckets,
                                   unsigned int E, unsigned int M, int omega, void* out,
                                   long long n, void* stream) {
   using namespace routing;
-  const auto k = static_cast<const uint32_t*>(keys);
-  const auto o = static_cast<int32_t*>(out);
+  const KeySource src{static_cast<const uint32_t*>(keys)};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (engine) {
-    case 0: lookup_vec_kernel<Binomial><<<blocks_for(n), THREADS, 0, s>>>(k, n_buckets, E, M, omega, o, n); break;
-    case 1: lookup_vec_kernel<Jump><<<blocks_for(n), THREADS, 0, s>>>(k, n_buckets, E, M, omega, o, n); break;
+    case 0: return launch_lookup_vec<Binomial>(src, n_buckets, E, M, omega, out, n, s);
+    case 1: return launch_lookup_vec<Jump>(src, n_buckets, E, M, omega, out, n, s);
     default: return -1;
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// The MoE hash router's call: token ids (their low 32-bit words at `stride`
+// words apart) -> n = tokens x top_k expert ids, key i built in-register as
+// RouterKeySource says; salt0 = layer_salt * 1000003 mod 2^32.  n < 2^32.
+extern "C" int routing_lookup_router(int engine, const void* tokens, int stride,
+                                     unsigned int salt0, unsigned int top_k,
+                                     unsigned int n_buckets, unsigned int E, unsigned int M,
+                                     int omega, void* out, long long n, void* stream) {
+  using namespace routing;
+  const RouterKeySource src{static_cast<const uint32_t*>(tokens), stride, salt0, top_k};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (engine) {
+    case 0: return launch_lookup_vec<Binomial>(src, n_buckets, E, M, omega, out, n, s);
+    case 1: return launch_lookup_vec<Jump>(src, n_buckets, E, M, omega, out, n, s);
+    default: return -1;
+  }
 }

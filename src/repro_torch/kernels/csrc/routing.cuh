@@ -1,6 +1,6 @@
-// Device bodies of the routing datapath: the two lookup engines, the two key
-// sources and the replacement-table divert.  routing.cu instantiates the
-// kernels over them.
+// Device bodies of the routing datapath: the two lookup engines, the three
+// key sources and the replacement table.  routing.cu builds the kernels
+// from them.
 //
 // Every function here computes exactly what its plain PyTorch version in
 // repro_torch.core computes (bit for bit); u32 values are uint32_t and the
@@ -57,13 +57,7 @@ struct Binomial {
     m |= m >> 8;
     m |= m >> 16;
     const uint32_t E = m + 1u;
-    return lookup_folded(key, n, E, E >> 1, omega);
-  }
-
-  // The loop with E = 2^ceil(log2 n) and M = E/2 given (folded on the host
-  // for the static-n kernel); n >= 2.
-  __device__ __forceinline__ static uint32_t lookup_folded(uint32_t key, uint32_t n,
-                                                           uint32_t E, uint32_t M, int omega) {
+    const uint32_t M = E >> 1;
     const uint32_t h0 = mix32(key);
     uint32_t hi = h0;
     uint32_t kacc = key;
@@ -75,6 +69,31 @@ struct Binomial {
       hi = mix32(kacc);
     }
     return relocate_within_level(h0 & (M - 1u), h0);  // blocks A and C
+  }
+
+  // The loop's first trip, E = 2^ceil(log2 n) folded by the caller.  Its
+  // candidate c is the lookup's answer whenever c < n and omega >= 1: block B
+  // returns c, and block A's fold equals c on this trip (c < M puts c, hence
+  // h0 & (E-1), in a level below M, so h0 & (E-1) == h0 & (M-1) and the fold
+  // relocates the same value with the same hash).
+  __device__ __forceinline__ static uint32_t first_trip(uint32_t key, uint32_t E) {
+    const uint32_t h0 = mix32(key);
+    return relocate_within_level(h0 & (E - 1u), h0);
+  }
+
+  // The rest of the loop for a key whose first trip gave c >= n: trips
+  // 1 .. omega-1 with the original semantics, then blocks A and C.
+  __device__ static uint32_t rest(uint32_t key, uint32_t n, uint32_t E, uint32_t M, int omega) {
+    uint32_t kacc = key;
+    for (int i = 1; i < omega; ++i) {
+      kacc += GOLDEN32;
+      const uint32_t hi = mix32(kacc);
+      const uint32_t c = relocate_within_level(hi & (E - 1u), hi);
+      if (c < M) break;
+      if (c < n) return c;
+    }
+    const uint32_t h0 = mix32(key);
+    return relocate_within_level(h0 & (M - 1u), h0);
   }
 };
 
@@ -98,21 +117,26 @@ struct Jump {
     return b;
   }
 
-  // Jump needs no folded constants: the static-n kernel passes n alone.
-  __device__ __forceinline__ static uint32_t lookup_folded(uint32_t key, uint32_t n, uint32_t,
-                                                           uint32_t, int omega) {
-    return lookup(key, n, omega);
+  // One step of a chain: advances the LCG state k and returns
+  // fj = b1 * (2^31 / r), b1 being f32(b + 1) as the loop above rounds it.
+  __device__ __forceinline__ static float step(uint64_t& k, float b1) {
+    k = k * JUMP_LCG + 1ull;
+    const uint32_t r = static_cast<uint32_t>(k >> 33) + 1u;
+    return __fmul_rn(b1, __fdiv_rn(2147483648.0f, __uint2float_rn(r)));
   }
 };
 
-// Key sources: pre-hashed u32 keys, or raw u64 ids as (lo, hi) u32 halves
-// mixed in-register (no key array exists on the ingest path).
+// Key sources: pre-hashed u32 keys, raw u64 ids as (lo, hi) u32 halves
+// mixed in-register (no key array exists on the ingest path), or the MoE hash
+// router's keys built from token ids in-register.
 struct KeySource {
+  static constexpr bool kPreload = true;  // a plain load
   const uint32_t* keys;
   __device__ __forceinline__ uint32_t operator()(int64_t i) const { return keys[i]; }
 };
 
 struct IdSource {
+  static constexpr bool kPreload = false;  // two loads and a 64-bit mix
   const uint32_t* lo;
   const uint32_t* hi;
   __device__ __forceinline__ uint32_t operator()(int64_t i) const {
@@ -120,21 +144,53 @@ struct IdSource {
   }
 };
 
-// ReplacementTable.resolve for one key: bucket b is kept unless its mask bit
-// is set; then at most two Lemire redirects and one direct slots[] read.
+// Key i of a (B, S, K) router call: token t = i / K, choice k = i % K,
+// mix32(u32(token) ^ ((salt0 + k*7919 + 1) * GOLDEN32)) with every product
+// wrapping in u32, salt0 = layer_salt * 1000003 folded on the host.  The
+// token's low 32 bits are word t * stride of the ids (stride 1 for int32
+// ids, 2 for little-endian int64).  i < 2^32 (the wrapper checks).
+struct RouterKeySource {
+  // loads as it goes: preloading a lane's keys made the binomial router call
+  // 13 % slower on the H100 (PERF.md §6)
+  static constexpr bool kPreload = false;
+  const uint32_t* tokens;
+  int stride;
+  uint32_t salt0;
+  uint32_t top_k;
+  __device__ __forceinline__ uint32_t operator()(int64_t i) const {
+    const uint32_t ii = static_cast<uint32_t>(i);
+    const uint32_t t = ii / top_k;
+    const uint32_t k = ii - t * top_k;
+    const uint32_t salt = (salt0 + k * 7919u + 1u) * GOLDEN32;
+    return mix32(tokens[static_cast<int64_t>(t) * stride] ^ salt);
+  }
+};
+
+// The replacement table of ReplacementTable.resolve, split so that a kernel
+// can test every key cheaply and redirect the few removed ones together.
 // Words and slots past the operands' extents read as 0, as the reference's
 // select cascades do.
-__device__ __forceinline__ uint32_t divert(uint32_t key, uint32_t b,
-                                           const uint32_t* mask, int n_words,
-                                           const int32_t* slots, int n_slots,
-                                           uint32_t n_total, uint32_t n_alive) {
-  const uint32_t w = b >> 5;
-  const uint32_t word = w < static_cast<uint32_t>(n_words) ? mask[w] : 0u;
-  if (((word >> (b & 31u)) & 1u) == 0) return b;
-  const uint32_t h = hash_pair(key, b);
-  uint32_t q = __umulhi(h, n_total);
-  if (q >= n_alive) q = __umulhi(mix32(h ^ (q * GOLDEN32)), n_alive);
-  return q < static_cast<uint32_t>(n_slots) ? static_cast<uint32_t>(slots[q]) : 0u;
-}
+struct Fleet {
+  const uint32_t* mask;
+  int n_words;
+  const int32_t* slots;
+  int n_slots;
+
+  __device__ __forceinline__ bool removed(uint32_t b) const {
+    const uint32_t w = b >> 5;
+    const uint32_t word = w < static_cast<uint32_t>(n_words) ? mask[w] : 0u;
+    return ((word >> (b & 31u)) & 1u) != 0;
+  }
+
+  // A removed bucket's replacement: at most two Lemire redirects and one
+  // direct slots[] read.
+  __device__ __forceinline__ uint32_t redirect(uint32_t key, uint32_t b, uint32_t n_total,
+                                               uint32_t n_alive) const {
+    const uint32_t h = hash_pair(key, b);
+    uint32_t q = __umulhi(h, n_total);
+    if (q >= n_alive) q = __umulhi(mix32(h ^ (q * GOLDEN32)), n_alive);
+    return q < static_cast<uint32_t>(n_slots) ? static_cast<uint32_t>(slots[q]) : 0u;
+  }
+};
 
 }  // namespace routing

@@ -1,6 +1,7 @@
 """The routing kernels' wrappers: for each engine, ``route``, ``ingest``,
-``lookup_dyn`` and ``lookup_vec``, each beside its plain torch version and
-with a launch count.
+``lookup_dyn``, ``lookup_vec`` and ``lookup_router`` (the static-n kernel
+building the MoE hash router's keys from token ids), each beside its plain
+torch version and with a launch count.
 
 A wrapper given CPU tensors returns its plain version's result.  Given CUDA
 tensors it launches the hand-written kernel (``csrc/routing.cu``, built by
@@ -14,13 +15,16 @@ TPU's Pallas kernels of ``repro.kernels.fused.make_fused_kernels``
     lookup_dyn  ``_kernel_lookup_dyn`` (pallas_call at fused.py:295)
     lookup_vec  ``repro.kernels.binomial_hash._kernel`` (pallas_call at
                 binomial_hash.py:91; the jump instance is the card's form
-                of ``repro.core.jump_jax.jump_lookup_vec``)
+                of ``repro.core.jump_jax.jump_lookup_vec``); ``lookup_router``
+                runs the same kernel over the router's keys (the key build
+                of ``repro.models.layers.moe.route`` moved into it)
 
 Operands: keys and id halves are int32 tensors holding u32 bit patterns;
 the fleet operands are those of ``repro_torch.core.bulk.FleetState``
 (packed mask ``(W,)``, table ``(C,)``, state ``(2,)``, all int32); ``n`` of
 ``lookup_dyn`` is a 1-element int32 tensor, that of ``lookup_vec`` a Python
-int.  Outputs are int32 tensors of the keys' shape.
+int.  Outputs are int32 tensors of the keys' shape (``lookup_router``: the
+token ids' shape plus ``top_k``).
 """
 from __future__ import annotations
 
@@ -29,7 +33,13 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.binomial_torch import binomial_lookup_dyn, binomial_lookup_vec, fold_pow2
+from repro_torch.core.binomial_torch import (
+    MASK32,
+    binomial_lookup_dyn,
+    binomial_lookup_vec,
+    fold_pow2,
+    router_keys,
+)
 from repro_torch.core.jump_torch import (
     jump_fold,
     jump_ingest_route,
@@ -83,10 +93,11 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 class RoutingKernels:
-    """One engine's four kernels.
+    """One engine's kernels.
 
     ``launches[kind]`` grows by one at each kernel launch and nowhere else
-    (plain-version calls do not count).  ``fold(n)`` gives the static-n
+    (plain-version calls do not count; ``lookup_router`` counts under
+    ``lookup_vec``, whose kernel it launches).  ``fold(n)`` gives the static-n
     kernel's host constants ``(E, M)`` and raises where the reference does.
     """
 
@@ -181,6 +192,47 @@ class RoutingKernels:
                     keys.numel(), _stream(keys),
                 )
             _check(rc, f"{self.name} lookup_vec")
+            self.launches["lookup_vec"] += 1
+        return out
+
+    def lookup_router_plain(self, token_ids, layer_salt: int, top_k: int, n: int,
+                            omega: int = 16) -> torch.Tensor:
+        return self.lookup_vec_plain(router_keys(token_ids, layer_salt, top_k), n, omega)
+
+    def lookup_router(self, token_ids, layer_salt: int, top_k: int, n: int,
+                      omega: int = 16) -> torch.Tensor:
+        """The MoE hash router: token ids (any shape, int32 or int64) ->
+        int32 expert ids of shape ``(*token_ids.shape, top_k)``, the static-n
+        lookup of ``router_keys(token_ids, layer_salt, top_k)`` over ``n``
+        experts, the keys built inside the launch.  n <= 1 gives zeros
+        without a launch."""
+        if token_ids.device.type == "cpu":
+            return self.lookup_router_plain(token_ids, layer_salt, top_k, n, omega)
+        if token_ids.device.type != "cuda":
+            raise ValueError(f"routing kernels run on CUDA devices, got {token_ids.device}")
+        if token_ids.dtype not in (torch.int32, torch.int64) or not token_ids.is_contiguous():
+            raise ValueError(
+                f"token ids must be a contiguous int32 or int64 tensor, got "
+                f"{token_ids.dtype} (contiguous={token_ids.is_contiguous()})"
+            )
+        if top_k < 1:
+            raise ValueError(f"top_k must be positive, got {top_k}")
+        shape = (*token_ids.shape, top_k)
+        if n <= 1:
+            return torch.zeros(shape, dtype=torch.int32, device=token_ids.device)
+        E, M = self.fold(n)
+        out = torch.empty(shape, dtype=torch.int32, device=token_ids.device)
+        if out.numel() >= 1 << 32:
+            raise ValueError(f"{out.numel()} router keys: the kernel indexes them in u32")
+        if out.numel():
+            salt0 = (layer_salt * 1000003) & MASK32
+            stride = token_ids.element_size() // 4  # the low word of each id
+            with torch.cuda.device(token_ids.device):
+                rc = build.library().routing_lookup_router(
+                    self.engine_id, _ptr(token_ids), stride, salt0, top_k, n, E, M,
+                    omega, _ptr(out), out.numel(), _stream(token_ids),
+                )
+            _check(rc, f"{self.name} lookup_router")
             self.launches["lookup_vec"] += 1
         return out
 

@@ -5,9 +5,10 @@ Routers:
 * ``hash`` — **the paper's technique**: each token's id, salted per layer
   and per choice k, is a u32 key routed to an expert by a consistent-hash
   lookup (``router_keys``).  The lookup is the engine's static-n kernel
-  (``make_bulk(router_hash_engine).kernels.lookup_vec``, the port of
-  ``binomial_hash.py``'s ``_kernel``), or with ``router_dynamic_n`` its
-  dynamic-n kernel; on CPU tensors their plain versions run.
+  (``make_bulk(router_hash_engine).kernels.lookup_router``, the port of
+  ``binomial_hash.py``'s ``_kernel`` over keys it builds from the token ids
+  in the same launch), or with ``router_dynamic_n`` the dynamic-n kernel
+  over ``router_keys``; on CPU tensors their plain versions run.
 * ``topk`` — softmax top-k with the Switch load-balancing aux loss.
 
 The ``sigmoid`` router (DeepSeek-V3) and shared experts are not ported yet
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.binomial_torch import GOLDEN32, MASK32, mix32, u32
+from repro_torch.core.binomial_torch import router_keys
 from repro_torch.core.registry import make_bulk
 from repro_torch.models.layers.common import dense_init, not_ported, torch_dtype
 
@@ -58,17 +59,6 @@ def init_moe(gen, cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def router_keys(token_ids: torch.Tensor, layer_salt: int, top_k: int) -> torch.Tensor:
-    """The hash router's u32 keys (as int64 values): token ids (B,S) ->
-    ``mix32(token_id ^ salt(layer, k))`` (B,S,K), every product wrapping
-    in u32 as the reference's does.  ``layer_salt`` is the absolute layer
-    index."""
-    salt0 = (layer_salt * 1000003) & MASK32
-    k_salts = torch.arange(top_k, dtype=torch.int64, device=token_ids.device) * 7919 + 1
-    salts = (((salt0 + k_salts) & MASK32) * GOLDEN32) & MASK32
-    return mix32(u32(token_ids)[..., None] ^ salts)
-
-
 def route(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg: ArchConfig):
     """-> expert_ids (B,S,K) int32, gates (B,S,K) f32, aux_loss (0-dim f32)."""
     check_supported(cfg)
@@ -76,13 +66,13 @@ def route(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg: Arc
     E, K = m.num_experts, m.top_k
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if m.router == "hash":
-        kk = router_keys(token_ids, layer_salt, K).to(torch.int32)  # u32 bit patterns
         kernels = make_bulk(m.router_hash_engine).kernels
         if m.router_dynamic_n:
+            kk = router_keys(token_ids, layer_salt, K).to(torch.int32)  # u32 bit patterns
             n = torch.tensor([E], dtype=torch.int32, device=kk.device)
             expert_ids = kernels.lookup_dyn(kk, n, m.router_hash_omega)
-        else:
-            expert_ids = kernels.lookup_vec(kk, E, m.router_hash_omega)
+        else:  # one launch builds the keys and looks them up
+            expert_ids = kernels.lookup_router(token_ids, layer_salt, K, E, m.router_hash_omega)
         return expert_ids, torch.full(expert_ids.shape, 1.0 / K, device=x.device), zero
 
     logits = x.float() @ p["router"]

@@ -1,7 +1,8 @@
 """The CUDA routing kernels on the card: each kernel instance against its
-plain torch version (bit-exact), ``BatchRouter`` on the card against the
-plain-version router, and a 2-layer hash-routed MoE ``ServingTier`` on the
-card against the same tier on the CPU.  Needs a CUDA card and ``nvcc``;
+plain torch version (bit-exact), also at ragged sizes around the warp-chunk
+kernels' widths, the MoE router's fused key build (``lookup_router``),
+``BatchRouter`` on the card against the plain-version router, and a 2-layer
+hash-routed MoE ``ServingTier`` on the card against the same tier on the CPU.  Needs a CUDA card and ``nvcc``;
 skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
@@ -102,6 +103,48 @@ def test_lookup_vec_matches_plain(cuda, engine):
             assert torch.equal(got, k.lookup_vec_plain(keys, n, omega))
     launched = k.launches["lookup_vec"]
     assert not k.lookup_vec(keys, 1).any() and k.launches["lookup_vec"] == launched
+
+
+#: ragged key counts around a warp (32), a warp's chunk (256 = 32 lanes x 8
+#: keys), a block's pass (2,048) and beyond
+TAIL_SIZES = (1, 31, 33, 255, 257, 2047, 2049, 4097)
+
+
+@pytest.mark.parametrize("size", TAIL_SIZES)
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_redesigned_kernels_at_tail_sizes(cuda, engine, size):
+    k = BULK_ENGINES[engine].kernels
+    keys, hi = _u32(7, size, cuda), _u32(8, size, cuda)
+    for fleet in ((1000, 1024, 250), (2, 64, 0)):
+        f = _fleet(engine, *fleet, seed=fleet[2])
+        fl = (f.packed, f.table, f.state)
+        for omega in (1, 16):
+            assert torch.equal(k.route(keys, *fl, omega), k.route_plain(keys, *fl, omega).to(torch.int32))
+            assert torch.equal(k.ingest(keys, hi, *fl, omega),
+                               k.ingest_plain(keys, hi, *fl, omega).to(torch.int32))
+    for n in (2, 128, 1000, 1025, 100000, (1 << 23) + 1):
+        for omega in (1, 16):
+            assert torch.equal(k.lookup_vec(keys, n, omega), k.lookup_vec_plain(keys, n, omega))
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_lookup_router_matches_plain_at_serve_shapes(cuda, engine):
+    """The router's calls in a serve: decode and prefill groups of 1-16
+    requests, int64 ids as the serving path gives them and int32 ids."""
+    k = BULK_ENGINES[engine].kernels
+    rng = np.random.default_rng(9)
+    before = k.launches["lookup_vec"]
+    calls = 0
+    for shape in ((1, 1), (8, 1), (16, 1), (8, 8), (16, 8)):
+        tokens = torch.from_numpy(rng.integers(0, 151936, size=shape)).to(cuda)
+        for salt in (0, 1, 93):
+            want = k.lookup_router_plain(tokens, salt, 8, 128)
+            for ids in (tokens, tokens.to(torch.int32)):
+                got = k.lookup_router(ids, salt, 8, 128)
+                assert got.is_cuda and got.dtype == torch.int32 and got.shape == (*shape, 8)
+                assert torch.equal(got, want)
+                calls += 1
+    assert k.launches["lookup_vec"] - before == calls
 
 
 @pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
