@@ -12,11 +12,13 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    ``div.rn.f32``) and the SASS size of each kernel;
 2. every kernel instance (route, ingest, lookup_dyn, lookup_vec x
    binomial, jump) against its plain torch version on the card,
-   bit-exact, at 2^20 keys over several fleets (lookup_vec: over several
-   static n), and a 4,096-key sample against the scalar oracle; the
-   redesigned kernels at ragged sizes around a warp, a warp's chunk and a
-   block's pass; ``lookup_router`` (the MoE router's keys built in the launch)
-   at the serve path's shapes and at 2^20 keys;
+   bit-exact, at 2^20 keys over several fleets (lookup_dyn also at n <= 1,
+   2^23, 2^23 + 1 and 2^31 - 1, and with its n rewritten on the device
+   between two launches; lookup_vec over several static n), and a
+   4,096-key sample against the scalar oracle; every kernel at ragged
+   sizes around a warp, a warp's chunk and a block's pass;
+   ``lookup_router`` (the MoE router's keys built in the launch) at the
+   serve path's shapes and at 2^20 keys;
 3. the two main paths, each with the kernels' launch counts set to 0
    just before it and read just after:
    - the routing datapath: ``BatchRouter`` on the card, both engines, fused
@@ -34,9 +36,11 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      sessions move, every expert id equals the plain lookup's, and the
      static-n lookup ran once per router call, layers x (1 + new tokens)
      times per group served, with none of the key build's torch operators
-     in the router call; one more call runs under ``torch.profiler`` for
-     the device's busy share and its operator count.  Before it, a reduced
-     float32 model served on the card agrees with the same tier on the CPU;
+     in the router call, and the router with ``router_dynamic_n`` gives
+     the same expert ids in one lookup_dyn launch per call; one more call
+     runs under ``torch.profiler`` for the device's busy share and its
+     operator count.  Before it, a reduced float32 model served on the
+     card agrees with the same tier on the CPU;
 4. each kernel's time at 2^24 keys (CUDA events around back-to-back
    launches) beside its bound and its plain version's time; the static-n
    lookup also at n = 1025; ``lookup_router`` at 2^24 router keys and, as
@@ -128,13 +132,20 @@ YARDSTICK = {
 #: The first build's step took 31-32 (``iter`` above).
 JUMP_STEP = 24
 #: The bound's counts: the yardstick's, with every jump step at the fewest
-#: instructions a build of this repo takes for it (``JUMP_STEP``).  The
-#: bound charges the fold only where the lookup needs it (block A left on a
-#: trip after the first, or block C): on the first trip block A's fold
-#: equals the candidate (``Binomial::first_trip``).  A kernel that does the
-#: same work in fewer instructions can beat the bound: its bound/time share
-#: then exceeds 1, and phase 4 prints it so.
-WORK = {key: dict(c, iter=JUMP_STEP) if key[0] == "jump" else c for key, c in YARDSTICK.items()}
+#: instructions a build of this repo takes for it (``JUMP_STEP``), and
+#: lookup_dyn's key path at lookup_vec's: its thread loads n and folds E and
+#: M once for all its keys, not the next-pow2 cascade per key that the
+#: yardstick charges.  The bound charges the fold only where the lookup
+#: needs it (block A left on a trip after the first, or block C): on the
+#: first trip block A's fold equals the candidate (``Binomial::first_trip``).
+#: A kernel that does the same work in fewer instructions can beat the
+#: bound: its bound/time share then exceeds 1, and phase 4 prints it so.
+WORK = {
+    (engine, kind): dict(
+        c, key=YARDSTICK[engine, "lookup_vec"]["key"] if kind == "lookup_dyn" else c["key"],
+        iter=JUMP_STEP if engine == "jump" else c["iter"])
+    for (engine, kind), c in YARDSTICK.items()
+}
 #: each kernel function's whole SASS size (instructions) in the build this
 #: table was counted from (sm_90a, by the card machine's nvcc);
 #: ``lookup_router`` is the static-n kernel over the router's key source,
@@ -142,9 +153,9 @@ WORK = {key: dict(c, iter=JUMP_STEP) if key[0] == "jump" else c for key, c in YA
 #: Phase 1 fails if the build differs, so an edit of ``routing.cu`` or
 #: another compiler forces a recount.
 SASS_STATIC = {
-    ("binomial", "route"): 1568, ("binomial", "ingest"): 1968, ("binomial", "lookup_dyn"): 312,
+    ("binomial", "route"): 1568, ("binomial", "ingest"): 1968, ("binomial", "lookup_dyn"): 1112,
     ("binomial", "lookup_vec"): 1088, ("binomial", "lookup_router"): 1264,
-    ("jump", "route"): 1216, ("jump", "ingest"): 1296, ("jump", "lookup_dyn"): 440,
+    ("jump", "route"): 1216, ("jump", "ingest"): 1296, ("jump", "lookup_dyn"): 928,
     ("jump", "lookup_vec"): 928, ("jump", "lookup_router"): 1136,
 }
 #: each kernel instance's mangled name in the library, up to its parameters
@@ -172,6 +183,10 @@ N_ORACLE = 4096
 #: leave their exact-f32 step; n = 1000 for its times, as lookup_dyn
 VEC_NS = (2, 3, 10, 11, 100, 128, 1000, 1023, 1024, 1025, 10000, 65536, 100000, (1 << 23) + 1)
 VEC_N_TIME = 1000
+#: runtime n for the lookup_dyn checks past the fleets': n <= 1 (zeros, from
+#: a launch), the jump chains' exact-f32 edge (2^23) and the first n past
+#: it, and the top of the int32 n the JAX package shares (2^31 - 1)
+DYN_NS = (0, 1, 2, 1 << 23, (1 << 23) + 1, (1 << 31) - 1)
 #: n where half the binomial keys go past the loop's first trip
 VEC_N_HALF = 1025
 #: key counts around a warp (32), a warp's chunk (256 = 32 lanes x 8 keys)
@@ -312,7 +327,54 @@ def phase_kernels(max_err: dict) -> None:
                       f"max |kernel - plain| = {err}, oracle {n_ok}/{N_ORACLE}")
                 if err or n_ok != N_ORACLE:
                     fail(f"{kind}[{engine}] on fleet {label} disagrees")
+        phase_lookup_dyn(engine, kernels, keys, max_err)
         phase_lookup_vec(engine, kernels, keys, max_err)
+
+
+def phase_lookup_dyn(engine, kernels, keys, max_err: dict) -> None:
+    """The dynamic-n kernel at ``DYN_NS`` against its plain version
+    (bit-exact) and the scalar oracle, every n from a launch; then one ``n``
+    tensor rewritten on the device between two launches, with the host
+    never synchronising (CUDA's sync debug mode raises if it does)."""
+    from repro_torch.core.binomial import binomial_lookup32
+    from repro_torch.core.jump import jump_lookup32
+
+    oracle32 = binomial_lookup32 if engine == "binomial" else jump_lookup32
+    sample = keys[:N_ORACLE].cpu().numpy().view(np.uint32)
+
+    def compare(n_value: int, got) -> tuple[int, int]:
+        want = kernels.lookup_dyn_plain(keys, torch.tensor([n_value], dtype=torch.int32,
+                                                           device=keys.device))
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err[engine, "lookup_dyn"] = max(max_err.get((engine, "lookup_dyn"), 0), err)
+        expect = np.asarray([oracle32(int(k), n_value, 16) for k in sample])
+        return err, int((got[:N_ORACLE].cpu().numpy() == expect).sum())
+
+    for n_value in DYN_NS:
+        launched = kernels.launches["lookup_dyn"]
+        got = kernels.lookup_dyn(keys, torch.tensor([n_value], dtype=torch.int32, device=keys.device))
+        torch.cuda.synchronize()
+        err, n_ok = compare(n_value, got)
+        print(f"phase 2 lookup_dyn[{engine}] n={n_value}: {N_CHECK} keys, max |kernel - plain| = "
+              f"{err}, oracle {n_ok}/{N_ORACLE}")
+        if err or n_ok != N_ORACLE or kernels.launches["lookup_dyn"] != launched + 1:
+            fail(f"lookup_dyn[{engine}] at n = {n_value} disagrees or did not launch")
+    n = torch.tensor([VEC_N_TIME], dtype=torch.int32, device=keys.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = kernels.lookup_dyn(keys, n)
+        n.fill_(VEC_N_HALF)  # a device write, queued behind the first launch
+        second = kernels.lookup_dyn(keys, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    checks = [compare(VEC_N_TIME, first), compare(VEC_N_HALF, second)]
+    print(f"phase 2 lookup_dyn[{engine}] one n rewritten on the device between two launches, no "
+          f"host sync: n={VEC_N_TIME} then n={VEC_N_HALF}: max |kernel - plain| = "
+          f"{max(e for e, _ in checks)}, oracle {', '.join(f'{k}/{N_ORACLE}' for _, k in checks)}")
+    if any(e or k != N_ORACLE for e, k in checks):
+        fail(f"lookup_dyn[{engine}] does not follow n rewritten on the device")
 
 
 def phase_lookup_vec(engine, kernels, keys, max_err: dict) -> None:
@@ -664,6 +726,33 @@ def check_router_call(cfg, engine: str) -> None:
              f"build's operators {shared}")
 
 
+def check_dynamic_router(cfg, engine: str) -> None:
+    """``moe.route`` with ``router_dynamic_n`` (keys built with torch, n
+    read on the device by lookup_dyn) against the default call at the serve
+    path's router shapes: identical expert ids, and one lookup_dyn launch
+    per call."""
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.models.layers import moe
+
+    kernels = BULK_ENGINES[engine].kernels
+    dynamic = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router_dynamic_n=True))
+    rng = np.random.default_rng(14)
+    for shape in ((16, SERVE_PROMPT), (16, 1)):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=shape)).cuda()
+        x = torch.zeros((*shape, cfg.d_model), dtype=torch.bfloat16, device=tokens.device)
+        for salt in (0, 3):
+            before = kernels.launches["lookup_dyn"]
+            got = moe.route(None, x, tokens, salt, dynamic)[0]
+            launched = kernels.launches["lookup_dyn"] - before
+            want = moe.route(None, x, tokens, salt, cfg)[0]
+            if launched != 1 or got.shape != want.shape or not torch.equal(got, want):
+                fail(f"serve[{engine}]: the dynamic-n router call at tokens {shape}, layer {salt} "
+                     f"made {launched} lookup_dyn launches or gave other expert ids")
+    print(f"phase 3 serve[{engine}] moe.route with router_dynamic_n at tokens (16, {SERVE_PROMPT}) "
+          f"and (16, 1), layers 0 and 3: one lookup_dyn launch per call, expert ids identical "
+          f"to the default call's (lookup_router)")
+
+
 def phase_serve(card: str) -> tuple[dict, dict]:
     """ServingTier at full width: -> (launches, the largest router call's
     token ids and layer salt, by phase and engine)."""
@@ -758,6 +847,7 @@ def phase_serve(card: str) -> tuple[dict, dict]:
               f"peak memory {peak / 1e9:.3f} GB (parameters {held / 1e9:.3f} GB; init peak "
               f"{init_peak / 1e9:.3f} GB) on {card}")
         check_router_call(cfg, engine)
+        check_dynamic_router(cfg, engine)
         profile_serve(engine, tier, reqs, steps[-1], step_floor_ms, card)
     probe = make_requests(base.vocab_size, 12)[:2]
     prompts = torch.from_numpy(np.stack([r.prompt for r in probe])).cuda()

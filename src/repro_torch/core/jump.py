@@ -10,7 +10,8 @@ cut after ``omega`` steps, keeping the latest candidate (always < n).
 2^24 (``repro_torch.core.bulk.MAX_CAPACITY``).
 
 The vectorised torch body is ``repro_torch.core.jump_torch``; the CUDA
-kernel's is ``Jump::lookup`` in ``kernels/csrc/routing.cuh``.
+kernels run ``Jump::step`` (``kernels/csrc/routing.cuh``) as the chains of
+``jump_chains`` (``kernels/csrc/routing.cu``).
 """
 from __future__ import annotations
 

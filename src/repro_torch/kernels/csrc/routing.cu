@@ -21,14 +21,15 @@
 // ingest: 0.040-0.060 ms at 2^24 keys on the H100, against 0.11-0.34 ms of
 // kernel time).  The keys are hashes, so the lanes of a warp leave the
 // lookup loops at different trips, and a warp issues the union of its lanes'
-// paths.  One thread per key, at n = 1000 a binomial warp runs 1.55 loop
-// trips and block A/C's fold where its keys need 1.02 trips, a jump warp
-// 12.9 steps where its keys need 7.5, and nearly every route warp the
-// divert that a quarter of its lanes need (chip_smoke.py phase 4 counts
-// these for its data).  So route and lookup_vec give each
-// warp a chunk of up to 32 x MAX_ITEMS keys (a grid of resident blocks walks
-// the chunks; SMs x blocks per SM comes from the occupancy query) and keep
-// its lanes on the same work:
+// paths.  With one thread per key (the first build's layout), at n = 1000 a
+// binomial warp runs 1.55 loop trips and block A/C's fold where its keys
+// need 1.02 trips, a jump warp 12.9 steps where its keys need 7.5, and
+// nearly every route warp the divert that a quarter of its lanes need
+// (chip_smoke.py phase 4 counts these for its data).  So every kernel
+// gives each warp a chunk of up to 32 x MAX_ITEMS keys (a grid of resident
+// blocks walks the chunks; SMs x blocks per SM comes from the occupancy
+// query) and keeps its lanes on the same work, through one loop per engine
+// (chunks<Engine>):
 //
 // - Binomial settles a key on the loop's first trip whenever the candidate
 //   is below n (Binomial::first_trip: block A's fold equals the candidate
@@ -49,11 +50,12 @@
 // Warps share nothing, so no block barrier is needed; __syncwarp() orders
 // each warp's shared memory.
 //
-// lookup_dyn is not redesigned: one thread per key in a grid-stride loop.
-// The fleet state [n_total, n_alive] and n are read from device memory, so
-// a launch needs no host copy of them (lookup_vec excepted: its n is a launch
-// argument, as it is static on the TPU).  chip_smoke.py holds the SASS sizes
-// of each build and the card's times beside the bound.
+// The fleet state [n_total, n_alive] (route) and n (lookup_dyn) are read
+// from device memory and folded into E and M by each thread, so a launch
+// needs no host copy of them; lookup_dyn launches for n <= 1 too, where the
+// chunk gives zeros.  lookup_vec's n is a launch argument, folded on the
+// host, as it is static on the TPU.  chip_smoke.py holds the SASS sizes of
+// each build and the card's times beside the bound.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 #include <cuda_runtime.h>
@@ -327,20 +329,12 @@ lookup_vec_kernel(Source src, uint32_t n_buckets, uint32_t E, uint32_t M, int om
 }
 
 template <class Engine>
-__global__ void lookup_dyn_kernel(const uint32_t* __restrict__ keys,
-                                  const int32_t* __restrict__ n_ptr, int omega,
-                                  int32_t* __restrict__ out, int64_t n) {
+__global__ void __launch_bounds__(THREADS)
+lookup_dyn_kernel(KeySource src, const int32_t* __restrict__ n_ptr, int omega,
+                  int32_t* __restrict__ out, int64_t n, int items) {
+  __shared__ WarpArea area[WARPS];
   const uint32_t n_buckets = static_cast<uint32_t>(n_ptr[0]);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = static_cast<int32_t>(Engine::lookup(keys[i], n_buckets, omega));
-  }
-}
-
-inline int blocks_for(int64_t n) {
-  const int64_t b = (n + THREADS - 1) / THREADS;
-  return static_cast<int>(b < (int64_t{1} << 30) ? b : (int64_t{1} << 30));
+  chunks<Engine>(area[threadIdx.x >> 5], src, Keep{}, fold(n_buckets, omega), out, n, items);
 }
 
 // Keys per lane and chunk, and the grid: as many keys per lane (up to
@@ -378,6 +372,17 @@ int launch_route(Source src, const void* mask, int n_words, const void* slots, i
                     static_cast<const int32_t*>(slots), n_slots};
   route_kernel<Engine, Source><<<shape.grid, THREADS, 0, stream>>>(
       src, fleet, static_cast<const int32_t*>(state), omega, static_cast<int32_t*>(out), n,
+      shape.items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Engine>
+int launch_lookup_dyn(KeySource src, const void* n_buckets, int omega, void* out, int64_t n,
+                      cudaStream_t stream) {
+  static int resident[64] = {};
+  const Shape shape = shape_for(lookup_dyn_kernel<Engine>, n, resident);
+  lookup_dyn_kernel<Engine><<<shape.grid, THREADS, 0, stream>>>(
+      src, static_cast<const int32_t*>(n_buckets), omega, static_cast<int32_t*>(out), n,
       shape.items);
   return static_cast<int>(cudaGetLastError());
 }
@@ -425,16 +430,13 @@ extern "C" int routing_ingest(int engine, const void* lo, const void* hi, const 
 extern "C" int routing_lookup_dyn(int engine, const void* keys, const void* n_buckets,
                                   int omega, void* out, long long n, void* stream) {
   using namespace routing;
-  const auto k = static_cast<const uint32_t*>(keys);
-  const auto nb = static_cast<const int32_t*>(n_buckets);
-  const auto o = static_cast<int32_t*>(out);
+  const KeySource src{static_cast<const uint32_t*>(keys)};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (engine) {
-    case 0: lookup_dyn_kernel<Binomial><<<blocks_for(n), THREADS, 0, s>>>(k, nb, omega, o, n); break;
-    case 1: lookup_dyn_kernel<Jump><<<blocks_for(n), THREADS, 0, s>>>(k, nb, omega, o, n); break;
+    case 0: return launch_lookup_dyn<Binomial>(src, n_buckets, omega, out, n, s);
+    case 1: return launch_lookup_dyn<Jump>(src, n_buckets, omega, out, n, s);
     default: return -1;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // n_buckets >= 2; E and M as binomial_hash.py:64-66 computes them (jump

@@ -44,33 +44,11 @@ __device__ __forceinline__ uint32_t mix64_lo32(uint32_t lo, uint32_t hi) {
   return static_cast<uint32_t>(z ^ (z >> 31));
 }
 
-// BinomialHash (Alg. 1), u32 flavour, n a runtime value.  The loop exits at
-// the first accepting iteration; the value is the one the omega-unrolled
-// masked blend of the reference selects.
+// BinomialHash (Alg. 1), u32 flavour, in two parts that binomial_chunk in
+// routing.cu runs: the loop's first trip for every key, the rest for the keys
+// it does not settle.  The loop exits at the first accepting iteration; the
+// value is the one the omega-unrolled masked blend of the reference selects.
 struct Binomial {
-  __device__ static uint32_t lookup(uint32_t key, uint32_t n, int omega) {
-    if (n <= 1) return 0;
-    uint32_t m = n - 1u;  // E = next power of two >= n, wrapping like u32
-    m |= m >> 1;
-    m |= m >> 2;
-    m |= m >> 4;
-    m |= m >> 8;
-    m |= m >> 16;
-    const uint32_t E = m + 1u;
-    const uint32_t M = E >> 1;
-    const uint32_t h0 = mix32(key);
-    uint32_t hi = h0;
-    uint32_t kacc = key;
-    for (int i = 0; i < omega; ++i) {
-      const uint32_t c = relocate_within_level(hi & (E - 1u), hi);
-      if (c < M) break;     // block A: fold with the original hash
-      if (c < n) return c;  // block B
-      kacc += GOLDEN32;
-      hi = mix32(kacc);
-    }
-    return relocate_within_level(h0 & (M - 1u), h0);  // blocks A and C
-  }
-
   // The loop's first trip, E = 2^ceil(log2 n) folded by the caller.  Its
   // candidate c is the lookup's answer whenever c < n and omega >= 1: block B
   // returns c, and block A's fold equals c on this trip (c < M puts c, hence
@@ -97,28 +75,13 @@ struct Binomial {
   }
 };
 
-// Jump consistent hash, omega-bounded, f32 step.  Every float operation is
-// IEEE single with round-to-nearest, as in the scalar oracle; the cast to
-// u32 only happens on continuing lanes, where fj < n <= 2^24.
+// Jump consistent hash, omega-bounded, f32 step, run as chains by
+// jump_chains in routing.cu.  Every float operation is IEEE single with
+// round-to-nearest, as in the scalar oracle; the cast to u32 only happens on
+// continuing lanes, where fj < n < 2^32.
 struct Jump {
-  __device__ static uint32_t lookup(uint32_t key, uint32_t n, int omega) {
-    if (n <= 1) return 0;
-    uint64_t k = key;
-    uint32_t b = 0;
-    const float fn = __uint2float_rn(n);
-    for (int i = 0; i < omega; ++i) {
-      k = k * JUMP_LCG + 1ull;
-      const uint32_t r = static_cast<uint32_t>(k >> 33) + 1u;
-      const float fj = __fmul_rn(__uint2float_rn(b + 1u),
-                                 __fdiv_rn(2147483648.0f, __uint2float_rn(r)));
-      if (fj >= fn) return b;
-      b = __float2uint_rz(fj);
-    }
-    return b;
-  }
-
   // One step of a chain: advances the LCG state k and returns
-  // fj = b1 * (2^31 / r), b1 being f32(b + 1) as the loop above rounds it.
+  // fj = b1 * (2^31 / r), b1 being f32(b + 1) as the scalar oracle rounds it.
   __device__ __forceinline__ static float step(uint64_t& k, float b1) {
     k = k * JUMP_LCG + 1ull;
     const uint32_t r = static_cast<uint32_t>(k >> 33) + 1u;

@@ -1,6 +1,8 @@
 """The CUDA routing kernels on the card: each kernel instance against its
 plain torch version (bit-exact), also at ragged sizes around the warp-chunk
-kernels' widths, the MoE router's fused key build (``lookup_router``),
+kernels' widths, the dynamic-n lookup at the edges of its runtime n and
+with n rewritten on the device, the MoE router's fused key build
+(``lookup_router``) and its dynamic-n path,
 ``BatchRouter`` on the card against the plain-version router, and a 2-layer
 hash-routed MoE ``ServingTier`` on the card against the same tier on the CPU.  Needs a CUDA card and ``nvcc``;
 skips elsewhere.
@@ -16,8 +18,11 @@ torch = pytest.importorskip("torch")
 import dataclasses  # noqa: E402
 
 from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.core.binomial import binomial_lookup32  # noqa: E402
 from repro_torch.core.bulk import FleetState  # noqa: E402
+from repro_torch.core.jump import jump_lookup32  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.layers import moe  # noqa: E402
 from repro_torch.core.registry import BULK_ENGINES  # noqa: E402
 from repro_torch.serving.batch_router import BatchRouter  # noqa: E402
 from repro_torch.serving.engine import Request, ServingTier  # noqa: E402
@@ -61,6 +66,70 @@ def test_kernels_match_plain(cuda, engine, fleet):
         for got, want in pairs:
             assert got.is_cuda and got.dtype == torch.int32
             assert torch.equal(got, want.to(torch.int32))
+
+
+#: runtime n at the dynamic-n lookup's edges: n <= 1 (zeros, from a launch),
+#: the jump chains' exact-f32 edge (2^23) and the first n past it, and the
+#: top of the int32 n the JAX package shares (2^31 - 1)
+DYN_NS = (0, 1, 2, 1000, 1025, 1 << 23, (1 << 23) + 1, (1 << 31) - 1)
+ORACLE32 = {"binomial": binomial_lookup32, "jump": jump_lookup32}
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_lookup_dyn_edges(cuda, engine):
+    k = BULK_ENGINES[engine].kernels
+    keys = _u32(10, 1 << 16, cuda)
+    sample = keys[:512].cpu().numpy().view(np.uint32)
+    for n in DYN_NS:
+        n_dev = torch.tensor([n], dtype=torch.int32, device=cuda)
+        for omega in (1, 16):
+            launched = k.launches["lookup_dyn"]
+            got = k.lookup_dyn(keys, n_dev, omega)
+            assert k.launches["lookup_dyn"] == launched + 1
+            assert got.is_cuda and got.dtype == torch.int32
+            assert torch.equal(got, k.lookup_dyn_plain(keys, n_dev, omega).to(torch.int32))
+            want = [ORACLE32[engine](int(x), n, omega) for x in sample]
+            np.testing.assert_array_equal(got[:512].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_lookup_dyn_reads_n_rewritten_on_device(cuda, engine):
+    """One n tensor, rewritten by a device write between two launches while
+    the host never synchronises: each launch reads the n of its turn."""
+    k = BULK_ENGINES[engine].kernels
+    keys = _u32(11, 1 << 16, cuda)
+    n = torch.tensor([1000], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = k.lookup_dyn(keys, n)
+        n.fill_(1025)
+        second = k.lookup_dyn(keys, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for got, value in ((first, 1000), (second, 1025)):
+        want = k.lookup_dyn_plain(keys, torch.tensor([value], dtype=torch.int32, device=cuda))
+        assert torch.equal(got, want.to(torch.int32))
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_moe_dynamic_n_router_matches_default(cuda, engine):
+    """``moe.route`` with ``router_dynamic_n`` (one lookup_dyn launch) gives
+    the default call's expert ids (lookup_router) at the serve path's router
+    shapes."""
+    cfg = reduced_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router="hash", router_hash_engine=engine))
+    dynamic = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router_dynamic_n=True))
+    kernels = BULK_ENGINES[engine].kernels
+    rng = np.random.default_rng(12)
+    for shape in ((16, 8), (16, 1)):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=shape)).to(cuda)
+        x = torch.zeros((*shape, cfg.d_model), device=cuda)
+        before = kernels.launches["lookup_dyn"]
+        got = moe.route(None, x, tokens, 3, dynamic)[0]
+        assert kernels.launches["lookup_dyn"] == before + 1
+        assert torch.equal(got, moe.route(None, x, tokens, 3, cfg)[0])
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -122,6 +191,8 @@ def test_redesigned_kernels_at_tail_sizes(cuda, engine, size):
             assert torch.equal(k.route(keys, *fl, omega), k.route_plain(keys, *fl, omega).to(torch.int32))
             assert torch.equal(k.ingest(keys, hi, *fl, omega),
                                k.ingest_plain(keys, hi, *fl, omega).to(torch.int32))
+            assert torch.equal(k.lookup_dyn(keys, f.state[:1], omega),
+                               k.lookup_dyn_plain(keys, f.state[:1], omega).to(torch.int32))
     for n in (2, 128, 1000, 1025, 100000, (1 << 23) + 1):
         for omega in (1, 16):
             assert torch.equal(k.lookup_vec(keys, n, omega), k.lookup_vec_plain(keys, n, omega))

@@ -176,7 +176,10 @@ def test_plain_matches_mirror_capacity_4096(engine, kind, omega):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("n", [0, 1, 2, 1023, 1024, 1025, 4095, 4096])
+#: n <= 1, pow2 edges, the jump chains' exact-f32 edge (2^23) and the first n
+#: past it, and the top of the int32 n both packages take (2^31 - 1)
+@pytest.mark.parametrize(
+    "n", [0, 1, 2, 1023, 1024, 1025, 4095, 4096, 1 << 23, (1 << 23) + 1, (1 << 31) - 1])
 @pytest.mark.parametrize("engine", ENGINES)
 def test_lookup_dyn_edges_vs_mirror(engine, n):
     keys = _keys(n + 7, 1024)
