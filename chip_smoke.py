@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card: the routing
-datapath and the hash-routed MoE serving path.
+datapath, the hash-routed MoE serving path and the R-way replicated
+placement tier with its fleet lifecycle.
 
     python3 chip_smoke.py
 
@@ -18,8 +19,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    4,096-key sample against the scalar oracle; every kernel at ragged
    sizes around a warp, a warp's chunk and a block's pass;
    ``lookup_router`` (the MoE router's keys built in the launch) at the
-   serve path's shapes and at 2^20 keys;
-3. the two main paths, each with the kernels' launch counts set to 0
+   serve path's shapes and at 2^20 keys; the placement kernels (the route
+   kernel over a key's r salted families, ``route_family``, and the
+   distinct-resolution pass, ``resolve``, with and without the moved mask)
+   against their plain versions at 2^20 keys over the same fleets at
+   r = 1, 3 and 5, with a too-small ``max_resalt`` where keys exhaust, at
+   the ragged sizes, and a 4,096-key sample against a scalar placement
+   computed on the host from the ``FailureDomain``;
+3. the three main paths, each with the kernels' launch counts set to 0
    just before it and read just after:
    - the routing datapath: ``BatchRouter`` on the card, both engines, fused
      and two-pass: ``route_keys`` (CUDA tensor and numpy), ``route_ids``,
@@ -41,12 +48,29 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      runs under ``torch.profiler`` for the device's busy share and its
      operator count.  Before it, a reduced float32 model served on the
      card agrees with the same tier on the CPU;
+   - placement, per engine: ``BatchRouter(1000, capacity=1024)``, a
+     ``LifecycleManager`` on a ``ManualClock``, ``StorePlacement(r=3)`` with
+     2^20 registered keys and a ``PlacementRepairer``; 2 replicas fall
+     silent past ``fail_after`` and the repair quiesces (every key on 3
+     distinct live copies); then 250 fall silent at once (one tick: one
+     coalesced upload, 250 journaled fails), ``plan_migration`` (moved
+     fraction beside delta/n), quiesce (keys whose three holders all failed
+     count in ``lost``), journal and placement replay from a mid-run
+     snapshot, the 250 readmitted through heartbeats, scale up, scale down;
+     the same storyline at 2^16 keys on the card and on the CPU (plain
+     versions) gives the same journal bytes, placements, repair tasks,
+     ``lost`` and ``completed``;
 4. each kernel's time at 2^24 keys (CUDA events around back-to-back
    launches) beside its bound and its plain version's time; the static-n
    lookup also at n = 1025; ``lookup_router`` at 2^24 router keys and, as
    the serve path calls it, at the serve path's own sizes: device time per
    launch (the launches queued behind a sleeping kernel, so the card runs
-   them back to back) and the wrapper's host time per call.
+   them back to back) and the wrapper's host time per call; the
+   placement pass (``place_keys``: the family route and resolve) and the
+   migration diff (``plan_migration``) at 2^24 keys, r = 3, on the fleet of
+   1000 with 250 failed, each launch's share and its bound;
+   ``BatchRouter.route_keys`` at 2^24 keys on the healthy fleet and with
+   250 failed (the storm/steady ratio).
 
 ``--baseline DIR [DIR ...]`` also builds each ``DIR/routing.cu`` (another
 build of the kernels with the same C interface: the parent commit's, or a
@@ -85,6 +109,9 @@ REPLACES = {
     "lookup_dyn": "src/repro/kernels/fused.py:295",
     "lookup_vec": "src/repro/kernels/binomial_hash.py:91",
     "lookup_router": "src/repro/kernels/binomial_hash.py:91",
+    "route_family": "src/repro/placement/store.py:87 (its family route: the K1/K2 pallas_call, "
+                    "src/repro/kernels/fused.py:202)",
+    "resolve": "src/repro/placement/store.py:131 (jnp in the JAX package; no pallas_call)",
 }
 ENGINES = ("binomial", "jump")
 #: the kernels that read a fleet (the routing datapath), and all kernels
@@ -157,6 +184,8 @@ SASS_STATIC = {
     ("binomial", "lookup_vec"): 1088, ("binomial", "lookup_router"): 1264,
     ("jump", "route"): 1216, ("jump", "ingest"): 1296, ("jump", "lookup_dyn"): 928,
     ("jump", "lookup_vec"): 928, ("jump", "lookup_router"): 1136,
+    ("binomial", "route_family"): 1904, ("jump", "route_family"): 1328,
+    ("binomial", "resolve"): 664, ("jump", "resolve"): 664,
 }
 #: each kernel instance's mangled name in the library, up to its parameters
 FUNCTIONS = {
@@ -168,12 +197,18 @@ FUNCTIONS = {
         ("lookup_dyn", "_ZN7routing17lookup_dyn_kernelINS_{E}EEEv"),
         ("lookup_vec", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_9KeySourceEEEv"),
         ("lookup_router", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_15RouterKeySourceEEEv"),
+        ("route_family", "_ZN7routing12route_kernelINS_{E}ENS_15FamilyKeySourceEEEv"),
+        ("resolve", "_ZN7routing14resolve_kernelE"),  # one function for both engines
     )
 }
 #: bytes each kernel must move per key: keys (or two id halves) in, ids out
 BYTES_PER_KEY = {"route": 8, "ingest": 12, "lookup_dyn": 8, "lookup_vec": 8}
-#: the kernels line's rows: every kind, then the router's static-n lookup
-ROWS = (*KINDS, "lookup_router")
+#: the placement kernels: the route kernel over a key's r salted families
+#: and the distinct-resolution pass
+PLACEMENT_KINDS = ("route_family", "resolve")
+#: the kernels line's rows: every kind, the router's static-n lookup, then
+#: the placement kernels
+ROWS = (*KINDS, "lookup_router", *PLACEMENT_KINDS)
 
 N_CHECK = 1 << 20  # the repo's acceptance batch (benchmarks/bench_router.py)
 N_TIME = 1 << 24
@@ -471,6 +506,124 @@ def phase_lookup_router(max_err: dict) -> None:
               f"max |kernel - plain| = {worst}; oracle agrees on {n_ok}/{len(ROUTER_SHAPES)} shapes")
         if worst or n_ok != len(ROUTER_SHAPES):
             fail(f"lookup_router[{engine}] disagrees")
+
+
+# --- the placement kernels --------------------------------------------------
+
+#: replication factors checked: a single copy, Cassandra's and Ceph's default
+#: of 3 (``replication_factor``, ``osd_pool_default_size``), and 5
+PLACEMENT_RS = (1, 3, 5)
+#: the placement path's replication factor
+PLACE_R = 3
+
+
+def scalar_placement(domain, key: int, r: int, max_resalt: int) -> tuple[list[int], bool]:
+    """One key's R-way placement computed on the host from the scalar
+    control plane (``FailureDomain.locate`` of each salted family, then the
+    re-salt probes over the replacement table's alive prefix): -> (the r
+    shards, exhausted)."""
+    from repro_torch.core import bits
+    from repro_torch.core.placement_torch import RESALT_SALT, family_salts
+
+    n_alive, slots = domain.alive_count, domain.replacement_table.slots
+    cols, exhausted = [], False
+    for j, salt in enumerate(family_salts(r).tolist()):
+        fam = bits.mix32(key ^ salt)
+        b = domain.locate(fam)
+        if b in cols:
+            q = bits.mulhi32(bits.mix32(fam ^ RESALT_SALT), n_alive)
+            for _ in range(max_resalt):
+                if slots[q] not in cols:
+                    b = slots[q]
+                    break
+                q = q + 1 - n_alive if q + 1 >= n_alive else q + 1
+            else:
+                exhausted = exhausted or j < n_alive
+        cols.append(b)
+    return cols, exhausted
+
+
+def check_placement(kernels, keys, fleet, r: int, max_resalt: int, old=None):
+    """The family route and resolve on the card against their plain
+    versions on the same inputs -> (the kernels' (replicas, exhausted,
+    moved), max |kernel - plain| of each)."""
+    args = (fleet.packed, fleet.table, fleet.state)
+    base = kernels.route_family(keys, r, *args)
+    want_base = kernels.route_family_plain(keys, r, *args)
+    got = kernels.resolve(keys, base, fleet.table, fleet.state, max_resalt, old)
+    want = kernels.resolve_plain(keys, base, fleet.table, fleet.state, max_resalt, old)
+    torch.cuda.synchronize()
+    err_route = int((base.to(torch.int64) - want_base.to(torch.int64)).abs().max()) if base.numel() else 0
+    err_resolve = max(
+        int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+        for g, w in zip(got, want) if g is not None)
+    if base.shape != want_base.shape or any(
+            (g is None) != (w is None) or (g is not None and g.shape != w.shape)
+            for g, w in zip(got, want)):
+        fail(f"route_family/resolve[{kernels.name}] at r = {r} gave other shapes")
+    return got, err_route, err_resolve
+
+
+def phase_placement_kernels(max_err: dict) -> None:
+    """``route_family`` and ``resolve`` against their plain versions at
+    2^20 keys over the fleets of ``fleets`` at r in ``PLACEMENT_RS`` (the
+    default ``max_resalt``, and resolve with the previous fleet's placement
+    as ``old`` for the moved mask), bit-exact, and a 4,096-key sample
+    against ``scalar_placement``; ``max_resalt = 1`` where keys exhaust, with
+    the plain version's exhausted count; the ragged sizes."""
+    from repro_torch.core.registry import make_bulk
+
+    rng = np.random.default_rng(5)
+    keys = u32_tensor(rng, N_CHECK).cuda()
+    sample = keys[:N_ORACLE].cpu().numpy().view(np.uint32).tolist()
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        last: dict = {}
+        for label, (plane, fleet) in fleets(engine).items():
+            report = []
+            for r in PLACEMENT_RS:
+                (rep, exhausted, moved), e_route, e_res = check_placement(
+                    kernels, keys, fleet, r, r, last.get(r))
+                last[r] = rep
+                for kind, err in (("route_family", e_route), ("resolve", e_res)):
+                    max_err[engine, kind] = max(max_err.get((engine, kind), 0), err)
+                host = [scalar_placement(plane.domain, k, r, r) for k in sample]
+                n_ok = int((rep[:N_ORACLE].cpu().numpy() == np.asarray([c for c, _ in host])).all(1).sum())
+                n_ok_ex = int((exhausted[:N_ORACLE].cpu().numpy() == np.asarray([x for _, x in host])).sum())
+                distinct = int((rep.sort(1).values.diff(1) != 0).sum(1).add(1).min())
+                report.append(f"r={r}: max |kernel - plain| = {e_route}/{e_res}, host placement "
+                              f"{n_ok}/{N_ORACLE}, exhausted {int(exhausted.sum())}, fewest distinct "
+                              f"{distinct}" + ("" if moved is None else f", moved {int(moved.sum())}"))
+                if e_route or e_res or n_ok != N_ORACLE or n_ok_ex != N_ORACLE or exhausted.any() \
+                        or distinct != min(r, plane.domain.alive_count):
+                    fail(f"placement[{engine}] on fleet {label} at r = {r} disagrees")
+            print(f"phase 2 placement[{engine}] fleet {label}, {N_CHECK} keys (route_family/resolve): "
+                  + "; ".join(report))
+        # a too-small probe bound: exhaustion, counted as the plain version counts it
+        for label, plane, fleet in (("1000/1024 250 failed", *make_fleet(engine, 1000, 1024, 250, 2)),
+                                    ("8/64", *make_fleet(engine, 8, 64, 0, 8))):
+            (rep, exhausted, _), e_route, e_res = check_placement(kernels, keys, fleet, 5, 1)
+            host = [scalar_placement(plane.domain, k, 5, 1) for k in sample]
+            n_ok_ex = int((exhausted[:N_ORACLE].cpu().numpy() == np.asarray([x for _, x in host])).sum())
+            want = kernels.resolve_plain(keys, kernels.route_family_plain(
+                keys, 5, fleet.packed, fleet.table, fleet.state), fleet.table, fleet.state, 1)[1]
+            print(f"phase 2 placement[{engine}] fleet {label}, r=5, max_resalt=1: exhausted "
+                  f"{int(exhausted.sum())} (plain {int(want.sum())}), max |kernel - plain| = "
+                  f"{e_route}/{e_res}, host exhausted flags {n_ok_ex}/{N_ORACLE}")
+            if e_route or e_res or int(exhausted.sum()) != int(want.sum()) or n_ok_ex != N_ORACLE \
+                    or (label == "8/64" and not exhausted.any()):
+                fail(f"placement[{engine}] exhaustion on fleet {label} disagrees")
+        _, fleet = make_fleet(engine, 1000, 1024, 250, 2)
+        tails = u32_tensor(np.random.default_rng(6), max(TAIL_SIZES)).cuda()
+        worst = 0
+        for size in TAIL_SIZES:
+            for r in (PLACE_R, 5):
+                _, e_route, e_res = check_placement(kernels, tails[:size], fleet, r, r, None)
+                worst = max(worst, e_route, e_res)
+        print(f"phase 2 placement tails[{engine}]: route_family and resolve at r = {PLACE_R} and 5, "
+              f"{', '.join(map(str, TAIL_SIZES))} keys: max |kernel - plain| = {worst}")
+        if worst:
+            fail(f"placement[{engine}] at the ragged sizes disagrees")
 
 
 # --- the main path ----------------------------------------------------------
@@ -860,6 +1013,189 @@ def phase_serve(card: str) -> tuple[dict, dict]:
     return launches, calls_seen
 
 
+# --- the placement path ------------------------------------------------------
+
+#: the placement path's registered store (a realistic count of objects; the
+#: 2^24-key pass is timed in phase 4) and the size of its CPU twin
+STORE_KEYS = 1 << 20
+TWIN_KEYS = 1 << 16
+#: replicas failed by the storm, and repair copies per tick
+STORM = 250
+REPAIR_BUDGET = 4096
+
+
+def placement_storyline(engine: str, device: str, n_keys: int) -> dict:
+    """The placement path's storyline on ``device``: BatchRouter(1000,
+    capacity 1024) with a LifecycleManager on a ManualClock, a
+    StorePlacement(r = 3) holding ``n_keys`` keys and a PlacementRepairer.
+    Every check fails the run; returns what the twin comparison and the
+    report need."""
+    from repro_torch.core.registry import make_bulk
+    from repro_torch.placement.store import StorePlacement
+    from repro_torch.serving.batch_router import BatchRouter
+    from repro_torch.serving.lifecycle import LifecycleManager, ManualClock, PlacementRepairer
+
+    tag = f"placement[{engine}] on {device}, {n_keys} keys"
+    rng = np.random.default_rng(31)
+    keys = rng.integers(0, 2**32, size=n_keys, dtype=np.uint32)
+    clock = ManualClock()
+    router = BatchRouter(1000, engine=engine, capacity=1024, device=device)
+    mgr = LifecycleManager(router, clock=clock)
+    hb = mgr.config.heartbeat
+    kernels = make_bulk(engine).kernels
+    store = StorePlacement(router, r=PLACE_R)
+    t0 = time.perf_counter()
+    store.register(keys)
+    out = {"register_s": time.perf_counter() - t0}
+    rep = PlacementRepairer(store, mgr, budget_per_tick=REPAIR_BUDGET)
+    tasks: list = []
+    tick = rep.tick
+
+    def recording_tick(budget=None):  # also the batches the manager's ticks run
+        done = tick(budget)
+        tasks.extend(done)
+        return done
+
+    rep.tick = recording_tick
+    copies = []
+    to = router._fleet_host.to
+    router._fleet_host.to = lambda dev: (copies.append(1), to(dev))[1]
+
+    def beat(silent=()):
+        for s in range(router.domain.total_count):
+            if s not in silent:
+                mgr.heartbeat(s)
+
+    def settled(what):
+        counts = store.reachable_counts()
+        n_eff = min(PLACE_R, mgr.n_alive)
+        if rep.backlog or (counts != n_eff).any():
+            fail(f"{tag}: after {what} {int((counts != n_eff).sum())} keys are not on {n_eff} "
+                 f"distinct live copies (backlog {rep.backlog})")
+
+    def launched(fn):
+        before = (kernels.launches["route_family"], kernels.launches["resolve"])
+        result = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return result, (kernels.launches["route_family"] - before[0],
+                        kernels.launches["resolve"] - before[1])
+
+    # two replicas fall silent past fail_after
+    first = [int(s) for s in rng.choice(999, size=2, replace=False)]
+    beat()
+    clock.advance(hb.fail_after + 1)
+    beat(first)
+    events = mgr.tick()
+    if [(e.kind, e.slot) for e in events] != [("fail", s) for s in sorted(first)]:
+        fail(f"{tag}: two silent replicas gave events {events}")
+    rep.quiesce()
+    settled("two failures")
+    snap = mgr.snapshot()  # mid-run
+    # the storm: STORM more replicas fall silent at once
+    alive = [s for s in range(999) if s not in first]
+    storm = sorted(int(s) for s in rng.choice(alive, size=STORM, replace=False))
+    before, n_before, n_copies, lost0 = store._synced_fleet, mgr.n_alive, len(copies), rep.lost
+    clock.advance(hb.fail_after + 1)
+    beat(set(first) | set(storm))
+    t0 = time.perf_counter()
+    events = mgr.tick()
+    out["storm_tick_s"] = time.perf_counter() - t0
+    out["storm_uploads"] = len(copies) - n_copies
+    if [(e.kind, e.slot) for e in events] != [("fail", s) for s in storm] or out["storm_uploads"] != 1:
+        fail(f"{tag}: the storm tick gave {len(events)} events and {out['storm_uploads']} uploads")
+    plan, out["plan_launches"] = launched(lambda: store.plan_migration(before))
+    out["moved_fraction"] = plan.moved_fraction
+    out["delta_over_n"] = STORM / n_before
+    t0 = time.perf_counter()
+    triples = store.sync_targets()
+    out["sync_targets_s"] = time.perf_counter() - t0
+    out["sync_targets_triples"] = len(triples)
+    dead = int((store.reachable_counts() == 0).sum())
+    t0 = time.perf_counter()
+    done = rep.quiesce()
+    out["quiesce_s"] = time.perf_counter() - t0
+    out["storm_copies"] = done
+    out["storm_lost"] = rep.lost - lost0
+    counts = store.reachable_counts()
+    if out["storm_lost"] != PLACE_R * dead or ((counts != PLACE_R) & (counts != 0)).any() \
+            or int((counts == 0).sum()) != dead:
+        fail(f"{tag}: after the storm {dead} keys had every holder down and {out['storm_lost']} "
+             f"tasks were lost; reachable counts {np.bincount(counts).tolist()}")
+    out["lost_keys"] = dead
+    for s in (snap, None):
+        mgr.verify_replay(s)
+        rep.verify_placement_replay(s)
+    # the failed replicas beat again and are readmitted after readmit_after
+    recovered = []
+    for _ in range(int(hb.readmit_after) + 3):
+        beat()
+        recovered += [e.slot for e in mgr.tick() if e.kind == "recover"]
+        clock.advance(hb.heartbeat_interval)
+    if sorted(recovered) != sorted(first + storm):
+        fail(f"{tag}: {len(recovered)} of {len(first) + STORM} replicas readmitted")
+    rep.quiesce()
+    settled("readmission")
+    mgr.scale_up()
+    rep.quiesce()
+    settled("scale-up")
+    mgr.scale_down()
+    rep.quiesce()
+    settled("scale-down")
+    mgr.verify_replay()
+    rep.verify_placement_replay()
+    batch, out["place_launches"] = launched(lambda: store.place(keys))
+    out.update(journal=mgr.journal.to_jsonl(), placement=batch.replicas, holders=store.holders.copy(),
+               tasks=[dataclasses.astuple(t) for t in tasks], lost=rep.lost,
+               completed=rep.completed, epoch=mgr.epoch, n_alive=mgr.n_alive)
+    return out
+
+
+def phase_placement() -> tuple[dict, dict]:
+    """The placement path for both engines at ``STORE_KEYS`` keys on the
+    card (launch counts set to 0 just before, read just after), then the
+    same storyline at ``TWIN_KEYS`` keys on the card and on the CPU, which
+    must agree -> (launches, the 2^20-key runs' host numbers)."""
+    from repro_torch.core.registry import BULK_ENGINES
+
+    launches, host = {}, {}
+    for engine in ENGINES:
+        for eng in BULK_ENGINES.values():
+            eng.kernels.reset_launches()
+        run = placement_storyline(engine, "cuda", STORE_KEYS)
+        torch.cuda.synchronize()
+        counts = BULK_ENGINES[engine].kernels.launches
+        launches[engine] = {k: counts[k] for k in PLACEMENT_KINDS}
+        host[engine] = {k: v for k, v in run.items() if isinstance(v, (int, float, tuple))}
+        if min(launches[engine].values()) == 0 or run["place_launches"] != (1, 1) \
+                or run["plan_launches"] != (2, 2):
+            fail(f"placement[{engine}]: launches {launches[engine]}, per place "
+                 f"{run['place_launches']}, per plan_migration {run['plan_launches']}")
+        print(f"phase 3 placement[{engine}]: {STORE_KEYS} keys on {PLACE_R} distinct live copies of "
+              f"1000 replicas (capacity 1024); 2 then {STORM} replicas silent past fail_after: the "
+              f"storm tick {run['storm_tick_s']:.3f} s with {run['storm_uploads']} upload and {STORM} "
+              f"journaled fails; plan_migration moved fraction {run['moved_fraction']:.4f} (delta/n "
+              f"{run['delta_over_n']:.4f}); sync_targets {run['sync_targets_s']:.3f} s for "
+              f"{run['sync_targets_triples']} triples; quiesce {run['storm_copies']} copies in "
+              f"{run['quiesce_s']:.3f} s ({run['storm_copies'] / run['quiesce_s']:.0f} copies/s), "
+              f"{run['lost_keys']} keys with every holder down ({run['storm_lost']} tasks lost); "
+              f"replays from a mid-run snapshot and genesis equal; {STORM + 2} readmitted, scale up, "
+              f"scale down; epoch {run['epoch']}, {run['completed']} copies, {run['lost']} lost in all")
+        print(f"phase 3 placement[{engine}] launches " + json.dumps(
+            {f"{k}[{engine}]": n for k, n in launches[engine].items()})
+            + f" (per place {run['place_launches']}, per plan_migration {run['plan_launches']})")
+        twins = [placement_storyline(engine, device, TWIN_KEYS) for device in ("cuda", "cpu")]
+        for key in ("journal", "placement", "holders", "tasks", "lost", "completed"):
+            a, b = (t[key] for t in twins)
+            if not (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b):
+                fail(f"placement[{engine}] at {TWIN_KEYS} keys: {key} on the card differs from the CPU")
+        print(f"phase 3 placement[{engine}] at {TWIN_KEYS} keys, card against CPU (plain versions): "
+              f"identical journal ({len(twins[0]['journal'])} bytes), placement rows, holders, "
+              f"{len(twins[0]['tasks'])} repair tasks, lost {twins[0]['lost']}, completed "
+              f"{twins[0]['completed']}")
+    return launches, host
+
+
 # --- times and bounds -------------------------------------------------------
 
 
@@ -1120,6 +1456,103 @@ def phase_times(serve_calls: dict, moe_cfg) -> dict:
     return rows
 
 
+def resolve_bound(keys, base, out, r: int) -> dict:
+    """The least time the card could take for ``resolve`` on these inputs:
+    bytes (keys, the routed columns and the table read once, the columns
+    and the exhausted flags written once, at the HBM rate) against a floor
+    of its operations: per key one load or store per column read or written
+    and one compare per pair of columns, and per collision (a column equal
+    to an earlier one in ``base``) the re-salt hash (two fmix32 and a
+    multiply-high, 12 operations) and one probe (a load, j compares, an
+    add and a wrap, j + 4), at the issue rate.  The floor counts the
+    algorithm's operations, not the build's SASS."""
+    n = keys.numel()
+    pairs = r * (r - 1) // 2
+    coll = 0
+    for j in range(1, r):
+        hit = torch.zeros(n, dtype=torch.bool, device=base.device)
+        for k in range(j):
+            hit |= base[:, j] == out[:, k]
+        coll += int(hit.sum()) * (12 + j + 4)
+    ops = n * (2 * r + 1 + pairs) + coll
+    nbytes = 4 * n + 4 * n * r * 2 + n + 4 * 1024
+    t_ops, t_bytes = ops / LANE_INSTR_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                t_ops=t_ops, t_bytes=t_bytes)
+
+
+def phase_placement_times(rows: dict, card: str) -> None:
+    """At 2^24 keys on the fleet of 1000 in capacity 1024: ``route_keys``
+    healthy and with 250 failed (the storm/steady ratio); then with 250
+    failed, r = 3: ``place_keys`` (``route_replicas_bulk``: the family
+    route and resolve) and each launch alone, and ``plan_migration``'s diff
+    (``placement_diff_bulk``, healthy -> 250 failed), beside their bounds
+    and the plain versions.  Adds the ``route_family`` and ``resolve``
+    rows."""
+    from repro_torch.core.bulk import PlacementSpec
+    from repro_torch.core.placement_torch import family_keys
+    from repro_torch.core.registry import make_bulk
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batch_router import BatchRouter
+
+    keys = u32_tensor(np.random.default_rng(2), N_TIME).cuda()
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        router = BatchRouter(1000, engine=engine, capacity=1024)
+        healthy = router._fleet_dev
+        steady = time_ms(lambda: router.route_keys(keys))
+        victims = np.random.default_rng(2).choice(999, size=250, replace=False)
+        with router.coalesced_events():
+            for b in victims:
+                router.fail(int(b))
+        router._check_routable()
+        storm = time_ms(lambda: router.route_keys(keys))
+        rows[engine, "route"].update(route_keys_steady_ms=steady, route_keys_storm_ms=storm,
+                                     storm_over_steady=storm / steady)
+        print(f"phase 4 BatchRouter.route_keys[{engine}] {N_TIME} keys, 1000/1024: healthy "
+              f"{steady:.4f} ms, 250 failed {storm:.4f} ms, storm/steady {storm / steady:.4f} on {card}")
+        fleet = router._fleet_dev
+        pspec = PlacementSpec(router=router.spec, r=PLACE_R)
+        args = (fleet.packed, fleet.table, fleet.state)
+        base = kernels.route_family(keys, PLACE_R, *args)
+        out, _, _ = kernels.resolve(keys, base, fleet.table, fleet.state, PLACE_R)
+        place = time_ms(lambda: ops.route_replicas_bulk(keys, fleet, pspec))
+        fam = time_ms(lambda: kernels.route_family(keys, PLACE_R, *args))
+        res = time_ms(lambda: kernels.resolve(keys, base, fleet.table, fleet.state, PLACE_R))
+        plan = time_ms(lambda: ops.placement_diff_bulk(keys, healthy, fleet, pspec), 3)
+        fam_plain = time_ms(lambda: kernels.route_family_plain(keys, PLACE_R, *args), 1, 3)
+        res_plain = time_ms(lambda: kernels.resolve_plain(keys, base, fleet.table, fleet.state,
+                                                          PLACE_R), 1, 3)
+        fkeys = family_keys(keys, PLACE_R).reshape(-1)
+        fb = bound(engine, "route", fkeys, fleet, nbytes=4 * keys.numel() + 4 * fkeys.numel())
+        rb = resolve_bound(keys, base, out, PLACE_R)
+        hb_base = kernels.route_family(keys, PLACE_R, healthy.packed, healthy.table, healthy.state)
+        hb_out = kernels.resolve(keys, hb_base, healthy.table, healthy.state, PLACE_R)[0]
+        hfb = bound(engine, "route", fkeys, healthy, nbytes=4 * keys.numel() + 4 * fkeys.numel())
+        hrb = resolve_bound(keys, hb_base, hb_out, PLACE_R)
+        # the second resolve also reads the old columns and writes the mask
+        moved_bytes = (4 + 1) * fkeys.numel() / HBM_BYTES_S * 1e3
+        place_bound = fb["bound_ms"] + rb["bound_ms"]
+        plan_bound = hfb["bound_ms"] + hrb["bound_ms"] + fb["bound_ms"] + rb["bound_ms"] + moved_bytes
+        rows[engine, "route_family"] = dict(ms=fam, plain_ms=fam_plain, **bound_row(fb),
+                                            place_keys_ms=place, place_keys_bound_ms=place_bound,
+                                            plan_migration_ms=plan, plan_migration_bound_ms=plan_bound)
+        rows[engine, "resolve"] = dict(ms=res, plain_ms=res_plain, bound_ms=rb["bound_ms"],
+                                       bound_by=rb["bound_by"])
+        print(f"phase 4 route_family[{engine}] {N_TIME} keys x r = {PLACE_R}, 1000/1024 with 250 "
+              f"failed: {fam:.4f} ms ({fam / place:.1%} of place_keys), {bound_text(fb, fam)}, plain "
+              f"version {fam_plain:.3f} ms")
+        print(f"phase 4 resolve[{engine}] {N_TIME} keys x r = {PLACE_R}: {res:.4f} ms ({res / place:.1%} "
+              f"of place_keys), bound {rb['bound_ms']:.4f} ms ({rb['bound_by']}; operations "
+              f"{rb['t_ops']:.4f} ms, bytes {rb['t_bytes']:.4f} ms), bound/time "
+              f"{share(rb['bound_ms'], res)}, plain version {res_plain:.3f} ms")
+        print(f"phase 4 place_keys[{engine}] (route_replicas_bulk, 2 launches) {N_TIME} keys, r = "
+              f"{PLACE_R}: {place:.4f} ms, bound {place_bound:.4f} ms, bound/time "
+              f"{share(place_bound, place)}; plan_migration's diff (placement_diff_bulk, 4 launches, "
+              f"healthy -> 250 failed) {plan:.4f} ms, bound {plan_bound:.4f} ms, bound/time "
+              f"{share(plan_bound, plan)}; on {card}")
+
+
 def baseline_library(src_dir: Path):
     """Another build of the kernels (``src_dir/routing.cu``, the same C
     interface), compiled with this build's flags and loaded."""
@@ -1191,6 +1624,9 @@ def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
         cases = {(kind, "ms"): (lambda kind=kind: run_kind(kernels, kind, keys, hi, fleet, plain=False))
                  for kind in KINDS}
         cases["lookup_vec", "n1025_ms"] = lambda: kernels.lookup_vec(keys, VEC_N_HALF)
+        if hasattr(libs["baseline"], "routing_route_family"):
+            cases["route_family", "ms"] = lambda: kernels.route_family(
+                keys, PLACE_R, fleet.packed, fleet.table, fleet.state)
         if fused:
             cases["lookup_router", "ms"] = lambda: kernels.lookup_router(
                 tokens_big, 3, moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.router_hash_omega)
@@ -1272,13 +1708,22 @@ def main() -> int:
     phase_kernels(max_err)
     phase_tails(max_err)
     phase_lookup_router(max_err)
+    phase_placement_kernels(max_err)
     by_path = {"router": phase_router()}
     serve_launches, serve_calls = phase_serve(card)
     by_path["serve"] = {(e, k): n for e, counts in serve_launches.items() for k, n in counts.items()}
+    place_launches, place_host = phase_placement()
+    by_path["placement"] = {(e, k): n for e, counts in place_launches.items() for k, n in counts.items()}
     from repro_torch.configs import get_config
 
     moe_cfg = get_config(SERVE_ARCH).moe
     rows = phase_times(serve_calls, moe_cfg)
+    phase_placement_times(rows, card)
+    for engine, numbers in place_host.items():
+        rows[engine, "route_family"].update(
+            {f"store_2^20_{k}": v for k, v in numbers.items()
+             if k in ("sync_targets_s", "quiesce_s", "storm_copies", "storm_tick_s", "moved_fraction",
+                      "delta_over_n", "lost_keys")})
     for src_dir in args.baseline:
         phase_baseline(src_dir, rows, serve_calls, moe_cfg)
     kernels = []

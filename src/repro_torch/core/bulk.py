@@ -1,5 +1,5 @@
 """Engine-agnostic bulk-routing API: ``RouterSpec``, ``FleetState``,
-``BulkEngine`` (DESIGN.md §10).
+``PlacementSpec``, ``BulkEngine`` (DESIGN.md §10).
 
 * ``RouterSpec`` — the frozen configuration of one routing datapath
   (engine, capacity, ω), validated at construction.
@@ -8,6 +8,8 @@
   n_alive]``) with the pack / incremental-update hooks the serving tier
   drives at fleet-event time.  The host instance holds numpy arrays;
   ``to(device)`` makes the device twin in one copy.
+* ``PlacementSpec`` — the frozen configuration of one R-way replicated
+  placement tier over a ``RouterSpec`` (DESIGN.md §13).
 * ``BulkEngine`` — one engine's bundle: the name of its scalar oracle and
   its routing kernels (``repro_torch.kernels.fused.RoutingKernels``).
 
@@ -130,6 +132,53 @@ class FleetState:
         flat = torch.from_numpy(np.concatenate(parts)).to(device)
         packed, table, state = torch.split(flat, [p.size for p in parts])
         return FleetState(packed, table, state, self.capacity)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementSpec:
+    """Frozen configuration of one R-way replicated placement tier.
+
+    router      the ``RouterSpec`` of the underlying bulk engine — every
+                replica column routes through the same fused datapath
+    r           replication factor: each key is placed on ``r`` distinct
+                alive shards (degrading to ``n_alive`` distinct copies when
+                the fleet is smaller than ``r``)
+    max_resalt  bound on the deterministic collision-resolution probes per
+                replica column; ``None`` (the default) resolves to ``r``,
+                which guarantees distinctness whenever ``n_alive > column``
+                (column ``j`` probes ``j+1 <= r`` alive-prefix positions, at
+                most ``j`` of which are taken).  Smaller explicit bounds are
+                allowed for experiments — exhaustion then surfaces as a
+                typed ``PlacementExhaustedError``, never a silent duplicate.
+
+    Hashable; validated at construction.
+    """
+
+    router: RouterSpec = dataclasses.field(default_factory=RouterSpec)
+    r: int = 3
+    max_resalt: int | None = None
+
+    def __post_init__(self):
+        if self.r < 1:
+            raise ValueError(f"replication factor r must be >= 1, got {self.r}")
+        if self.r > self.router.capacity:
+            raise ValueError(
+                f"replication factor r ({self.r}) exceeds the fleet capacity "
+                f"({self.router.capacity}); r distinct shards cannot exist"
+            )
+        if self.max_resalt is not None and self.max_resalt < 0:
+            raise ValueError(
+                f"max_resalt must be >= 0, got {self.max_resalt}; pass None "
+                "for the distinctness-guaranteeing default"
+            )
+
+    @property
+    def resolved_max_resalt(self) -> int:
+        """Concrete probe bound: column ``j`` needs ``j+1`` probes in the
+        worst case (``j`` earlier replicas occupy ``j`` alive-prefix
+        positions), so ``r`` probes make distinctness deterministic for
+        every column whenever ``n_alive > j``."""
+        return self.r if self.max_resalt is None else self.max_resalt
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,16 +1,22 @@
-"""Carry fleet state and model parameters across from the JAX package's
-host arrays.
+"""Carry fleet state, lifecycle journals, placement registries and model
+parameters across from the JAX package's host arrays and JSON text.
 
 ``fleet_from_numpy``
 turns the numpy leaves of the reference's host ``FleetState`` (as
 ``repro.core.bulk.FleetState.pack`` builds them: a ``(1, W')`` uint32 mask
 and a ``(1, C')`` int32 table, both padded to 128 lanes, and a ``(2,)``
 uint32 state) into this package's host ``FleetState``.
-``params_from_numpy`` turns the reference's ``init_params`` tree, as numpy
-arrays, into this package's model parameters.  Only numpy crosses over;
-nothing of the JAX package is imported.
+``lifecycle_from_json`` turns a reference ``MembershipJournal`` (its
+``to_jsonl`` text) or ``JournalSnapshot`` (its ``to_json`` text) into this
+package's.  ``store_from_numpy`` turns a reference ``StorePlacement``'s
+registered ``keys`` and ``holders`` into this package's ``StorePlacement``
+over a router.  ``params_from_numpy`` turns the reference's ``init_params``
+tree, as numpy arrays, into this package's model parameters.  Only numpy
+and text cross over; nothing of the JAX package is imported.
 """
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -19,6 +25,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bulk import FleetState
 from repro_torch.core.memento_torch import mask_words, table_width
 from repro_torch.models.blocks import build_segments
+from repro_torch.placement.store import StorePlacement
+from repro_torch.serving.lifecycle.journal import JournalSnapshot, MembershipJournal
 
 
 def fleet_from_numpy(packed, table, state, capacity: int) -> FleetState:
@@ -40,6 +48,33 @@ def fleet_from_numpy(packed, table, state, capacity: int) -> FleetState:
         packed=packed[:words].copy(), table=table[:slots].copy(),
         state=state.copy(), capacity=capacity,
     )
+
+
+def lifecycle_from_json(text: str) -> MembershipJournal | JournalSnapshot:
+    """A reference journal's JSONL text (a ``{"n_initial"}`` header line,
+    then one event per line) -> ``MembershipJournal``; a reference
+    snapshot's JSON text -> ``JournalSnapshot``.  Both serialise back to the
+    same bytes."""
+    first = next((ln for ln in text.splitlines() if ln.strip()), None)
+    if first is None or "n_initial" in json.loads(first):
+        return MembershipJournal.from_jsonl(text)
+    return JournalSnapshot.from_json(first)
+
+
+def store_from_numpy(router, keys, holders, *, max_resalt: int | None = None,
+                     strict: bool = False) -> StorePlacement:
+    """A reference ``StorePlacement``'s registered ``keys`` (M,) and
+    ``holders`` (M, r) -> this package's ``StorePlacement`` over ``router``
+    (the port's router, built from the same fleet events), with ``r`` taken
+    from the holders.  The holders are copied as they stand, mid-repair
+    too; the migration baseline is the router's current fleet."""
+    holders = np.array(holders, dtype=np.int64)
+    keys = np.array(keys, dtype=np.uint32).reshape(-1)
+    if holders.ndim != 2 or holders.shape[0] != keys.size:
+        raise ValueError(f"holders {holders.shape} do not give one row per key ({keys.size})")
+    store = StorePlacement(router, r=holders.shape[1], max_resalt=max_resalt, strict=strict)
+    store._keys, store._holders = keys, holders
+    return store
 
 
 def _tensor(a, device) -> torch.Tensor:

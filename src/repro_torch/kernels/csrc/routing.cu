@@ -15,7 +15,14 @@
 //       by value.  Over KeySource it takes u32 keys; over RouterKeySource it
 //       builds the MoE hash router's keys from token ids in-register, so a
 //       router call is one launch.  The jump instances are the card's form of
-//       jump_lookup_vec.
+//       jump_lookup_vec;
+//   route_kernel<Engine, FamilyKeySource> routes an R-way placement's r salted
+//       key families (src/repro/placement/store.py:87, route_replicas_impl,
+//       whose family route is the fused route, pallas_call at fused.py:202):
+//       the same chunk loop, all r columns in one launch;
+//   resolve_kernel                    the distinct-resolution pass of
+//       route_replicas_impl (store.py:131-178), which the reference runs as
+//       elementwise jnp outside any Pallas kernel; one thread per key.
 //
 // What bounds them: instruction issue, never bytes (8 B/key moved, 12 for
 // ingest: 0.040-0.060 ms at 2^24 keys on the H100, against 0.11-0.34 ms of
@@ -337,6 +344,79 @@ lookup_dyn_kernel(KeySource src, const int32_t* __restrict__ n_ptr, int omega,
   chunks<Engine>(area[threadIdx.x >> 5], src, Keep{}, fold(n_buckets, omega), out, n, items);
 }
 
+// The distinct-resolution pass of an R-way placement, one thread per key with
+// its r <= MAX_R routed columns in registers: column j keeps its routed shard
+// unless an earlier settled column holds it; then a re-salt hash picks a
+// position in the table's alive prefix and up to max_resalt linear probes
+// take the first slots[q] no earlier column holds.  The reference tests
+// "taken" with a per-lane bitmask of n_words u32 words set through select
+// cascades (store.py:140-153); that mask only ever holds the columns settled
+// before j, and every shard id is below 32 * n_words, so "bit b set" is
+// exactly "b equals an earlier settled column", which is what taken()
+// compares.  A probe that finds a free shard ends the chain: later probes of
+// the reference change nothing then.  n_alive <= j leaves the defined
+// duplicate and is no exhaustion.  With `old` (the placement before a
+// membership change) the launch also writes moved[i, j] = out[i, j] not in
+// old[i, :].  exhausted and moved are bool tensors (one byte each).
+constexpr int MAX_R = 8;
+constexpr uint32_t RESALT_SALT = 0x7F4A7C15u;
+
+__device__ __forceinline__ bool taken(const uint32_t (&col)[MAX_R], int j, uint32_t b) {
+  bool hit = false;
+#pragma unroll
+  for (int k = 0; k < MAX_R; ++k) hit |= k < j && col[k] == b;
+  return hit;
+}
+
+__global__ void __launch_bounds__(THREADS)
+resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ base,
+               const int32_t* __restrict__ slots, const int32_t* __restrict__ state, int r,
+               int max_resalt, const int32_t* __restrict__ old, int32_t* __restrict__ out,
+               uint8_t* __restrict__ exhausted, uint8_t* __restrict__ moved, int64_t n) {
+  const uint32_t n_alive = static_cast<uint32_t>(state[1]);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < n; i += stride) {
+    const uint32_t key = keys[i];
+    uint32_t col[MAX_R];
+    bool ex = false;
+#pragma unroll
+    for (int j = 0; j < MAX_R; ++j) {
+      if (j >= r) break;
+      uint32_t b = static_cast<uint32_t>(base[i * r + j]);
+      if (j > 0) {
+        bool coll = taken(col, j, b);
+        uint32_t q = __umulhi(mix32(mix32(key ^ family_salt(j)) ^ RESALT_SALT), n_alive);
+        for (int p = 0; coll && p < max_resalt; ++p) {
+          const uint32_t cand = static_cast<uint32_t>(slots[q]);
+          if (!taken(col, j, cand)) {
+            b = cand;
+            coll = false;
+          }
+          q += 1u;
+          if (q >= n_alive) q -= n_alive;  // conditional wrap, no division
+        }
+        ex |= coll && static_cast<uint32_t>(j) < n_alive;
+      }
+      col[j] = b;
+      out[i * r + j] = static_cast<int32_t>(b);
+    }
+    exhausted[i] = ex;
+    if (old != nullptr) {
+      uint32_t prev[MAX_R];
+#pragma unroll
+      for (int k = 0; k < MAX_R; ++k) prev[k] = k < r ? static_cast<uint32_t>(old[i * r + k]) : 0u;
+#pragma unroll
+      for (int j = 0; j < MAX_R; ++j) {
+        if (j >= r) break;
+        bool kept = false;
+#pragma unroll
+        for (int k = 0; k < MAX_R; ++k) kept |= k < r && prev[k] == col[j];
+        moved[i * r + j] = !kept;
+      }
+    }
+  }
+}
+
 // Keys per lane and chunk, and the grid: as many keys per lane (up to
 // MAX_ITEMS) as fill the blocks the card holds at once, then at most one
 // block per THREADS * items keys.  `resident` caches, per device, the blocks of `kernel` that
@@ -394,6 +474,19 @@ int launch_lookup_vec(Source src, unsigned n_buckets, unsigned E, unsigned M, in
   const Shape shape = shape_for(lookup_vec_kernel<Engine, Source>, n, resident);
   lookup_vec_kernel<Engine, Source><<<shape.grid, THREADS, 0, stream>>>(
       src, n_buckets, E, M, omega, static_cast<int32_t*>(out), n, shape.items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_resolve(const void* keys, const void* base, const void* slots, const void* state,
+                   int r, int max_resalt, const void* old, void* out, void* exhausted,
+                   void* moved, int64_t n, cudaStream_t stream) {
+  if (r < 1 || r > MAX_R) return -1;
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  resolve_kernel<<<static_cast<int>(blocks < (1 << 30) ? blocks : (1 << 30)), THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(base),
+      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(state), r, max_resalt,
+      static_cast<const int32_t*>(old), static_cast<int32_t*>(out),
+      static_cast<uint8_t*>(exhausted), static_cast<uint8_t*>(moved), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -469,4 +562,30 @@ extern "C" int routing_lookup_router(int engine, const void* tokens, int stride,
     case 1: return launch_lookup_vec<Jump>(src, n_buckets, E, M, omega, out, n, s);
     default: return -1;
   }
+}
+
+// An R-way placement's family route: keys (N,) -> out (N, r) row-major, the
+// route of key i / r under family salt i % r; n = N * r < 2^32.
+extern "C" int routing_route_family(int engine, const void* keys, unsigned int r,
+                                    const void* mask, int n_words, const void* slots,
+                                    int n_slots, const void* state, int omega, void* out,
+                                    long long n, void* stream) {
+  using namespace routing;
+  const FamilyKeySource src{static_cast<const uint32_t*>(keys), r};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (engine) {
+    case 0: return launch_route<Binomial>(src, mask, n_words, slots, n_slots, state, omega, out, n, s);
+    case 1: return launch_route<Jump>(src, mask, n_words, slots, n_slots, state, omega, out, n, s);
+    default: return -1;
+  }
+}
+
+// The distinct-resolution pass over n keys' (n, r) routed columns `base`,
+// 1 <= r <= 8 (-1 otherwise); old and moved may both be null.
+extern "C" int routing_resolve(const void* keys, const void* base, const void* slots,
+                               const void* state, int r, int max_resalt, const void* old,
+                               void* out, void* exhausted, void* moved, long long n,
+                               void* stream) {
+  return routing::launch_resolve(keys, base, slots, state, r, max_resalt, old, out, exhausted,
+                                 moved, n, static_cast<cudaStream_t>(stream));
 }

@@ -90,8 +90,9 @@ struct Jump {
 };
 
 // Key sources: pre-hashed u32 keys, raw u64 ids as (lo, hi) u32 halves
-// mixed in-register (no key array exists on the ingest path), or the MoE hash
-// router's keys built from token ids in-register.
+// mixed in-register (no key array exists on the ingest path), the MoE hash
+// router's keys built from token ids in-register, or a placement's salted
+// key families.
 struct KeySource {
   static constexpr bool kPreload = true;  // a plain load
   const uint32_t* keys;
@@ -126,6 +127,29 @@ struct RouterKeySource {
     const uint32_t k = ii - t * top_k;
     const uint32_t salt = (salt0 + k * 7919u + 1u) * GOLDEN32;
     return mix32(tokens[static_cast<int64_t>(t) * stride] ^ salt);
+  }
+};
+
+// The salt of a placement's replica column j: (j * 7919 + 1) * GOLDEN32 in
+// u32, the family_salts(r)[j] of repro_torch.core.placement_torch (the MoE
+// router's schedule at salt0 = 0).
+__device__ __forceinline__ uint32_t family_salt(uint32_t j) { return (j * 7919u + 1u) * GOLDEN32; }
+
+// Key i of a placement's (N, r) family batch: key t = i / r, column
+// j = i % r, mix32(keys[t] ^ family_salt(j)); so route_kernel routes all r
+// columns of a batch in one launch and the (N, r) family keys never exist.
+// The salt is two instructions, so no salt table is passed.  i < 2^32 (the
+// wrapper checks).
+struct FamilyKeySource {
+  // loads as it goes: preloading a lane's keys made the binomial family
+  // route 30 % slower on the H100 (43 registers against 38; PERF.md §6)
+  static constexpr bool kPreload = false;
+  const uint32_t* keys;
+  uint32_t r;
+  __device__ __forceinline__ uint32_t operator()(int64_t i) const {
+    const uint32_t ii = static_cast<uint32_t>(i);
+    const uint32_t t = ii / r;
+    return mix32(keys[t] ^ family_salt(ii - t * r));
   }
 };
 

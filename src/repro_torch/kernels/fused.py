@@ -1,7 +1,9 @@
 """The routing kernels' wrappers: for each engine, ``route``, ``ingest``,
-``lookup_dyn``, ``lookup_vec`` and ``lookup_router`` (the static-n kernel
-building the MoE hash router's keys from token ids), each beside its plain
-torch version and with a launch count.
+``lookup_dyn``, ``lookup_vec``, ``lookup_router`` (the static-n kernel
+building the MoE hash router's keys from token ids), and the R-way
+placement's ``route_family`` (the route kernel over a key's ``r`` salted
+families) and ``resolve`` (the distinct-resolution pass), each beside its
+plain torch version and with a launch count.
 
 A wrapper given CPU tensors returns its plain version's result.  Given CUDA
 tensors it launches the hand-written kernel (``csrc/routing.cu``, built by
@@ -18,13 +20,20 @@ TPU's Pallas kernels of ``repro.kernels.fused.make_fused_kernels``
                 of ``repro.core.jump_jax.jump_lookup_vec``); ``lookup_router``
                 runs the same kernel over the router's keys (the key build
                 of ``repro.models.layers.moe.route`` moved into it)
+    route_family the route kernel over a placement's salted key families
+                (the family route of ``repro.placement.store.route_replicas_impl``,
+                store.py:87, which runs the fused route, pallas_call at
+                fused.py:202, on TPU); ``resolve`` is that function's
+                distinct-resolution pass, which the reference computes
+                outside any Pallas kernel
 
 Operands: keys and id halves are int32 tensors holding u32 bit patterns;
 the fleet operands are those of ``repro_torch.core.bulk.FleetState``
 (packed mask ``(W,)``, table ``(C,)``, state ``(2,)``, all int32); ``n`` of
 ``lookup_dyn`` is a 1-element int32 tensor, that of ``lookup_vec`` a Python
 int.  Outputs are int32 tensors of the keys' shape (``lookup_router``: the
-token ids' shape plus ``top_k``).
+token ids' shape plus ``top_k``; ``route_family`` and ``resolve``: the
+keys' count by ``r``).
 """
 from __future__ import annotations
 
@@ -48,10 +57,11 @@ from repro_torch.core.jump_torch import (
     jump_memento_route,
 )
 from repro_torch.core.memento_torch import binomial_ingest_route, binomial_memento_route
+from repro_torch.core.placement_torch import MAX_R, family_keys, resolve_columns
 from repro_torch.kernels import build
 
 #: kernel kinds, as the launch counts are keyed
-KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec")
+KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec", "route_family", "resolve")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -97,8 +107,10 @@ class RoutingKernels:
 
     ``launches[kind]`` grows by one at each kernel launch and nowhere else
     (plain-version calls do not count; ``lookup_router`` counts under
-    ``lookup_vec``, whose kernel it launches).  ``fold(n)`` gives the static-n
-    kernel's host constants ``(E, M)`` and raises where the reference does.
+    ``lookup_vec``, whose kernel it launches; ``resolve``, the same kernel
+    for both engines, counts under the engine whose placement called it).
+    ``fold(n)`` gives the static-n kernel's host constants ``(E, M)`` and
+    raises where the reference does.
     """
 
     def __init__(
@@ -235,6 +247,70 @@ class RoutingKernels:
             _check(rc, f"{self.name} lookup_router")
             self.launches["lookup_vec"] += 1
         return out
+
+    # -- R-way placement ----------------------------------------------------
+    def route_family_plain(self, keys, r: int, packed, table, state,
+                           omega: int = 16) -> torch.Tensor:
+        return self.route_plain(family_keys(keys, r), packed, table, state, omega)
+
+    def route_family(self, keys, r: int, packed, table, state, omega: int = 16) -> torch.Tensor:
+        """The fused route over each key's ``r`` salted families: keys (N,)
+        -> ``(N, r)`` int32 replica ids, column ``j`` the route of
+        ``mix32(key ^ family_salts(r)[j])``, in one launch (the family keys
+        are built in it; no ``(N, r)`` key array exists).  The kernels keep
+        a key's columns in registers, so on CUDA ``r <= MAX_R``."""
+        if _on_cpu(keys, packed, table, state):
+            return self.route_family_plain(keys, r, packed, table, state, omega)
+        if not 1 <= r <= MAX_R:
+            raise ValueError(f"the placement kernels take r in [1, {MAX_R}], got {r}")
+        _check_state(state)
+        out = torch.empty((keys.numel(), r), dtype=torch.int32, device=keys.device)
+        if out.numel() >= 1 << 32:
+            raise ValueError(f"{out.numel()} family keys: the kernel indexes them in u32")
+        if out.numel():
+            with torch.cuda.device(keys.device):
+                rc = build.library().routing_route_family(
+                    self.engine_id, _ptr(keys), r, _ptr(packed), packed.numel(), _ptr(table),
+                    table.numel(), _ptr(state), omega, _ptr(out), out.numel(), _stream(keys),
+                )
+            _check(rc, f"{self.name} route_family")
+            self.launches["route_family"] += 1
+        return out
+
+    resolve_plain = staticmethod(resolve_columns)
+
+    def resolve(self, keys, base, table, state, max_resalt: int, old=None):
+        """The distinct-resolution pass: keys (N,) and their routed family
+        columns ``base`` (N, r) -> ``(replicas (N, r) int32, exhausted (N,)
+        bool, moved (N, r) bool or None)``, as ``resolve_columns`` says;
+        with ``old`` (N, r) the same launch computes the moved mask."""
+        operands = (keys, base, table, state) + (() if old is None else (old,))
+        if _on_cpu(*operands):
+            return self.resolve_plain(keys, base, table, state, max_resalt, old)
+        _check_state(state)
+        n, r = keys.numel(), base.shape[-1]
+        if base.numel() != n * r or not 1 <= r <= MAX_R or (
+                old is not None and old.shape != base.shape):
+            raise ValueError(
+                f"resolve takes (N,) keys with (N, r) columns, r <= {MAX_R}: got keys "
+                f"{tuple(keys.shape)}, base {tuple(base.shape)}"
+                + ("" if old is None else f", old {tuple(old.shape)}")
+            )
+        if max_resalt < 0:
+            raise ValueError(f"max_resalt must be >= 0, got {max_resalt}")
+        out = torch.empty((n, r), dtype=torch.int32, device=keys.device)
+        exhausted = torch.empty(n, dtype=torch.bool, device=keys.device)
+        moved = None if old is None else torch.empty((n, r), dtype=torch.bool, device=keys.device)
+        if n:
+            with torch.cuda.device(keys.device):
+                rc = build.library().routing_resolve(
+                    _ptr(keys), _ptr(base), _ptr(table), _ptr(state), r, max_resalt,
+                    None if old is None else _ptr(old), _ptr(out), _ptr(exhausted),
+                    None if moved is None else _ptr(moved), n, _stream(keys),
+                )
+            _check(rc, f"{self.name} resolve")
+            self.launches["resolve"] += 1
+        return out, exhausted, moved
 
 
 BINOMIAL = RoutingKernels(

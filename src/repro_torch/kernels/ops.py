@@ -7,7 +7,11 @@ tensors and runs the plain torch version for CPU tensors:
 
 * ``route_bulk(keys, fleet, spec)``          — fused lookup + divert;
 * ``route_ingest_bulk(lo, hi, fleet, spec)`` — fused u64-id ingest;
-* ``lookup_bulk_dyn(keys, n, spec)``         — bare lookup, n on the device.
+* ``lookup_bulk_dyn(keys, n, spec)``         — bare lookup, n on the device;
+* ``route_replicas_bulk(keys, fleet, pspec)`` — R-way placement: the family
+  route, then the distinct-resolution pass (two launches);
+* ``placement_diff_bulk(keys, old, new, pspec)`` — both placements and the
+  moved mask (four launches).
 
 And the binomial static-n helpers, kernel on CUDA tensors and plain version
 on CPU tensors:
@@ -24,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.binomial_torch import u32
-from repro_torch.core.bulk import FleetState, RouterSpec
+from repro_torch.core.bulk import FleetState, PlacementSpec, RouterSpec
 from repro_torch.device import resolve_device
 
 
@@ -54,6 +58,40 @@ def lookup_bulk_dyn(keys: torch.Tensor, n: torch.Tensor, spec: RouterSpec) -> to
     """Bare lookup with ``n`` a 1-element device tensor — the two-pass
     baseline's first dispatch."""
     return _kernels(spec).lookup_dyn(keys, n, spec.omega)
+
+
+def route_replicas_bulk(keys: torch.Tensor, fleet: FleetState, pspec: PlacementSpec) -> tuple:
+    """R-way replicated placement: keys (N,) + fleet state -> ``(replicas
+    (N, r) int32 distinct alive shards, exhausted (N,) bool)``
+    (``repro_torch.placement.store.route_replicas_impl`` says what they
+    hold).  On CUDA tensors: one family-route launch (all ``r`` salted
+    families) and one resolve launch; on CPU tensors their plain versions.
+    ``n_alive >= 1`` is the caller's precondition, as for ``route_bulk``."""
+    spec = pspec.router
+    k = _kernels(spec)
+    keys = keys.reshape(-1)
+    base = k.route_family(keys, pspec.r, fleet.packed, fleet.table, fleet.state, spec.omega)
+    replicas, exhausted, _ = k.resolve(keys, base, fleet.table, fleet.state,
+                                       pspec.resolved_max_resalt)
+    return replicas, exhausted
+
+
+def placement_diff_bulk(
+    keys: torch.Tensor, fleet_old: FleetState, fleet_new: FleetState, pspec: PlacementSpec
+) -> tuple:
+    """Bulk migration diff: ``(old (N, r), new (N, r), moved (N, r) bool,
+    exhausted_new (N,))`` with ``moved[i, j] = new[i, j] not in old[i, :]``
+    (membership, not positional inequality: a column swap is free, only a
+    shard with no prior copy needs bytes).  On CUDA: two family-route
+    launches and two resolve launches, the second computing ``moved``."""
+    old, _ = route_replicas_bulk(keys, fleet_old, pspec)
+    k = _kernels(pspec.router)
+    keys = keys.reshape(-1)
+    f = fleet_new
+    routed = k.route_family(keys, pspec.r, f.packed, f.table, f.state, pspec.router.omega)
+    new, exhausted, moved = k.resolve(keys, routed, f.table, f.state, pspec.resolved_max_resalt,
+                                      old)
+    return old, new, moved, exhausted
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,3 @@
-"""Placement: the failure domain the serving router embeds."""
+"""Placement: the failure domain the serving router embeds (``elastic``),
+assignment and movement accounting (``assignment``), and R-way replicated
+store placement over the routing datapath (``store``)."""

@@ -1,9 +1,54 @@
-"""Failure domain: arbitrary-failure placement on the Memento-style wrapper
-(host-side control plane, pure Python ints)."""
+"""Elastic-scaling planners and the failure domain (host-side control
+plane, pure Python ints) — the counterpart of ``repro.placement.elastic``.
+
+* expert-parallel groups — expert -> device placement when the EP group
+  grows or shrinks (``plan_expert_migration``);
+* data hosts — file-shard -> host placement (``plan_shard_reassignment``);
+* failure handling — arbitrary node loss via the Memento wrapper
+  (``FailureDomain``).
+"""
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 from repro_torch.core.memento import MementoWrapper
 from repro_torch.core.registry import make
+from repro_torch.placement.assignment import Assignment, MovementPlan
+
+
+@dataclass
+class ExpertMigration:
+    """Expert -> device migration plan between EP group sizes."""
+
+    plan: MovementPlan
+    old_devices: int
+    new_devices: int
+    num_experts: int
+
+    @property
+    def bytes_moved(self) -> int:  # filled by caller with per-expert bytes
+        return len(self.plan.moves)
+
+
+def plan_expert_migration(
+    num_experts: int, old_devices: int, new_devices: int, engine: str = "binomial"
+) -> ExpertMigration:
+    """Place experts on devices consistently; return the minimal migration.
+
+    Monotonicity guarantees that on scale-up only experts moving TO new
+    devices migrate, and on scale-down only experts FROM removed devices.
+    """
+    a = Assignment(list(range(num_experts)), old_devices, engine)
+    plan = a.resize(new_devices)
+    return ExpertMigration(plan, old_devices, new_devices, num_experts)
+
+
+def plan_shard_reassignment(
+    num_shards: int, old_hosts: int, new_hosts: int, engine: str = "binomial"
+) -> MovementPlan:
+    """Data file-shard -> host reassignment on pipeline rescale."""
+    a = Assignment(list(range(num_shards)), old_hosts, engine)
+    return a.resize(new_hosts)
 
 
 class FailureDomain:

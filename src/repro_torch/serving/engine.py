@@ -10,9 +10,10 @@ scale) move only the sessions the paper's guarantees say they may.  Every
 replica serves the same parameter tensors; none copies them.
 
 Runs on the CUDA device unless ``device`` names another (``"cpu"`` runs the
-kernels' plain versions).  Not ported yet: ``attach_lifecycle`` and
-``heartbeat`` (ROADMAP Queue 1, item 6), ``mesh`` and ``router_spec``
-(item 13).
+kernels' plain versions).  ``attach_lifecycle`` wraps the router in a
+``LifecycleManager``: heartbeats then flow through ``heartbeat``, every
+``serve`` ticks the failure detector first, and fleet events are journaled.
+Not ported yet: ``mesh`` and ``router_spec`` (ROADMAP Queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving.batch_router import BatchRouter
+from repro_torch.serving.lifecycle import LifecycleManager
 
 
 class Replica:
@@ -69,13 +71,34 @@ class ServingTier:
         self.router = BatchRouter(n_replicas, engine=engine, device=device)
         self.device = self.router.device
         self.replicas = [self._replica(params) for _ in range(n_replicas)]
+        #: optional lifecycle robustness layer (``attach_lifecycle``)
+        self.lifecycle = None
+
+    def attach_lifecycle(self, config=None, clock=None):
+        """Wrap the router in a ``LifecycleManager`` (DESIGN.md §12).
+
+        Heartbeats then flow through ``tier.heartbeat(slot)``, and every
+        ``serve`` first ticks the failure detector — expirations land as
+        ONE coalesced device-state update before the batch is routed.
+        """
+        self.lifecycle = LifecycleManager(self.router, config=config, clock=clock)
+        return self.lifecycle
+
+    def heartbeat(self, replica: int) -> None:
+        if self.lifecycle is None:
+            raise RuntimeError("call attach_lifecycle() before heartbeat()")
+        self.lifecycle.heartbeat(replica)
 
     def _replica(self, params) -> Replica:
         return Replica(self.cfg, params, self.max_len, self.device)
 
     def serve(self, requests: list[Request]) -> dict[str, np.ndarray]:
         """Route the whole batch in one launch, group, serve aligned (prompts
-        left-padded with 0 to the group's longest)."""
+        left-padded with 0 to the group's longest).  With a lifecycle
+        attached, detector expirations are applied (coalesced) before
+        routing; an all-failed fleet raises ``FleetUnavailableError``."""
+        if self.lifecycle is not None:
+            self.lifecycle.tick()
         if not requests:
             return {}
         replicas = self.router.route_batch([r.session_id for r in requests])
@@ -94,14 +117,20 @@ class ServingTier:
                 results[g.session_id] = row[: g.n_new]
         return results
 
-    # The replica list stays (dead ones idle), except that failing the LAST
-    # slot is a true LIFO retirement that shrinks the slot space.
+    # Fleet events go through the lifecycle manager when one is attached
+    # (journaled, detector-aligned, placement-synced) and to the raw router
+    # otherwise.  The replica list stays (dead ones idle), except that
+    # failing the LAST slot is a true LIFO retirement that shrinks the slot
+    # space.
+    def _events(self):
+        return self.router if self.lifecycle is None else self.lifecycle
+
     def fail(self, replica: int) -> None:
-        self.router.fail(replica)
+        self._events().fail(replica)
         del self.replicas[self.router.domain.total_count:]
 
     def recover(self, replica: int) -> None:
-        self.router.recover(replica)
+        self._events().recover(replica)
 
     def scale_up(self, params) -> int:
         """Append a replica serving ``params``; only movers re-prefill."""
@@ -110,13 +139,13 @@ class ServingTier:
                 f"replica list ({len(self.replicas)}) out of lockstep with "
                 f"router slot space ({self.router.domain.total_count})"
             )
-        new = self.router.scale_up()
+        new = self._events().scale_up()
         self.replicas.append(self._replica(params))
         return new
 
     def scale_down(self) -> int:
         """Retire the last replica (LIFO, per the paper's operating model)."""
-        gone = self.router.scale_down()
+        gone = self._events().scale_down()
         # the router may garbage-collect failed tombstones off the end too
         del self.replicas[self.router.domain.total_count:]
         return gone

@@ -3,8 +3,11 @@ plain torch version (bit-exact), also at ragged sizes around the warp-chunk
 kernels' widths, the dynamic-n lookup at the edges of its runtime n and
 with n rewritten on the device, the MoE router's fused key build
 (``lookup_router``) and its dynamic-n path,
-``BatchRouter`` on the card against the plain-version router, and a 2-layer
-hash-routed MoE ``ServingTier`` on the card against the same tier on the CPU.  Needs a CUDA card and ``nvcc``;
+``BatchRouter`` on the card against the plain-version router, a 2-layer
+hash-routed MoE ``ServingTier`` on the card against the same tier on the CPU,
+the R-way placement kernels (the family route and ``resolve``) against their
+plain versions, and the placement tier with its lifecycle and repairer on the
+card against the same tier on the CPU.  Needs a CUDA card and ``nvcc``;
 skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
@@ -24,6 +27,10 @@ from repro_torch.core.jump import jump_lookup32  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import moe  # noqa: E402
 from repro_torch.core.registry import BULK_ENGINES  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.core.bulk import PlacementSpec  # noqa: E402
+from repro_torch.placement.store import StorePlacement  # noqa: E402
+from repro_torch.serving import lifecycle as L  # noqa: E402
 from repro_torch.serving.batch_router import BatchRouter  # noqa: E402
 from repro_torch.serving.engine import Request, ServingTier  # noqa: E402
 from repro_torch.serving.router import SessionRouter  # noqa: E402
@@ -155,6 +162,11 @@ def test_batch_router_on_card(cuda, engine, fused):
 def test_wrappers_refuse_non_int32_on_card(cuda):
     k = BULK_ENGINES["binomial"].kernels
     f = _fleet("binomial", 10, 64, 0, 0)
+    keys = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=r"r in \[1, 8\]"):
+        k.route_family(keys, 9, f.packed, f.table, f.state)
+    with pytest.raises(ValueError, match="r <= 8"):
+        k.resolve(keys, torch.zeros((8, 9), dtype=torch.int32, device=cuda), f.table, f.state, 9)
     with pytest.raises(ValueError, match="int32"):
         k.route(torch.zeros(8, dtype=torch.int64, device=cuda), f.packed, f.table, f.state)
     with pytest.raises(ValueError, match="n_total, n_alive"):
@@ -240,3 +252,97 @@ def test_hash_routed_serving_on_card(cuda, engine):
         for sid in want:
             np.testing.assert_array_equal(got[sid], want[sid])
     assert kernels.launches["lookup_vec"] > 0 and kernels.launches["route"] == 2
+
+
+#: (n, capacity, failed): n_alive above r, at r = 3, and below it
+PLACEMENT_FLEETS = ((1000, 1024, 250), (3, 64, 0), (3, 64, 1), (40000, 65536, 10000))
+
+
+@pytest.mark.parametrize("max_resalt", [None, 0, 1])
+@pytest.mark.parametrize("r", [1, 3, 5, 8])
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_placement_kernels_match_plain(cuda, engine, r, max_resalt):
+    """The family route (all r columns in one launch) and resolve (with and
+    without the moved mask) against their plain versions, bit-exact, also
+    at ragged sizes; one launch each."""
+    k = BULK_ENGINES[engine].kernels
+    for fleet in PLACEMENT_FLEETS:
+        f = _fleet(engine, *fleet, seed=fleet[2] + 1)
+        old = _fleet(engine, fleet[0], fleet[1], 0, 0)
+        mr = r if max_resalt is None else max_resalt
+        for size in (1 << 14, 1, 33, 257, 4097):
+            keys = _u32(size + r, size, cuda)
+            before = dict(k.launches)
+            base = k.route_family(keys, r, f.packed, f.table, f.state)
+            assert base.shape == (size, r) and base.dtype == torch.int32
+            assert torch.equal(base, k.route_family_plain(keys, r, f.packed, f.table, f.state)
+                               .to(torch.int32))
+            prev, _, _ = k.resolve(keys, k.route_family(keys, r, old.packed, old.table, old.state),
+                                   old.table, old.state, mr)
+            got = k.resolve(keys, base, f.table, f.state, mr, prev)
+            want = k.resolve_plain(keys, base, f.table, f.state, mr, prev)
+            for g, w in zip(got, want):
+                assert g.is_cuda and torch.equal(g, w)
+            alone = k.resolve(keys, base, f.table, f.state, mr)
+            assert alone[2] is None and torch.equal(alone[0], got[0]) and torch.equal(alone[1], got[1])
+            assert k.launches["route_family"] - before["route_family"] == 2
+            assert k.launches["resolve"] - before["resolve"] == 3
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_placement_entry_points_launch_as_documented(cuda, engine):
+    k = BULK_ENGINES[engine].kernels
+    router = BatchRouter(1000, engine=engine, capacity=1024)
+    pspec = PlacementSpec(router=router.spec, r=3)
+    keys = _u32(21, 1 << 16, cuda)
+    old = router._fleet_dev
+    router.fail(17), router.fail(500)
+    k.reset_launches()
+    rep, ex = ops.route_replicas_bulk(keys, router._fleet_dev, pspec)
+    assert (k.launches["route_family"], k.launches["resolve"]) == (1, 1)
+    o, n, moved, ex2 = ops.placement_diff_bulk(keys, old, router._fleet_dev, pspec)
+    assert (k.launches["route_family"], k.launches["resolve"]) == (3, 3)
+    assert torch.equal(n, rep) and torch.equal(ex, ex2) and not ex.any()
+    f = router._fleet_dev
+    from repro_torch.placement.store import placement_diff_impl
+    want = placement_diff_impl(keys, old.packed, old.table, old.state, f.packed, f.table, f.state,
+                               r=3, omega=16, max_resalt=3, route=k.route_plain)
+    for g, w in zip((o, n, moved, ex2), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_placement_tier_on_card_matches_cpu(cuda, engine):
+    """StorePlacement + LifecycleManager + PlacementRepairer on the card
+    against the same tier on the CPU (plain versions): the same journal,
+    placements, migration plan, repair tasks, lost and completed."""
+    keys = np.random.default_rng(8).integers(0, 1 << 32, 1 << 14, dtype=np.uint32)
+    sides = []
+    for device in ("cuda", "cpu"):
+        clock = L.ManualClock()
+        router = BatchRouter(100, engine=engine, capacity=128, device=device)
+        mgr = L.LifecycleManager(router, clock=clock)
+        store = StorePlacement(router, r=3)
+        store.register(keys)
+        rep = L.PlacementRepairer(store, mgr, budget_per_tick=512)
+        plan = tasks = None
+        for s in range(100):
+            mgr.heartbeat(s)
+        clock.advance(mgr.config.heartbeat.fail_after + 1)
+        for s in range(100):
+            if s not in (3, 40, 41, 77):
+                mgr.heartbeat(s)
+        mgr.tick()
+        plan = store.plan_migration()
+        tasks = []
+        while rep.backlog:
+            tasks += rep.tick()
+        rep.verify_placement_replay()
+        sides.append((mgr.journal.to_jsonl(), store.place(keys).replicas, plan.new, plan.moved,
+                      [dataclasses.astuple(t) for t in tasks], rep.lost, rep.completed,
+                      store.holders.copy()))
+    for got, want in zip(*sides):
+        if isinstance(got, np.ndarray):
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert got == want

@@ -36,7 +36,10 @@ def test_every_submodule_imports_without_jax_or_repro():
     mods = _submodules()
     assert {"repro_torch.serving.batch_router", "repro_torch.kernels.fused",
             "repro_torch.interop", "repro_torch.serving.engine", "repro_torch.models.model",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.serving.lifecycle.journal",
+            "repro_torch.serving.lifecycle.detector", "repro_torch.serving.lifecycle.manager",
+            "repro_torch.observability.trace", "repro_torch.placement.store",
+            "repro_torch.placement.assignment", "repro_torch.core.placement_torch"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -103,4 +106,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         BINOMIAL.ingest(keys, keys[:3], keys, keys, keys[:2])
     with pytest.raises(ValueError, match="CUDA devices"):
         BINOMIAL.lookup_vec(keys.to("meta"), 10)
-    assert BINOMIAL.launches == {"route": 0, "ingest": 0, "lookup_dyn": 0, "lookup_vec": 0}
+    with pytest.raises(ValueError, match="CUDA devices"):
+        BINOMIAL.route_family(keys.to("meta"), 3, keys.to("meta"), keys.to("meta"),
+                              keys[:2].to("meta"))
+    # the kernels' r <= 8 is theirs alone: the plain version takes any r
+    assert BINOMIAL.route_family(keys, 9, keys, keys, torch.tensor([8, 8])).shape == (4, 9)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        BINOMIAL.resolve(keys.to("meta"), keys.reshape(4, 1).to("meta"), keys.to("meta"),
+                         keys[:2].to("meta"), 1)
+    assert BINOMIAL.launches == {"route": 0, "ingest": 0, "lookup_dyn": 0, "lookup_vec": 0,
+                                 "route_family": 0, "resolve": 0}
