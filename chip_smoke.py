@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card: the routing
-datapath, the hash-routed MoE serving path and the R-way replicated
-placement tier with its fleet lifecycle.
+datapath, the hash-routed MoE serving path, the R-way replicated
+placement tier with its fleet lifecycle, and the streaming front end with
+its live load telemetry.
 
     python3 chip_smoke.py
 
@@ -25,8 +26,13 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    against their plain versions at 2^20 keys over the same fleets at
    r = 1, 3 and 5, with a too-small ``max_resalt`` where keys exhaust, at
    the ragged sizes, and a 4,096-key sample against a scalar placement
-   computed on the host from the ``FailureDomain``;
-3. the three main paths, each with the kernels' launch counts set to 0
+   computed on the host from the ``FailureDomain``; the same at r = 9, 16
+   and 32 (resolve's row path past its register columns); the
+   instrumented route ``route_load`` over the fleets at sample shifts 0, 3
+   and 6 and ragged sizes up to 2^20, from accumulators near 2^32, against
+   its plain version and ``route`` (capacity 65,536 takes its
+   global-atomic instance);
+3. the four main paths, each with the kernels' launch counts set to 0
    just before it and read just after:
    - the routing datapath: ``BatchRouter`` on the card, both engines, fused
      and two-pass: ``route_keys`` (CUDA tensor and numpy), ``route_ids``,
@@ -60,6 +66,16 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      the same storyline at 2^16 keys on the card and on the CPU (plain
      versions) gives the same journal bytes, placements, repair tasks,
      ``lost`` and ``completed``;
+   - streaming, per engine: ``StreamingFrontEnd`` (``WallClockUs``, the
+     default ``StreamConfig``) over that fleet and store with a
+     ``LoadMonitor``: 2^16 requests from 8 tenants, 250 replicas silent
+     halfway, 2^12 hedged reads; every served replica the scalar oracle's
+     at its epoch, every read from a live holder, served == consumed ==
+     request spans == drained keys, peak/mean inside the envelope, no
+     alarm, one ``route_load`` launch per dispatch and one ``route`` launch
+     per probe re-route; then two storylines of ``tests/chaos.py``
+     (overload, latency_spike), cut down, on a ``VirtualClockUs`` on the
+     card and on the CPU give the same results and JSON bytes;
 4. each kernel's time at 2^24 keys (CUDA events around back-to-back
    launches) beside its bound and its plain version's time; the static-n
    lookup also at n = 1025; ``lookup_router`` at 2^24 router keys and, as
@@ -70,7 +86,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    migration diff (``plan_migration``) at 2^24 keys, r = 3, on the fleet of
    1000 with 250 failed, each launch's share and its bound;
    ``BatchRouter.route_keys`` at 2^24 keys on the healthy fleet and with
-   250 failed (the storm/steady ratio).
+   250 failed (the storm/steady ratio); ``route_load`` at 2^24 keys, shifts
+   6 and 0, against ``route`` in turns (instrumented/bare), beside its
+   bound, its plain version and ``route`` + ``torch.bincount``; and
+   ``place_keys`` at 2^20 keys, r = 16.
 
 ``--baseline DIR [DIR ...]`` also builds each ``DIR/routing.cu`` (another
 build of the kernels with the same C interface: the parent commit's, or a
@@ -112,6 +131,9 @@ REPLACES = {
     "route_family": "src/repro/placement/store.py:87 (its family route: the K1/K2 pallas_call, "
                     "src/repro/kernels/fused.py:202)",
     "resolve": "src/repro/placement/store.py:131 (jnp in the JAX package; no pallas_call)",
+    "route_load": "src/repro/observability/load.py:71 (route_with_load_impl: jnp in the JAX "
+                  "package, no pallas_call; its route is the K1/K2 pallas_call, "
+                  "src/repro/kernels/fused.py:202)",
 }
 ENGINES = ("binomial", "jump")
 #: the kernels that read a fleet (the routing datapath), and all kernels
@@ -186,6 +208,11 @@ SASS_STATIC = {
     ("jump", "lookup_vec"): 928, ("jump", "lookup_router"): 1136,
     ("binomial", "route_family"): 1904, ("jump", "route_family"): 1328,
     ("binomial", "resolve"): 664, ("jump", "resolve"): 664,
+    # resolve's row path (r > MAX_R), and the instrumented route with its
+    # histogram in shared memory (capacity <= 4,096) and with global atomics
+    ("binomial", "resolve_rows"): 800, ("jump", "resolve_rows"): 800,
+    ("binomial", "route_load"): 1480, ("jump", "route_load"): 1176,
+    ("binomial", "route_load_global"): 1816, ("jump", "route_load_global"): 1072,
 }
 #: each kernel instance's mangled name in the library, up to its parameters
 FUNCTIONS = {
@@ -198,7 +225,10 @@ FUNCTIONS = {
         ("lookup_vec", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_9KeySourceEEEv"),
         ("lookup_router", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_15RouterKeySourceEEEv"),
         ("route_family", "_ZN7routing12route_kernelINS_{E}ENS_15FamilyKeySourceEEEv"),
-        ("resolve", "_ZN7routing14resolve_kernelE"),  # one function for both engines
+        ("resolve", "_ZN7routing14resolve_kernelILb1EEEv"),  # one function for both engines
+        ("resolve_rows", "_ZN7routing14resolve_kernelILb0EEEv"),
+        ("route_load", "_ZN7routing17route_load_kernelINS_{E}ELb1EEEv"),
+        ("route_load_global", "_ZN7routing17route_load_kernelINS_{E}ELb0EEEv"),
     )
 }
 #: bytes each kernel must move per key: keys (or two id halves) in, ids out
@@ -206,9 +236,9 @@ BYTES_PER_KEY = {"route": 8, "ingest": 12, "lookup_dyn": 8, "lookup_vec": 8}
 #: the placement kernels: the route kernel over a key's r salted families
 #: and the distinct-resolution pass
 PLACEMENT_KINDS = ("route_family", "resolve")
-#: the kernels line's rows: every kind, the router's static-n lookup, then
-#: the placement kernels
-ROWS = (*KINDS, "lookup_router", *PLACEMENT_KINDS)
+#: the kernels line's rows: every kind, the router's static-n lookup, the
+#: placement kernels, then the instrumented route
+ROWS = (*KINDS, "lookup_router", *PLACEMENT_KINDS, "route_load")
 
 N_CHECK = 1 << 20  # the repo's acceptance batch (benchmarks/bench_router.py)
 N_TIME = 1 << 24
@@ -617,13 +647,130 @@ def phase_placement_kernels(max_err: dict) -> None:
         tails = u32_tensor(np.random.default_rng(6), max(TAIL_SIZES)).cuda()
         worst = 0
         for size in TAIL_SIZES:
-            for r in (PLACE_R, 5):
+            for r in (PLACE_R, 5, 16):
                 _, e_route, e_res = check_placement(kernels, tails[:size], fleet, r, r, None)
                 worst = max(worst, e_route, e_res)
-        print(f"phase 2 placement tails[{engine}]: route_family and resolve at r = {PLACE_R} and 5, "
+        print(f"phase 2 placement tails[{engine}]: route_family and resolve at r = {PLACE_R}, 5 and 16, "
               f"{', '.join(map(str, TAIL_SIZES))} keys: max |kernel - plain| = {worst}")
         if worst:
             fail(f"placement[{engine}] at the ragged sizes disagrees")
+
+
+# --- the instrumented route -------------------------------------------------
+
+#: sample shifts checked: every key, and the two strides
+LOAD_SHIFTS = (0, 3, 6)
+#: key counts of the route_load checks: ragged around a warp and a block's
+#: pass, and the acceptance batch
+LOAD_SIZES = (1, 31, 33, 4097, N_CHECK)
+
+
+def near_wrap(rng, capacity: int) -> torch.Tensor:
+    """A (capacity,) accumulator on the card whose every bin starts within
+    2^10 of 2^32 (u32 bit patterns in int32)."""
+    start = (2**32 - rng.integers(1, 1 << 10, capacity)).astype(np.uint32)
+    return torch.from_numpy(start.view(np.int32)).cuda()
+
+
+def u32_err(got, want) -> int:
+    """max |got - want| of two int32 tensors read as u32 (0 for empty)."""
+    if not got.numel():
+        return 0
+    return int(((got.to(torch.int64) & 0xFFFFFFFF) - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
+
+
+def phase_route_load(max_err: dict) -> None:
+    """``route_load`` over the fleets of ``fleets`` (capacity 64 to 2,048,
+    and 65,536: above the shared-histogram threshold) at every shift of
+    ``LOAD_SHIFTS`` and size of ``LOAD_SIZES``, from an accumulator near
+    2^32: its replica ids bit-exact with ``route`` and its plain version,
+    its counts with the plain version's, one launch per call; a 4,096-key
+    sample against the scalar oracle."""
+    from repro_torch.core.registry import make_bulk
+
+    rng = np.random.default_rng(7)
+    keys = u32_tensor(rng, N_CHECK).cuda()
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        worst, calls, wrapped, oracle_ok = 0, 0, 0, 0
+        cases = fleets(engine)
+        for label, (plane, fleet) in cases.items():
+            args = (fleet.packed, fleet.table, fleet.state)
+            bare = kernels.route(keys, *args)
+            expect = np.asarray(oracle(engine, "route", plane, keys[:N_ORACLE], None))
+            for shift in LOAD_SHIFTS:
+                for size in LOAD_SIZES:
+                    k = keys[:size]
+                    start = near_wrap(rng, fleet.table.numel())
+                    want_reps, want = kernels.route_load_plain(k, *args, start, 16, shift)
+                    counts = start.clone()
+                    before = kernels.launches["route_load"]
+                    reps, got = kernels.route_load(k, *args, counts, 16, shift)
+                    torch.cuda.synchronize()
+                    err = max(u32_err(reps, want_reps), u32_err(reps, bare[:size]), u32_err(got, want))
+                    worst = max(worst, err)
+                    calls += 1
+                    wrapped += int(((got.to(torch.int64) & 0xFFFFFFFF)
+                                    < (start.to(torch.int64) & 0xFFFFFFFF)).sum())
+                    if err or got is not counts or kernels.launches["route_load"] - before != 1:
+                        fail(f"route_load[{engine}] on fleet {label}, shift {shift}, {size} keys: "
+                             f"max |kernel - plain| = {err}, "
+                             f"{kernels.launches['route_load'] - before} launches")
+                    if size == N_CHECK:
+                        oracle_ok += int((reps[:N_ORACLE].cpu().numpy() == expect).all())
+        max_err[engine, "route_load"] = worst
+        print(f"phase 2 route_load[{engine}]: {len(cases)} fleets (capacity 64 to 65,536) "
+              f"x shifts {LOAD_SHIFTS} x {', '.join(map(str, LOAD_SIZES))} keys from accumulators "
+              f"within 2^10 of 2^32: {calls} calls of one launch each, max |kernel - plain| = {worst} "
+              f"(replicas against route and the plain version, counts against the plain version), "
+              f"{wrapped} bins wrapped, scalar oracle agrees on {oracle_ok}/{len(cases) * len(LOAD_SHIFTS)}")
+        if oracle_ok != len(cases) * len(LOAD_SHIFTS) or not wrapped:
+            fail(f"route_load[{engine}] disagrees with the scalar oracle or never wrapped")
+
+
+#: replication factors past resolve's register columns (MAX_R = 8), and
+#: their fleets: n_alive above and below r
+WIDE_RS = (9, 16, 32)
+WIDE_FLEETS = {"40/64": (40, 64, 0), "40/64 10 failed": (40, 64, 10),
+               "1000/1024 250 failed": (1000, 1024, 250)}
+WIDE_ORACLE = 1024
+
+
+def phase_placement_wide(max_err: dict) -> None:
+    """``route_family`` and ``resolve`` at r = 9, 16 and 32 (resolve's row
+    path) on ``WIDE_FLEETS`` at 2^20 keys, with and without ``old``, against
+    their plain versions, bit-exact; a 1,024-key sample against
+    ``scalar_placement``; every row on min(r, n_alive) distinct shards."""
+    from repro_torch.core.registry import make_bulk
+
+    keys = u32_tensor(np.random.default_rng(8), N_CHECK).cuda()
+    sample = keys[:WIDE_ORACLE].cpu().numpy().view(np.uint32).tolist()
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        report = []
+        for label, (n, cap, n_fail) in WIDE_FLEETS.items():
+            plane, fleet = make_fleet(engine, n, cap, n_fail, 9)
+            _, old = make_fleet(engine, n, cap, 0, 9)
+            for r in WIDE_RS:
+                prev = kernels.resolve(keys, kernels.route_family(keys, r, old.packed, old.table,
+                                                                  old.state), old.table, old.state, r)[0]
+                errs = []
+                for with_old in (None, prev):
+                    (rep, exhausted, moved), e_route, e_res = check_placement(kernels, keys, fleet, r, r,
+                                                                              with_old)
+                    errs += [e_route, e_res]
+                for kind, err in (("route_family", max(errs[::2])), ("resolve", max(errs[1::2]))):
+                    max_err[engine, kind] = max(max_err.get((engine, kind), 0), err)
+                host = np.asarray([scalar_placement(plane.domain, k, r, r)[0] for k in sample])
+                n_ok = int((rep[:WIDE_ORACLE].cpu().numpy() == host).all(1).sum())
+                distinct = int((rep.sort(1).values.diff(1) != 0).sum(1).add(1).min())
+                report.append(f"{label} r={r}: {max(errs)}, host {n_ok}/{WIDE_ORACLE}, distinct {distinct}, "
+                              f"moved {int(moved.sum())}")
+                if max(errs) or n_ok != WIDE_ORACLE or exhausted.any() \
+                        or distinct != min(r, plane.domain.alive_count):
+                    fail(f"placement[{engine}] on fleet {label} at r = {r} disagrees")
+        print(f"phase 2 placement wide[{engine}], {N_CHECK} keys, r > 8 (resolve's row path), with and "
+              f"without old; max |kernel - plain|: " + "; ".join(report))
 
 
 # --- the main path ----------------------------------------------------------
@@ -1196,6 +1343,256 @@ def phase_placement() -> tuple[dict, dict]:
     return launches, host
 
 
+# --- the streaming path -----------------------------------------------------
+
+#: the streaming path's traffic: the reference's serving-bench shape
+#: (BENCH_serving.json: 8 tenants, max_batch 64), 2^16 requests, then 2^12
+#: hedged reads; a request's deadline is this far past its arrival
+STREAM_REQUESTS = 1 << 16
+STREAM_TENANTS = 8
+STREAM_READS = 1 << 12
+STREAM_SLO_US = 50_000
+
+
+def streaming_path(engine: str) -> dict:
+    """The streaming path on the card: ``StreamingFrontEnd`` (``WallClockUs``,
+    the default ``StreamConfig``) over ``BatchRouter(1000, capacity=1024)``
+    with a ``LifecycleManager`` (detector on a ``ManualClock``), a
+    ``StorePlacement(r=3)`` of 2^20 registered keys, a ``PlacementRepairer``
+    and a ``LoadMonitor`` (the default ``LoadConfig``); 2^16 requests from 8
+    tenants submitted and pumped, ``STORM`` replicas silent halfway, then
+    2^12 hedged reads.  The kernels' launch counts are set to 0 just before
+    the requests and read just after.  Every check fails the run."""
+    import copy
+
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.observability import LoadConfig, LoadMonitor, expected_peak_over_mean
+    from repro_torch.placement.store import StorePlacement
+    from repro_torch.serving.batch_router import BatchRouter
+    from repro_torch.serving.lifecycle import (
+        AdmissionRejectedError, LifecycleManager, ManualClock, PlacementRepairer)
+    from repro_torch.serving.streaming import StreamingFrontEnd, StreamRequest, WallClockUs
+
+    tag = f"streaming[{engine}]"
+    rng = np.random.default_rng(41)
+    detector_clock, wall = ManualClock(), WallClockUs()
+    router = BatchRouter(1000, engine=engine, capacity=1024)
+    mgr = LifecycleManager(router, clock=detector_clock)
+    store = StorePlacement(router, r=PLACE_R)
+    store.register(rng.integers(0, 2**32, size=STORE_KEYS, dtype=np.uint32))
+    PlacementRepairer(store, mgr, budget_per_tick=REPAIR_BUDGET)
+    fe = StreamingFrontEnd(mgr, store=store, clock=wall)
+    alarms: list = []
+    mon = LoadMonitor(router, metrics=fe.metrics, on_alarm=alarms.append)
+    probes = []
+    route_probes = mon.tracker._route_probes
+    mon.tracker._route_probes = lambda: (probes.append(1), route_probes())[1]
+    for s in range(1000):
+        mgr.heartbeat(s)
+    storm = {int(s) for s in rng.choice(999, size=STORM, replace=False)}
+    keys = rng.integers(0, 2**32, size=STREAM_REQUESTS, dtype=np.uint64).tolist()
+    domains = {mgr.epoch: copy.deepcopy(router.domain)}
+    kernels = BULK_ENGINES[engine].kernels
+    for eng in BULK_ENGINES.values():
+        eng.kernels.reset_launches()
+    results = []
+    t0 = time.perf_counter()
+    for i, key in enumerate(keys):
+        if i == STREAM_REQUESTS // 2:  # the storm: STORM replicas fall silent
+            detector_clock.advance(mgr.config.heartbeat.fail_after + 1)
+            for s in range(router.domain.total_count):
+                if s not in storm:
+                    mgr.heartbeat(s)
+        try:
+            fe.submit(StreamRequest(key=key, deadline_us=wall.now_us() + STREAM_SLO_US,
+                                    tenant=f"t{i % STREAM_TENANTS}"))
+        except AdmissionRejectedError:
+            pass  # counted by the registry's shed series
+        results += fe.pump()
+    results += fe.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    mon.drain()
+    domains[mgr.epoch] = copy.deepcopy(router.domain)
+    stats = fe.stats()
+    wrong = sum(domains[r.epoch].locate(r.request.key) != r.replica for r in results)
+    if wrong or set(domains) != {r.epoch for r in results} or len(domains) != 2:
+        fail(f"{tag}: {wrong} served replicas differ from the scalar oracle at their epoch "
+             f"(epochs {sorted({r.epoch for r in results})}, journal {sorted(domains)})")
+    if not (stats["served"] == len(results) == fe.tracer.count("request") == mon.total_keys) \
+            or stats["served"] + stats["shed_total"] != STREAM_REQUESTS:
+        fail(f"{tag}: served {stats['served']}, consumed {len(results)}, request spans "
+             f"{fe.tracer.count('request')}, drained keys {mon.total_keys}, shed {stats['shed_total']}")
+    cfg = mon.config
+    ratio = mon.peak_over_mean()
+    envelope = cfg.balance_mult * expected_peak_over_mean(mon.total_keys, mgr.n_alive)
+    if alarms or ratio is None or ratio > envelope:
+        fail(f"{tag}: alarms {alarms}, peak/mean {ratio} against the envelope {envelope}")
+    if launches["route_load"] != stats["dispatches"] or launches["route"] != len(probes):
+        fail(f"{tag}: {launches['route_load']} route_load launches for {stats['dispatches']} "
+             f"dispatches, {launches['route']} route launches for {len(probes)} probe re-routes")
+    # hedged reads of keys with a live copy
+    live = np.flatnonzero(store.reachable_counts() > 0)
+    picks = rng.choice(live, size=STREAM_READS, replace=False)
+    t1 = time.perf_counter()
+    reads = [fe.read(int(ki)) for ki in picks]
+    read_s = time.perf_counter() - t1
+    alive = set(range(router.domain.total_count)) - set(router.domain.removed)
+    bad = sum(r.shard not in r.holders or r.shard not in alive
+              or r.shard not in store.holders[r.key_index].tolist() for r in reads)
+    if bad:
+        fail(f"{tag}: {bad} of {STREAM_READS} reads returned no holder")
+    lat = np.asarray([r.latency_us for r in results])
+    # the front end's own host work: the breaker board's walk over the
+    # detector's slots (every pump and read) and one lifecycle tick (every
+    # dispatch), at this fleet size
+    observe_ms = host_ms(fe.breakers.observe, 200)
+    tick_ms = host_ms(mgr.tick, 200)
+    # host time per launch of a serve-size batch, instrumented against bare
+    batch = torch.from_numpy(np.asarray(keys[:64], np.uint32).view(np.int32)).cuda()
+    LoadMonitor(router, config=LoadConfig(drain_every=1 << 30))
+    inst_ms = host_ms(lambda: router.route_keys(batch), 2000)
+    router.detach_load_monitor()
+    bare_ms = host_ms(lambda: router.route_keys(batch), 2000)
+    return dict(requests=STREAM_REQUESTS, served=stats["served"], shed=stats["shed_total"],
+                dispatches=stats["dispatches"], wall_s=wall_s, requests_per_s=len(results) / wall_s,
+                p50_us=float(np.percentile(lat, 50)), p99_us=float(np.percentile(lat, 99)),
+                reads=len(reads), hedged=stats["hedge_launched"], read_s=read_s,
+                peak_over_mean=ratio, envelope=envelope, epochs=sorted(domains),
+                probe_reroutes=len(probes), drains=mon.drains, launches=launches,
+                host_us_instrumented=inst_ms * 1e3, host_us_bare=bare_ms * 1e3,
+                host_us_breaker_observe=observe_ms * 1e3, host_us_tick=tick_ms * 1e3,
+                lost_keys=int(STORE_KEYS - live.size))
+
+
+def streaming_storyline(engine: str, device: str, kind: str) -> tuple:
+    """``tests/chaos.py``'s streaming storylines, cut down, on one
+    ``VirtualClockUs`` with an injected service model: ``overload`` ramps the
+    offered load from half to 4x capacity (then a failure mid-stream and its
+    recovery), ``latency_spike`` scripts a service spike and a flapping shard
+    (breakers, hedged reads), then an outage and the shard's return ->
+    (the results, the registry/trace/monitor JSON bytes, the drained
+    windows), which must not depend on the device."""
+    from repro_torch import observability as O
+    from repro_torch.placement.store import StorePlacement
+    from repro_torch.serving import lifecycle as L
+    from repro_torch.serving import streaming as S
+    from repro_torch.serving.batch_router import BatchRouter
+
+    rng = np.random.default_rng(53)
+    clock = S.VirtualClockUs()
+    router = BatchRouter(12, engine=engine, device=device)
+    hb = L.HeartbeatConfig(heartbeat_interval=0.05, suspect_after=0.15, fail_after=0.35,
+                           readmit_after=0.2)
+    mgr = L.LifecycleManager(router, L.LifecycleConfig(heartbeat=hb), clock=clock.seconds_view())
+    store = StorePlacement(router, r=3)
+    store.register(rng.integers(0, 2**32, size=256, dtype=np.uint32))
+    L.PlacementRepairer(store, mgr, budget_per_tick=64)
+    reg, trace = O.MetricsRegistry(clock=clock), O.SpanTrace(capacity=1 << 15)
+    mon = O.LoadMonitor(router, metrics=reg, config=O.LoadConfig(drain_every=1 << 30))
+    spike = [1.0]
+    out, windows = [], []
+
+    def frontend():
+        def probe(shard):
+            try:
+                return 900 if mgr.detector.state_of(int(shard)) == L.SUSPECT else 120
+            except KeyError:
+                return 120
+
+        return S.StreamingFrontEnd(
+            mgr, store=store, config=S.StreamConfig(max_batch=16, service_bound_us=2_000),
+            clock=clock, breaker_config=S.BreakerConfig(cooldown_us=2_000_000),
+            service_model=lambda n: min(int(800 * spike[0]), 2_000), probe=probe, metrics=reg,
+            tracer=trace)
+
+    def drive(fe, n, gap, slo):
+        for _ in range(n):
+            req = S.StreamRequest(key=int(rng.integers(0, 2**32)), deadline_us=clock.now_us() + slo,
+                                  tenant=f"t{int(rng.integers(0, 4))}")
+            try:
+                fe.submit(req)
+            except L.AdmissionRejectedError as e:
+                out.append(("shed", e.reason))
+            clock.advance_us(max(1, int(rng.uniform(0.8 * gap, 1.2 * gap))))
+            out.extend(fe.pump())
+        out.extend(fe.drain())
+        for ki in rng.integers(0, 256, size=4).tolist():
+            try:
+                out.append(fe.read(ki))
+            except L.FleetUnavailableError:
+                out.append(("unreadable", ki))
+
+    def beat(skip=None):
+        for s in mgr.detector.slots:
+            if s != skip:
+                mgr.heartbeat(s)
+
+    if kind == "overload":
+        for mult in (0.5, 1.0, 2.0, 4.0):
+            drive(frontend(), 240, max(1, int(50 / mult)), 4_000)
+        windows.append(mon.drain())
+        mgr.fail(5)
+        drive(frontend(), 80, 100, 4_000)
+        windows.append(mon.drain())
+        mgr.recover(5)
+    else:
+        fe, victim = frontend(), 4
+        for rnd in range(28):
+            beat(skip=victim if 6 <= rnd < 22 and rnd % 4 else None)
+            spike[0] = 2.5 if 10 <= rnd < 18 else 1.0
+            drive(fe, 10, 100, 5_000)
+            clock.advance_us(50_000)
+            out.extend(fe.pump())
+        for silent in (True,) * 10 + (False,) * 12:  # an outage, then the return
+            beat(skip=victim if silent else None)
+            drive(fe, 8, 100, 5_000)
+            clock.advance_us(50_000)
+            out.extend(fe.pump())
+        out.append(fe.stats())
+        windows.append(mon.drain())
+    rows = [r if isinstance(r, (tuple, dict)) else dataclasses.astuple(r) for r in out]
+    return rows, O.to_json(reg, trace=trace, monitor=mon), [w.tolist() for w in windows]
+
+
+def phase_streaming() -> tuple[dict, dict]:
+    """The streaming path for both engines (launch counts set to 0 just
+    before the requests, read just after), then ``streaming_storyline``'s
+    two kinds on the card and on the CPU, which must agree -> (launches,
+    numbers)."""
+    launches, numbers = {}, {}
+    for engine in ENGINES:
+        run = streaming_path(engine)
+        launches[engine] = {k: n for k, n in run.pop("launches").items() if n}
+        numbers[engine] = run
+        print(f"phase 3 streaming[{engine}]: {run['requests']} requests from {STREAM_TENANTS} tenants "
+              f"(max_batch 64, max_wait 1000 us, WallClockUs) on 1000 replicas (capacity 1024), "
+              f"{STORE_KEYS} keys on {PLACE_R} copies, {STORM} replicas silent halfway: served "
+              f"{run['served']}, shed {run['shed']}, {run['dispatches']} dispatches in "
+              f"{run['wall_s']:.3f} s = {run['requests_per_s']:.0f} requests/s, latency p50 "
+              f"{run['p50_us']:.0f} us, p99 {run['p99_us']:.0f} us; every replica the scalar "
+              f"oracle's at its epoch {run['epochs']}; {run['drains']} drains, drained keys = served, "
+              f"peak/mean {run['peak_over_mean']:.4f} inside the envelope {run['envelope']:.4f}, no "
+              f"alarm; {run['probe_reroutes']} probe re-routes; {run['reads']} hedged reads "
+              f"({run['hedged']} hedged) each from a live holder in {run['read_s']:.3f} s; host per "
+              f"64-key route_keys: instrumented {run['host_us_instrumented']:.2f} us, bare "
+              f"{run['host_us_bare']:.2f} us; host per breaker observe (every pump) "
+              f"{run['host_us_breaker_observe']:.1f} us, per lifecycle tick (every dispatch) "
+              f"{run['host_us_tick']:.1f} us")
+        print(f"phase 3 streaming[{engine}] launches " + json.dumps(
+            {f"{k}[{engine}]": n for k, n in launches[engine].items()}))
+        for kind in ("overload", "latency_spike"):
+            card, cpu = (streaming_storyline(engine, device, kind) for device in ("cuda", "cpu"))
+            for name, a, b in zip(("results", "JSON bytes", "drained windows"), card, cpu):
+                if a != b:
+                    fail(f"streaming[{engine}] {kind}: {name} on the card differ from the CPU's")
+            print(f"phase 3 streaming[{engine}] {kind} storyline on a VirtualClockUs, card against "
+                  f"CPU: identical {len(card[0])} results, sheds and reads, {len(card[1])} JSON bytes, "
+                  f"drained windows summing to {sum(map(sum, card[2]))} keys")
+    return launches, numbers
+
+
 # --- times and bounds -------------------------------------------------------
 
 
@@ -1553,6 +1950,75 @@ def phase_placement_times(rows: dict, card: str) -> None:
               f"{share(plan_bound, plan)}; on {card}")
 
 
+#: the wide placement timed in phase 4 (resolve's row path)
+WIDE_R_TIME = 16
+
+
+def phase_route_load_times(rows: dict, card: str) -> None:
+    """At 2^24 keys on the fleet of 1000 in capacity 1024 with 250 failed:
+    ``route_load`` at shift 6 (the default above ``exact_cutoff``) and 0
+    beside ``route`` in turns, its bound, its plain version and the two-call
+    composition ``route`` + ``torch.bincount`` (the library yardstick);
+    ``place_keys`` at 2^20 keys, r = ``WIDE_R_TIME``.  Adds the
+    ``route_load`` rows."""
+    from repro_torch.core.bulk import PlacementSpec
+    from repro_torch.core.registry import make_bulk
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batch_router import BatchRouter
+
+    keys = u32_tensor(np.random.default_rng(2), N_TIME).cuda()
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        _, fleet = make_fleet(engine, 1000, 1024, 250, 2)
+        args = (fleet.packed, fleet.table, fleet.state)
+        cap = fleet.table.numel()
+        counts = torch.zeros(cap, dtype=torch.int32, device="cuda")
+        route_b = bound(engine, "route", keys, fleet)
+        row = {}
+        for shift in (6, 0):
+            # in turns: route, route_load, route_load, route
+            readings = {"route": [], "route_load": []}
+            for which in ("route", "route_load", "route_load", "route"):
+                fn = ((lambda: kernels.route(keys, *args)) if which == "route" else
+                      (lambda: kernels.route_load(keys, *args, counts, 16, shift)))
+                readings[which].append(time_ms(fn))
+            ms, bare = (statistics.median(readings[w]) for w in ("route_load", "route"))
+            plain_ms = time_ms(lambda: kernels.route_load_plain(keys, *args, counts, 16, shift), 1, 3)
+            lib_ms = time_ms(lambda: torch.bincount(
+                kernels.route(keys, *args)[:: 1 << shift], minlength=cap), 3, 5)
+            # route's bound plus the count's own work: per counted key its
+            # index test and its add (the block histogram's flush is this
+            # design's, not the function's); bytes: the accumulator read and
+            # written once beside route's keys and ids
+            counted = (N_TIME + (1 << shift) - 1) >> shift
+            t_ops = route_b["t_ops"] + 2 * counted / LANE_INSTR_S * 1e3
+            t_bytes = route_b["t_bytes"] + 8 * cap / HBM_BYTES_S * 1e3
+            b = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+            row[shift] = dict(ms=ms, route_ms=bare, ratio=ms / bare, plain_ms=plain_ms,
+                              library_ms=lib_ms, **b)
+            print(f"phase 4 route_load[{engine}] {N_TIME} keys, shift {shift} ({counted} counted), 1000/1024 "
+                  f"with 250 failed: {ms:.4f} ms against route {bare:.4f} ms in turns, instrumented/bare "
+                  f"{ms / bare:.4f} (route_load {', '.join(f'{t:.4f}' for t in readings['route_load'])}; "
+                  f"route {', '.join(f'{t:.4f}' for t in readings['route'])}); bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}), bound/time {share(b['bound_ms'], ms)}; route + torch.bincount "
+                  f"{lib_ms:.4f} ms; plain version {plain_ms:.3f} ms; on {card}")
+        rows[engine, "route_load"] = dict(row[6], library_call="route kernel + torch.bincount",
+                                          shift0=row[0], shift=6)
+        router = BatchRouter(1000, engine=engine, capacity=1024)
+        for b in np.random.default_rng(2).choice(999, size=250, replace=False):
+            router.fail(int(b))
+        pspec = PlacementSpec(router=router.spec, r=WIDE_R_TIME)
+        wide_keys = keys[:N_CHECK]
+        fam_ms = time_ms(lambda: kernels.route_family(wide_keys, WIDE_R_TIME, *(
+            router._fleet_dev.packed, router._fleet_dev.table, router._fleet_dev.state)))
+        place = time_ms(lambda: ops.route_replicas_bulk(wide_keys, router._fleet_dev, pspec))
+        rows[engine, "resolve"].update({f"r{WIDE_R_TIME}_place_keys_2^20_ms": place,
+                                        f"r{WIDE_R_TIME}_route_family_2^20_ms": fam_ms})
+        print(f"phase 4 place_keys[{engine}] {N_CHECK} keys, r = {WIDE_R_TIME} (resolve's row path), "
+              f"1000/1024 with 250 failed: {place:.4f} ms, of which the family route {fam_ms:.4f} ms; "
+              f"on {card}")
+
+
 def baseline_library(src_dir: Path):
     """Another build of the kernels (``src_dir/routing.cu``, the same C
     interface), compiled with this build's flags and loaded."""
@@ -1709,16 +2175,24 @@ def main() -> int:
     phase_tails(max_err)
     phase_lookup_router(max_err)
     phase_placement_kernels(max_err)
+    phase_placement_wide(max_err)
+    phase_route_load(max_err)
     by_path = {"router": phase_router()}
     serve_launches, serve_calls = phase_serve(card)
     by_path["serve"] = {(e, k): n for e, counts in serve_launches.items() for k, n in counts.items()}
     place_launches, place_host = phase_placement()
     by_path["placement"] = {(e, k): n for e, counts in place_launches.items() for k, n in counts.items()}
+    stream_launches, stream_numbers = phase_streaming()
+    by_path["streaming"] = {(e, k): n for e, counts in stream_launches.items() for k, n in counts.items()}
     from repro_torch.configs import get_config
 
     moe_cfg = get_config(SERVE_ARCH).moe
     rows = phase_times(serve_calls, moe_cfg)
     phase_placement_times(rows, card)
+    phase_route_load_times(rows, card)
+    for engine, numbers in stream_numbers.items():
+        rows[engine, "route_load"]["streaming"] = {
+            k: v for k, v in numbers.items() if isinstance(v, (int, float))}
     for engine, numbers in place_host.items():
         rows[engine, "route_family"].update(
             {f"store_2^20_{k}": v for k, v in numbers.items()
@@ -1734,7 +2208,7 @@ def main() -> int:
                 name=f"{kind}[{engine}]", route="cuda", source=SRC, replaces=REPLACES[kind],
                 launches=sum(paths.values()), launches_by_path=paths,
                 max_abs_err=max_err[engine, kind], bit_exact=max_err[engine, kind] == 0,
-                **rows[engine, kind], library_ms=None))
+                **{"library_ms": None, **rows[engine, kind]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

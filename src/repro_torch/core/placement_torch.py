@@ -32,7 +32,8 @@ from repro_torch.core.binomial_torch import GOLDEN32, mix32, mulhi32, u32
 #: resolution probes decorrelate from the base placements they collide with
 RESALT_SALT = 0x7F4A7C15
 
-#: replica columns the kernels keep in registers per key
+#: replica columns ``resolve_kernel`` keeps in registers per key; past it the
+#: kernel re-reads a key's settled columns from its row of the output (any r)
 MAX_R = 8
 
 

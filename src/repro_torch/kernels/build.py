@@ -38,6 +38,7 @@ SIGNATURES = {
     "routing_lookup_dyn": (_I, _P, _P, _I, _P, _N, _P),
     "routing_lookup_vec": (_I, _P, _U, _U, _U, _I, _P, _N, _P),
     "routing_lookup_router": (_I, _P, _I, _U, _U, _U, _U, _U, _I, _P, _N, _P),
+    "routing_route_load": (_I, _P, _P, _I, _P, _I, _P, _I, _P, _N, _P, _I, _I, _P),
     "routing_route_family": (_I, _P, _U, _P, _I, _P, _I, _P, _I, _P, _N, _P),
     "routing_resolve": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _N, _P),
 }

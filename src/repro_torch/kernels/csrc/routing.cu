@@ -20,9 +20,16 @@
 //       key families (src/repro/placement/store.py:87, route_replicas_impl,
 //       whose family route is the fused route, pallas_call at fused.py:202):
 //       the same chunk loop, all r columns in one launch;
-//   resolve_kernel                    the distinct-resolution pass of
+//   resolve_kernel<kRegs>             the distinct-resolution pass of
 //       route_replicas_impl (store.py:131-178), which the reference runs as
-//       elementwise jnp outside any Pallas kernel; one thread per key.
+//       elementwise jnp outside any Pallas kernel; one thread per key, its
+//       columns in registers up to r = MAX_R and re-read from its own row of
+//       the output beyond;
+//   route_load_kernel<Engine, kShared> the instrumented route of
+//       src/repro/observability/load.py:71-118 (route_with_load_impl, jnp in
+//       the reference, one jitted dispatch): route_kernel's chunk loop with
+//       every settled replica also counted into a (capacity,) u32
+//       accumulator, in the same launch.
 //
 // What bounds them: instruction issue, never bytes (8 B/key moved, 12 for
 // ingest: 0.040-0.060 ms at 2^24 keys on the H100, against 0.11-0.34 ms of
@@ -55,7 +62,8 @@
 //   are queued the same way and redirected densely.
 //
 // Warps share nothing, so no block barrier is needed; __syncwarp() orders
-// each warp's shared memory.
+// each warp's shared memory.  (route_load's shared histogram is the one
+// exception: a barrier before its first count and one before its flush.)
 //
 // The fleet state [n_total, n_alive] (route) and n (lookup_dyn) are read
 // from device memory and folded into E and M by each thread, so a launch
@@ -129,13 +137,48 @@ struct Keep {
   __device__ __forceinline__ uint32_t redirect(uint32_t, uint32_t b) const { return b; }
 };
 
+// What else happens to a settled replica b of flat index i, beside its store:
+// nothing (every kernel but route_load), or the load count's sample (i a
+// multiple of 2^shift, weight 2^shift, wrapping as u32): into the block's
+// histogram in shared memory, or straight into the (capacity,) accumulator.
+// b < n_total <= capacity; an id past the accumulator is not counted.
+struct NoCount {
+  static constexpr bool kCounts = false;
+  __device__ __forceinline__ void add(int64_t, uint32_t) const {}
+};
+
+struct SharedCount {
+  static constexpr bool kCounts = true;
+  uint32_t hist;   // the block's bins: their shared-memory address
+  uint32_t cap;
+  uint32_t smask;  // 2^shift - 1 (shift <= 31, so the index's low word decides)
+  uint32_t weight;
+  __device__ __forceinline__ void add(int64_t i, uint32_t b) const {
+    if ((static_cast<uint32_t>(i) & smask) == 0 && b < cap) {
+      asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(hist + 4u * b), "r"(weight) : "memory");
+    }
+  }
+};
+
+struct GlobalCount {
+  static constexpr bool kCounts = true;
+  uint32_t* counts;
+  uint32_t cap;
+  uint32_t smask;
+  uint32_t weight;
+  __device__ __forceinline__ void add(int64_t i, uint32_t b) const {
+    if ((static_cast<uint32_t>(i) & smask) == 0 && b < cap) atomicAdd(counts + b, weight);
+  }
+};
+
 // Binomial over one warp's chunk of `count` keys (base .. base + count - 1):
 // every key whose first-trip candidate settles it is written at once; the
 // keys whose loop goes on (front) and the removed buckets (back) are queued
 // with one ballot each and finished densely by the warp afterwards.
-template <class Source, class D>
+template <class Source, class D, class C = NoCount>
 __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const Lookup& p,
-                               int32_t* __restrict__ out, int64_t base, int count) {
+                               int32_t* __restrict__ out, int64_t base, int count,
+                               const C& cnt = C{}) {
   const int lane = threadIdx.x & 31;
   const unsigned below = lanemask_lt();
   int front = 0, back = 0;
@@ -169,6 +212,9 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     }
     const bool hit = in && !more && d.removed(c);
     if (in && !more && !hit) out[base + e] = static_cast<int32_t>(c);
+    if constexpr (C::kCounts) {
+      if (in && !more && !hit) cnt.add(base + e, c);
+    }
     const unsigned mf = __ballot_sync(FULL, more);
     if (more) {
       w.queue[front + __popc(mf & below)] = static_cast<uint8_t>(e);
@@ -193,6 +239,7 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     uint32_t b = goes_on ? Binomial::rest(key, p.n, p.E, p.M, p.omega) : w.out[e];
     if (!goes_on || d.removed(b)) b = d.redirect(key, b);
     out[base + e] = static_cast<int32_t>(b);
+    if constexpr (C::kCounts) cnt.add(base + e, b);
   }
   __syncwarp();
 }
@@ -259,9 +306,10 @@ __device__ void jump_chains(WarpArea& w, int count, uint32_t n, int omega) {
 // Jump over one warp's chunk: stage the keys (coalesced), run the chains,
 // write the buckets back (coalesced), removed ones queued and diverted
 // densely.
-template <class Source, class D>
+template <class Source, class D, class C = NoCount>
 __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Lookup& p,
-                           int32_t* __restrict__ out, int64_t base, int count) {
+                           int32_t* __restrict__ out, int64_t base, int count,
+                           const C& cnt = C{}) {
   const int lane = threadIdx.x & 31;
   for (int e = lane; e < count; e += 32) w.key[e] = src(base + e);
   __syncwarp();
@@ -282,6 +330,9 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       const uint32_t b = in ? w.out[e] : 0u;
       const bool hit = in && d.removed(b);
       if (in && !hit) out[base + e] = static_cast<int32_t>(b);
+      if constexpr (C::kCounts) {
+        if (in && !hit) cnt.add(base + e, b);
+      }
       const unsigned m = __ballot_sync(FULL, hit);
       if (hit) w.queue[hits + __popc(m & below)] = static_cast<uint8_t>(e);
       hits += __popc(m);
@@ -289,7 +340,13 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
     __syncwarp();
     for (int q = lane; q < hits; q += 32) {
       const int e = w.queue[q];
-      out[base + e] = static_cast<int32_t>(d.redirect(w.key[e], w.out[e]));
+      if constexpr (C::kCounts) {
+        const uint32_t b = d.redirect(w.key[e], w.out[e]);
+        out[base + e] = static_cast<int32_t>(b);
+        cnt.add(base + e, b);
+      } else {
+        out[base + e] = static_cast<int32_t>(d.redirect(w.key[e], w.out[e]));
+      }
     }
   } else {
     for (int e = lane; e < count; e += 32) out[base + e] = static_cast<int32_t>(w.out[e]);
@@ -298,19 +355,19 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
 }
 
 // Every warp of the grid walks the chunks of 32 * items keys.
-template <class Engine, class Source, class D>
+template <class Engine, class Source, class D, class C = NoCount>
 __device__ __forceinline__ void chunks(WarpArea& w, const Source& src, const D& d,
                                        const Lookup& p, int32_t* __restrict__ out, int64_t n,
-                                       int items) {
+                                       int items, const C& cnt = C{}) {
   const int64_t seg = 32 * items;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * WARPS * seg;
   for (int64_t base = (static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * seg;
        base < n; base += stride) {
     const int count = static_cast<int>(n - base < seg ? n - base : seg);
     if constexpr (std::is_same_v<Engine, Binomial>) {
-      binomial_chunk(w, src, d, p, out, base, count);
+      binomial_chunk(w, src, d, p, out, base, count, cnt);
     } else {
-      jump_chunk(w, src, d, p, out, base, count);
+      jump_chunk(w, src, d, p, out, base, count, cnt);
     }
   }
 }
@@ -324,6 +381,45 @@ route_kernel(Source src, Fleet fleet, const int32_t* __restrict__ state, int ome
   const uint32_t n_alive = static_cast<uint32_t>(state[1]);
   chunks<Engine>(area[threadIdx.x >> 5], src, Divert{fleet, n_total, n_alive},
                  fold(n_total, omega), out, n, items);
+}
+
+// The instrumented route: route_kernel's loop over u32 keys, each settled
+// replica also counted (SharedCount / GlobalCount say which).  With kShared
+// (capacity <= SHARED_BINS) a block counts into its own histogram in shared
+// memory and, once every warp has left the chunk loop (a warp with no chunk
+// reaches the barrier at once), adds its nonzero bins to `counts` with one
+// global atomic each; above SHARED_BINS the histogram would cost occupancy
+// (the WarpAreas already take 18 KB a block), so every counted key is one
+// global atomic.  Unsigned adds wrap as the reference's u32 sums do.
+constexpr int SHARED_BINS = 4096;  // 16 KB of u32 bins
+
+template <class Engine, bool kShared>
+__global__ void __launch_bounds__(THREADS)
+route_load_kernel(KeySource src, Fleet fleet, const int32_t* __restrict__ state, int omega,
+                  int32_t* __restrict__ out, int64_t n, int items, uint32_t* __restrict__ counts,
+                  uint32_t cap, int shift) {
+  __shared__ WarpArea area[WARPS];
+  const uint32_t n_total = static_cast<uint32_t>(state[0]);
+  const uint32_t n_alive = static_cast<uint32_t>(state[1]);
+  const uint32_t smask = (1u << shift) - 1u;
+  const uint32_t weight = 1u << shift;
+  const Divert d{fleet, n_total, n_alive};
+  if constexpr (kShared) {
+    __shared__ uint32_t hist[SHARED_BINS];
+    for (uint32_t b = threadIdx.x; b < cap; b += THREADS) hist[b] = 0u;
+    __syncthreads();
+    chunks<Engine>(area[threadIdx.x >> 5], src, d, fold(n_total, omega), out, n, items,
+                   SharedCount{static_cast<uint32_t>(__cvta_generic_to_shared(hist)), cap, smask,
+                               weight});
+    __syncthreads();
+    for (uint32_t b = threadIdx.x; b < cap; b += THREADS) {
+      const uint32_t v = hist[b];
+      if (v) atomicAdd(counts + b, v);
+    }
+  } else {
+    chunks<Engine>(area[threadIdx.x >> 5], src, d, fold(n_total, omega), out, n, items,
+                   GlobalCount{counts, cap, smask, weight});
+  }
 }
 
 template <class Engine, class Source>
@@ -345,7 +441,7 @@ lookup_dyn_kernel(KeySource src, const int32_t* __restrict__ n_ptr, int omega,
 }
 
 // The distinct-resolution pass of an R-way placement, one thread per key with
-// its r <= MAX_R routed columns in registers: column j keeps its routed shard
+// its routed columns in registers (kRegs: r <= MAX_R): column j keeps its routed shard
 // unless an earlier settled column holds it; then a re-salt hash picks a
 // position in the table's alive prefix and up to max_resalt linear probes
 // take the first slots[q] no earlier column holds.  The reference tests
@@ -357,7 +453,11 @@ lookup_dyn_kernel(KeySource src, const int32_t* __restrict__ n_ptr, int omega,
 // the reference change nothing then.  n_alive <= j leaves the defined
 // duplicate and is no exhaustion.  With `old` (the placement before a
 // membership change) the launch also writes moved[i, j] = out[i, j] not in
-// old[i, :].  exhausted and moved are bool tensors (one byte each).
+// old[i, :].  exhausted and moved are bool tensors (one byte each).  Past
+// MAX_R columns (!kRegs) the thread compares against the columns it has
+// already written to its own row of `out` (its own stores, visible to its
+// loads; mostly L1 hits), and the moved mask against its row of `old`: the
+// same semantics, in the same launch.
 constexpr int MAX_R = 8;
 constexpr uint32_t RESALT_SALT = 0x7F4A7C15u;
 
@@ -368,6 +468,14 @@ __device__ __forceinline__ bool taken(const uint32_t (&col)[MAX_R], int j, uint3
   return hit;
 }
 
+// "taken" past the registers: b equals one of the row's first j columns.
+__device__ __forceinline__ bool taken_row(const int32_t* row, int j, uint32_t b) {
+  bool hit = false;
+  for (int k = 0; k < j; ++k) hit |= static_cast<uint32_t>(row[k]) == b;
+  return hit;
+}
+
+template <bool kRegs>
 __global__ void __launch_bounds__(THREADS)
 resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ base,
                const int32_t* __restrict__ slots, const int32_t* __restrict__ state, int r,
@@ -376,6 +484,40 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
   const uint32_t n_alive = static_cast<uint32_t>(state[1]);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < n; i += stride) {
+    if constexpr (!kRegs) {
+      const uint32_t key = keys[i];
+      int32_t* row = out + i * r;
+      bool ex = false;
+      for (int j = 0; j < r; ++j) {
+        uint32_t b = static_cast<uint32_t>(base[i * r + j]);
+        if (j > 0) {
+          bool coll = taken_row(row, j, b);
+          uint32_t q = __umulhi(mix32(mix32(key ^ family_salt(j)) ^ RESALT_SALT), n_alive);
+          for (int p = 0; coll && p < max_resalt; ++p) {
+            const uint32_t cand = static_cast<uint32_t>(slots[q]);
+            if (!taken_row(row, j, cand)) {
+              b = cand;
+              coll = false;
+            }
+            q += 1u;
+            if (q >= n_alive) q -= n_alive;
+          }
+          ex |= coll && static_cast<uint32_t>(j) < n_alive;
+        }
+        row[j] = static_cast<int32_t>(b);
+      }
+      exhausted[i] = ex;
+      if (old != nullptr) {
+        const int32_t* prev = old + i * r;
+        for (int j = 0; j < r; ++j) {
+          const int32_t b = row[j];
+          bool kept = false;
+          for (int k = 0; k < r; ++k) kept |= prev[k] == b;
+          moved[i * r + j] = !kept;
+        }
+      }
+      continue;
+    }
     const uint32_t key = keys[i];
     uint32_t col[MAX_R];
     bool ex = false;
@@ -456,6 +598,34 @@ int launch_route(Source src, const void* mask, int n_words, const void* slots, i
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Engine, bool kShared>
+int launch_route_load_as(KeySource src, const Fleet& fleet, const void* state, int omega,
+                         void* out, int64_t n, void* counts, uint32_t cap, int shift,
+                         cudaStream_t stream) {
+  static int resident[64] = {};
+  const Shape shape = shape_for(route_load_kernel<Engine, kShared>, n, resident);
+  route_load_kernel<Engine, kShared><<<shape.grid, THREADS, 0, stream>>>(
+      src, fleet, static_cast<const int32_t*>(state), omega, static_cast<int32_t*>(out), n,
+      shape.items, static_cast<uint32_t*>(counts), cap, shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Engine>
+int launch_route_load(KeySource src, const void* mask, int n_words, const void* slots,
+                      int n_slots, const void* state, int omega, void* out, int64_t n,
+                      void* counts, int capacity, int shift, cudaStream_t stream) {
+  if (capacity < 1 || shift < 0 || shift > 31) return -1;
+  const Fleet fleet{static_cast<const uint32_t*>(mask), n_words,
+                    static_cast<const int32_t*>(slots), n_slots};
+  const uint32_t cap = static_cast<uint32_t>(capacity);
+  if (capacity <= SHARED_BINS) {
+    return launch_route_load_as<Engine, true>(src, fleet, state, omega, out, n, counts, cap,
+                                              shift, stream);
+  }
+  return launch_route_load_as<Engine, false>(src, fleet, state, omega, out, n, counts, cap,
+                                             shift, stream);
+}
+
 template <class Engine>
 int launch_lookup_dyn(KeySource src, const void* n_buckets, int omega, void* out, int64_t n,
                       cudaStream_t stream) {
@@ -480,9 +650,12 @@ int launch_lookup_vec(Source src, unsigned n_buckets, unsigned E, unsigned M, in
 int launch_resolve(const void* keys, const void* base, const void* slots, const void* state,
                    int r, int max_resalt, const void* old, void* out, void* exhausted,
                    void* moved, int64_t n, cudaStream_t stream) {
-  if (r < 1 || r > MAX_R) return -1;
+  if (r < 1) return -1;
   const int64_t blocks = (n + THREADS - 1) / THREADS;
-  resolve_kernel<<<static_cast<int>(blocks < (1 << 30) ? blocks : (1 << 30)), THREADS, 0, stream>>>(
+  const int grid = static_cast<int>(blocks < (1 << 30) ? blocks : (1 << 30));
+  // the register path for r <= MAX_R, the row path beyond
+  auto* kernel = r <= MAX_R ? resolve_kernel<true> : resolve_kernel<false>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(base),
       static_cast<const int32_t*>(slots), static_cast<const int32_t*>(state), r, max_resalt,
       static_cast<const int32_t*>(old), static_cast<int32_t*>(out),
@@ -564,6 +737,25 @@ extern "C" int routing_lookup_router(int engine, const void* tokens, int stride,
   }
 }
 
+// The instrumented route: the route of n u32 keys into out, and counts
+// (capacity u32 bins) advanced in place by the replicas of flat indices that
+// are multiples of 2^shift, 2^shift each (0 <= shift <= 31; -1 otherwise).
+extern "C" int routing_route_load(int engine, const void* keys, const void* mask, int n_words,
+                                  const void* slots, int n_slots, const void* state, int omega,
+                                  void* out, long long n, void* counts, int capacity, int shift,
+                                  void* stream) {
+  using namespace routing;
+  const KeySource src{static_cast<const uint32_t*>(keys)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (engine) {
+    case 0: return launch_route_load<Binomial>(src, mask, n_words, slots, n_slots, state, omega,
+                                               out, n, counts, capacity, shift, s);
+    case 1: return launch_route_load<Jump>(src, mask, n_words, slots, n_slots, state, omega, out,
+                                           n, counts, capacity, shift, s);
+    default: return -1;
+  }
+}
+
 // An R-way placement's family route: keys (N,) -> out (N, r) row-major, the
 // route of key i / r under family salt i % r; n = N * r < 2^32.
 extern "C" int routing_route_family(int engine, const void* keys, unsigned int r,
@@ -581,7 +773,7 @@ extern "C" int routing_route_family(int engine, const void* keys, unsigned int r
 }
 
 // The distinct-resolution pass over n keys' (n, r) routed columns `base`,
-// 1 <= r <= 8 (-1 otherwise); old and moved may both be null.
+// r >= 1 (-1 otherwise); old and moved may both be null.
 extern "C" int routing_resolve(const void* keys, const void* base, const void* slots,
                                const void* state, int r, int max_resalt, const void* old,
                                void* out, void* exhausted, void* moved, long long n,

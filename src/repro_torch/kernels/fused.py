@@ -1,9 +1,10 @@
 """The routing kernels' wrappers: for each engine, ``route``, ``ingest``,
 ``lookup_dyn``, ``lookup_vec``, ``lookup_router`` (the static-n kernel
-building the MoE hash router's keys from token ids), and the R-way
-placement's ``route_family`` (the route kernel over a key's ``r`` salted
-families) and ``resolve`` (the distinct-resolution pass), each beside its
-plain torch version and with a launch count.
+building the MoE hash router's keys from token ids), ``route_load`` (the
+route with the load monitor's per-shard count in the same launch), and the
+R-way placement's ``route_family`` (the route kernel over a key's ``r``
+salted families) and ``resolve`` (the distinct-resolution pass), each
+beside its plain torch version and with a launch count.
 
 A wrapper given CPU tensors returns its plain version's result.  Given CUDA
 tensors it launches the hand-written kernel (``csrc/routing.cu``, built by
@@ -26,6 +27,9 @@ TPU's Pallas kernels of ``repro.kernels.fused.make_fused_kernels``
                 fused.py:202, on TPU); ``resolve`` is that function's
                 distinct-resolution pass, which the reference computes
                 outside any Pallas kernel
+    route_load  the instrumented route of
+                ``repro.observability.load.route_with_load_impl``
+                (load.py:71-118; jnp in the reference, no Pallas kernel)
 
 Operands: keys and id halves are int32 tensors holding u32 bit patterns;
 the fleet operands are those of ``repro_torch.core.bulk.FleetState``
@@ -33,7 +37,8 @@ the fleet operands are those of ``repro_torch.core.bulk.FleetState``
 ``lookup_dyn`` is a 1-element int32 tensor, that of ``lookup_vec`` a Python
 int.  Outputs are int32 tensors of the keys' shape (``lookup_router``: the
 token ids' shape plus ``top_k``; ``route_family`` and ``resolve``: the
-keys' count by ``r``).
+keys' count by ``r``).  ``route_load``'s accumulator is a ``(capacity,)``
+int32 tensor of u32 bit patterns, advanced in place.
 """
 from __future__ import annotations
 
@@ -57,11 +62,12 @@ from repro_torch.core.jump_torch import (
     jump_memento_route,
 )
 from repro_torch.core.memento_torch import binomial_ingest_route, binomial_memento_route
-from repro_torch.core.placement_torch import MAX_R, family_keys, resolve_columns
+from repro_torch.core.placement_torch import family_keys, resolve_columns
 from repro_torch.kernels import build
+from repro_torch.observability.load import route_with_load_impl
 
 #: kernel kinds, as the launch counts are keyed
-KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec", "route_family", "resolve")
+KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec", "route_family", "resolve", "route_load")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -146,6 +152,44 @@ class RoutingKernels:
             _check(rc, f"{self.name} route")
             self.launches["route"] += 1
         return out
+
+    def route_load_plain(self, keys, packed, table, state, counts, omega: int = 16,
+                         sample_shift: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        return route_with_load_impl(keys, packed, table, state, counts, omega=omega,
+                               route=self.route_plain, sample_shift=sample_shift)
+
+    def route_load(self, keys, packed, table, state, counts, omega: int = 16,
+                   sample_shift: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        """The route plus the load monitor's count, in one launch: keys ->
+        ``(replicas, counts)``, the replicas ``route``'s and ``counts`` (the
+        ``(capacity,)`` int32 accumulator of u32 bit patterns) advanced in
+        place by ``2**sample_shift`` at the replica of every flat index that
+        is a multiple of ``2**sample_shift``, wrapping as u32.  A CPU
+        accumulator is advanced in place by the plain version too."""
+        if not 0 <= sample_shift <= 31:
+            raise ValueError(f"sample_shift must be in [0, 31], got {sample_shift}")
+        if counts.numel() != table.numel():
+            raise ValueError(
+                f"the accumulator holds {counts.numel()} bins; the fleet's capacity is "
+                f"{table.numel()}"
+            )
+        if _on_cpu(keys, packed, table, state, counts):
+            out, new = self.route_load_plain(keys, packed, table, state, counts, omega,
+                                             sample_shift)
+            counts.copy_(new)
+            return out, counts
+        _check_state(state)
+        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        if keys.numel():
+            with torch.cuda.device(keys.device):
+                rc = build.library().routing_route_load(
+                    self.engine_id, _ptr(keys), _ptr(packed), packed.numel(), _ptr(table),
+                    table.numel(), _ptr(state), omega, _ptr(out), keys.numel(), _ptr(counts),
+                    counts.numel(), sample_shift, _stream(keys),
+                )
+            _check(rc, f"{self.name} route_load")
+            self.launches["route_load"] += 1
+        return out, counts
 
     def ingest(self, ids_lo, ids_hi, packed, table, state, omega: int = 16) -> torch.Tensor:
         """Fused splitmix64 ingest + lookup + divert: u64 ids as u32 halves
@@ -257,12 +301,11 @@ class RoutingKernels:
         """The fused route over each key's ``r`` salted families: keys (N,)
         -> ``(N, r)`` int32 replica ids, column ``j`` the route of
         ``mix32(key ^ family_salts(r)[j])``, in one launch (the family keys
-        are built in it; no ``(N, r)`` key array exists).  The kernels keep
-        a key's columns in registers, so on CUDA ``r <= MAX_R``."""
+        are built in it; no ``(N, r)`` key array exists), for any ``r >= 1``."""
         if _on_cpu(keys, packed, table, state):
             return self.route_family_plain(keys, r, packed, table, state, omega)
-        if not 1 <= r <= MAX_R:
-            raise ValueError(f"the placement kernels take r in [1, {MAX_R}], got {r}")
+        if r < 1:
+            raise ValueError(f"the placement kernels take r >= 1, got {r}")
         _check_state(state)
         out = torch.empty((keys.numel(), r), dtype=torch.int32, device=keys.device)
         if out.numel() >= 1 << 32:
@@ -283,16 +326,18 @@ class RoutingKernels:
         """The distinct-resolution pass: keys (N,) and their routed family
         columns ``base`` (N, r) -> ``(replicas (N, r) int32, exhausted (N,)
         bool, moved (N, r) bool or None)``, as ``resolve_columns`` says;
-        with ``old`` (N, r) the same launch computes the moved mask."""
+        with ``old`` (N, r) the same launch computes the moved mask.  The
+        kernel keeps a key's columns in registers up to ``MAX_R`` and reads
+        them back from its row of the output beyond: any ``r >= 1``."""
         operands = (keys, base, table, state) + (() if old is None else (old,))
         if _on_cpu(*operands):
             return self.resolve_plain(keys, base, table, state, max_resalt, old)
         _check_state(state)
         n, r = keys.numel(), base.shape[-1]
-        if base.numel() != n * r or not 1 <= r <= MAX_R or (
+        if base.numel() != n * r or r < 1 or (
                 old is not None and old.shape != base.shape):
             raise ValueError(
-                f"resolve takes (N,) keys with (N, r) columns, r <= {MAX_R}: got keys "
+                f"resolve takes (N,) keys with (N, r) columns, r >= 1: got keys "
                 f"{tuple(keys.shape)}, base {tuple(base.shape)}"
                 + ("" if old is None else f", old {tuple(old.shape)}")
             )

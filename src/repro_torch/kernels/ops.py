@@ -6,6 +6,8 @@ to that engine's kernel wrapper, which launches the CUDA kernel for CUDA
 tensors and runs the plain torch version for CPU tensors:
 
 * ``route_bulk(keys, fleet, spec)``          — fused lookup + divert;
+* ``route_load_bulk(keys, fleet, counts, spec)`` — the same route plus the
+  load monitor's per-shard count, in one launch;
 * ``route_ingest_bulk(lo, hi, fleet, spec)`` — fused u64-id ingest;
 * ``lookup_bulk_dyn(keys, n, spec)``         — bare lookup, n on the device;
 * ``route_replicas_bulk(keys, fleet, pspec)`` — R-way placement: the family
@@ -42,6 +44,20 @@ def route_bulk(keys: torch.Tensor, fleet: FleetState, spec: RouterSpec) -> torch
     """Fused routing: keys + device fleet state -> int32 replica ids, one
     kernel launch (DESIGN.md §7, §10)."""
     return _kernels(spec).route(keys, fleet.packed, fleet.table, fleet.state, spec.omega)
+
+
+def route_load_bulk(
+    keys: torch.Tensor, fleet: FleetState, counts: torch.Tensor, spec: RouterSpec,
+    *, sample_shift: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Instrumented routing: route + per-shard load count in ONE launch —
+    ``(replicas (N,) int32, counts)``, ``counts`` (``(capacity,)`` int32 of
+    u32 bit patterns) advanced in place by the ``[::2**sample_shift]``
+    stride sample of the replicas at weight ``2**sample_shift``.  Replica
+    ids are bit-exact with ``route_bulk`` at every shift (DESIGN.md §15)."""
+    return _kernels(spec).route_load(
+        keys, fleet.packed, fleet.table, fleet.state, counts, spec.omega, sample_shift
+    )
 
 
 def route_ingest_bulk(

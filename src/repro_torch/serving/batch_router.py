@@ -23,6 +23,10 @@ The pre-fusion two-stage pipeline (``lookup_bulk_dyn`` then
 ``memento_remap_table``, with ``buckets[N]`` in memory between them) is
 kept behind ``fused=False`` as the benchmark baseline.
 
+With a ``LoadMonitor`` attached (``attach_load_monitor``) the fused launch
+is the instrumented one (``ops.route_load_bulk``): the same replica ids,
+and the monitor's per-shard count advanced in the same launch.
+
 ``device=None`` means CUDA; with no CUDA device the constructor raises.
 ``device="cpu"`` runs every kernel's plain torch version instead (tests).
 """
@@ -83,6 +87,8 @@ class BatchRouter:
         # event-storm coalescing state (see ``coalesced_events``)
         self._coalescing = False
         self._state_dirty = False
+        #: attached LoadMonitor (None = the bare route)
+        self._load_monitor = None
         self._put_state()
 
     # -- spec facade ----------------------------------------------------------
@@ -189,8 +195,33 @@ class BatchRouter:
             keys = np.ascontiguousarray(keys, dtype=np.uint64).astype(np.uint32)
         return torch.from_numpy(np.ascontiguousarray(keys).view(np.int32)).to(self.device)
 
+    # -- load-monitor attachment (observability tier, DESIGN.md §15) --------
+    def attach_load_monitor(self, monitor) -> None:
+        """Instrument the fused launch with the monitor's device-side load
+        accumulator (``ops.route_load_bulk``).  Replica ids stay bit-exact
+        with the bare route; the count rides in the same launch.  The
+        two-pass baseline is not instrumented."""
+        if not self.fused:
+            raise ValueError(
+                "load monitoring requires the fused datapath "
+                "(fused=False is the two-pass benchmark baseline)"
+            )
+        self._load_monitor = monitor
+
+    def detach_load_monitor(self) -> None:
+        self._load_monitor = None
+
     def _dispatch(self, keys: torch.Tensor) -> torch.Tensor:
         if self.fused:
+            monitor = self._load_monitor
+            if monitor is not None:
+                n_keys = keys.numel()
+                out, counts = ops.route_load_bulk(
+                    keys, self._fleet_dev, monitor.counts_dev, self.spec,
+                    sample_shift=monitor.effective_shift(n_keys),
+                )
+                monitor.note_dispatch(counts, n_keys)
+                return out
             return ops.route_bulk(keys, self._fleet_dev, self.spec)
         # pre-fusion two-pass pipeline (benchmark baseline): buckets[N]
         # round-trips through memory between two launches; n is the state's

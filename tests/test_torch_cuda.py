@@ -5,10 +5,13 @@ with n rewritten on the device, the MoE router's fused key build
 (``lookup_router``) and its dynamic-n path,
 ``BatchRouter`` on the card against the plain-version router, a 2-layer
 hash-routed MoE ``ServingTier`` on the card against the same tier on the CPU,
-the R-way placement kernels (the family route and ``resolve``) against their
-plain versions, and the placement tier with its lifecycle and repairer on the
-card against the same tier on the CPU.  Needs a CUDA card and ``nvcc``;
-skips elsewhere.
+the R-way placement kernels (the family route and ``resolve``, also past
+the register columns at r = 9, 16 and 32) against their plain versions, the
+placement tier with its lifecycle and repairer on the card against the same
+tier on the CPU, the instrumented route (``route_load``) against its plain
+version on both sides of its shared-histogram threshold, and the streaming
+front end over a monitored router on the card against the same on the CPU.
+Needs a CUDA card and ``nvcc``; skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -160,13 +163,19 @@ def test_batch_router_on_card(cuda, engine, fused):
 
 
 def test_wrappers_refuse_non_int32_on_card(cuda):
+    """What the kernels do not take: r = 0, non-int32 keys, a short state.
+    r = 9 (past resolve's register columns) is taken."""
     k = BULK_ENGINES["binomial"].kernels
     f = _fleet("binomial", 10, 64, 0, 0)
     keys = torch.zeros(8, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match=r"r in \[1, 8\]"):
-        k.route_family(keys, 9, f.packed, f.table, f.state)
-    with pytest.raises(ValueError, match="r <= 8"):
-        k.resolve(keys, torch.zeros((8, 9), dtype=torch.int32, device=cuda), f.table, f.state, 9)
+    with pytest.raises(ValueError, match="r >= 1"):
+        k.route_family(keys, 0, f.packed, f.table, f.state)
+    with pytest.raises(ValueError, match="r >= 1"):
+        k.resolve(keys, torch.zeros((8, 0), dtype=torch.int32, device=cuda), f.table, f.state, 0)
+    base = k.route_family(keys, 9, f.packed, f.table, f.state)
+    assert base.shape == (8, 9)
+    out, ex, _ = k.resolve(keys, base, f.table, f.state, 9)
+    assert out.shape == (8, 9) and not ex.any()
     with pytest.raises(ValueError, match="int32"):
         k.route(torch.zeros(8, dtype=torch.int64, device=cuda), f.packed, f.table, f.state)
     with pytest.raises(ValueError, match="n_total, n_alive"):
@@ -259,7 +268,7 @@ PLACEMENT_FLEETS = ((1000, 1024, 250), (3, 64, 0), (3, 64, 1), (40000, 65536, 10
 
 
 @pytest.mark.parametrize("max_resalt", [None, 0, 1])
-@pytest.mark.parametrize("r", [1, 3, 5, 8])
+@pytest.mark.parametrize("r", [1, 3, 5, 8, 9, 16, 32])
 @pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
 def test_placement_kernels_match_plain(cuda, engine, r, max_resalt):
     """The family route (all r columns in one launch) and resolve (with and
@@ -311,18 +320,20 @@ def test_placement_entry_points_launch_as_documented(cuda, engine):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("r", [3, 16])
 @pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
-def test_placement_tier_on_card_matches_cpu(cuda, engine):
+def test_placement_tier_on_card_matches_cpu(cuda, engine, r):
     """StorePlacement + LifecycleManager + PlacementRepairer on the card
     against the same tier on the CPU (plain versions): the same journal,
-    placements, migration plan, repair tasks, lost and completed."""
+    placements, migration plan, repair tasks, lost and completed; also at
+    r = 16, past resolve's register columns."""
     keys = np.random.default_rng(8).integers(0, 1 << 32, 1 << 14, dtype=np.uint32)
     sides = []
     for device in ("cuda", "cpu"):
         clock = L.ManualClock()
         router = BatchRouter(100, engine=engine, capacity=128, device=device)
         mgr = L.LifecycleManager(router, clock=clock)
-        store = StorePlacement(router, r=3)
+        store = StorePlacement(router, r=r)
         store.register(keys)
         rep = L.PlacementRepairer(store, mgr, budget_per_tick=512)
         plan = tasks = None
@@ -346,3 +357,75 @@ def test_placement_tier_on_card_matches_cpu(cuda, engine):
             np.testing.assert_array_equal(got, want)
         else:
             assert got == want
+
+
+#: (n, capacity, failed) of the route_load cases: below the shared-histogram
+#: threshold (4,096 bins) and above it
+LOAD_FLEETS = ((1000, 1024, 250), (3, 64, 0), (6000, 8192, 1500), (40000, 65536, 10000))
+
+
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_route_load_matches_plain(cuda, engine, shift):
+    """The instrumented route against its plain version: replica ids
+    bit-exact with ``route``, counts bit-exact (wrapping from near 2^32),
+    advanced in place, one launch each, at ragged sizes."""
+    k = BULK_ENGINES[engine].kernels
+    rng = np.random.default_rng(shift)
+    for fleet in LOAD_FLEETS:
+        f = _fleet(engine, *fleet, seed=fleet[2] + 3)
+        fl = (f.packed, f.table, f.state)
+        for size in (1, 33, 4097, 1 << 18):
+            keys = _u32(size, size, cuda)
+            start = (2**32 - rng.integers(1, 1024, fleet[1])).astype(np.uint32)
+            counts = torch.from_numpy(start.view(np.int32)).to(cuda)
+            want_reps, want = k.route_load_plain(keys, *fl, counts, sample_shift=shift)
+            before = k.launches["route_load"]
+            reps, got = k.route_load(keys, *fl, counts, sample_shift=shift)
+            assert got is counts and k.launches["route_load"] == before + 1
+            assert torch.equal(reps, k.route(keys, *fl))
+            assert torch.equal(reps, want_reps.to(torch.int32))
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_streaming_front_end_on_card_matches_cpu(cuda, engine):
+    """A front end over a monitored router, a lifecycle manager and a
+    placement, on one scripted virtual timeline: the card's results,
+    registry bytes and drained counts equal the CPU's; every dispatch is one
+    route_load launch."""
+    from repro_torch import observability as O
+    from repro_torch.serving import streaming as S
+
+    keys = np.random.default_rng(1).integers(0, 1 << 32, 400)
+    sides = []
+    for device in ("cuda", "cpu"):
+        clock = S.VirtualClockUs()
+        router = BatchRouter(40, engine=engine, capacity=64, device=device)
+        mgr = L.LifecycleManager(router, clock=clock.seconds_view())
+        store = StorePlacement(router, r=3)
+        store.register(np.arange(1024, dtype=np.uint32))
+        L.PlacementRepairer(store, mgr, budget_per_tick=64)
+        reg = O.MetricsRegistry(clock=clock)
+        mon = O.LoadMonitor(router, metrics=reg, config=O.LoadConfig(drain_every=8))
+        fe = S.StreamingFrontEnd(mgr, store=store, clock=clock, metrics=reg,
+                                 service_model=lambda n: 300)
+        kernels = BULK_ENGINES[engine].kernels
+        kernels.reset_launches()
+        served = []
+        for i, key in enumerate(keys):
+            fe.submit(S.StreamRequest(key=int(key), deadline_us=clock.now_us() + 20_000,
+                                      tenant=f"t{i % 8}"))
+            clock.advance_us(40)
+            served += fe.pump()
+            if i == 200:
+                mgr.fail(7)
+        served += fe.drain()
+        reads = [fe.read(i) for i in range(0, 1024, 16)]
+        mon.drain()
+        if device == "cuda":
+            assert kernels.launches["route_load"] == fe.batcher.dispatches > 0
+        sides.append(([(r.request.key, r.replica, r.t_complete_us, r.epoch) for r in served],
+                      [(r.shard, r.hedged) for r in reads], O.to_json(reg, trace=fe.tracer, monitor=mon),
+                      mon.totals.tolist()))
+    assert sides[0] == sides[1]

@@ -1,11 +1,15 @@
-"""The seeded fleet-trouble storylines of ``tests/chaos.py`` — the five
-routing kinds and the two placement kinds — driven through the JAX
-package's objects and the port's (``device="cpu"``) in lockstep, seed for
-seed.  Every call the storyline makes goes to both sides and must give the
-same answer: routed ids, epochs and modes, detector events, placements,
-reads, repair tasks, or the same typed error.  At the end both sides must
-hold the same journal bytes, snapshot, holders and ``lost``/``completed``
-counts.
+"""The seeded fleet-trouble storylines of ``tests/chaos.py`` — all nine:
+the five routing kinds, the two placement kinds and the two streaming
+kinds — driven through the JAX package's objects and the port's
+(``device="cpu"``) in lockstep, seed for seed.  Every call the storyline
+makes goes to both sides and must give the same answer: routed ids, epochs
+and modes, detector events, placements, reads, repair tasks, served
+``StreamResult``s, sheds, hedged reads, drained load windows, or the same
+typed error.  At the end both sides must hold the same journal bytes,
+snapshot, holders and ``lost``/``completed`` counts, and the streaming
+kinds the same registry, trace and load-monitor JSON bytes, with the
+reference's telemetry-fidelity checks (invariants 11-14) passing on the
+reference's side of each answer.
 
 The storylines themselves (``chaos._STORYLINES``) only call the runner
 interface; the runners here build both sides instead of ``chaos.py``'s,
@@ -18,12 +22,24 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from chaos import _STORYLINES, N_PROBE, PLACEMENT_KINDS, PROBE_KEYS, ScenarioResult  # noqa: E402
+from chaos import (  # noqa: E402
+    _STORYLINES,
+    N_PROBE,
+    PLACEMENT_KINDS,
+    PROBE_KEYS,
+    STREAMING_KINDS,
+    ScenarioResult,
+    _StreamingRunner,
+)
+from repro import observability as RO  # noqa: E402
 from repro.placement.store import StorePlacement as RefStore  # noqa: E402
 from repro.serving import lifecycle as R  # noqa: E402
+from repro.serving import streaming as RS  # noqa: E402
 from repro.serving.batch_router import BatchRouter as RefRouter  # noqa: E402
+from repro_torch import observability as PO  # noqa: E402
 from repro_torch.placement.store import StorePlacement  # noqa: E402
 from repro_torch.serving import lifecycle as P  # noqa: E402
+from repro_torch.serving import streaming as PS  # noqa: E402
 from repro_torch.serving.batch_router import BatchRouter  # noqa: E402
 
 ROUTING_KINDS = ("storm", "flap", "cascade", "crash_recover", "mixed")
@@ -267,11 +283,96 @@ class PlacementLockstep(Lockstep):
         return int(self.rng.choice(alive)) if alive else None
 
 
+class StreamingLockstep(_StreamingRunner):
+    """The runner interface the streaming storylines call (``chaos.py``'s
+    ``_StreamingRunner``, whose checks it inherits): twins of a
+    ``StreamingFrontEnd`` over a lifecycle-wrapped router and an R-way
+    placement on one ``VirtualClockUs`` per side, each side with its own
+    registry, span trace and ``LoadMonitor``.  The injected service model is
+    shared; each side's read probe asks its own detector."""
+
+    def __init__(self, kind: str, engine: str, seed: int, n_initial: int):
+        self.rng = np.random.default_rng(seed)
+        self.clock = Twin(RS.VirtualClockUs(), PS.VirtualClockUs())
+        self.router = Twin(RefRouter(n_initial, engine=engine),
+                           BatchRouter(n_initial, engine=engine, device="cpu"))
+        hb = {R: self.HB, P: P.HeartbeatConfig(**dataclasses.asdict(self.HB))}
+        self.mgr = Twin(*(
+            L.LifecycleManager(r, L.LifecycleConfig(min_alive_floor=1, heartbeat=hb[L]),
+                               clock=c.seconds_view())
+            for L, r, c in zip((R, P), self.router.pair, self.clock.pair)))
+        r = min(3, n_initial - 1)
+        self.store = Twin(RefStore(self.router.pair[0], r=r),
+                          StorePlacement(self.router.pair[1], r=r))
+        self.store.register(PROBE_KEYS)
+        self.repairer = Twin(*(
+            L.PlacementRepairer(s, m, budget_per_tick=64)
+            for L, s, m in zip((R, P), self.store.pair, self.mgr.pair)))
+        self.metrics = Twin(*(O.MetricsRegistry(clock=c) for O, c in zip((RO, PO), self.clock.pair)))
+        self.trace = Twin(RO.SpanTrace(capacity=1 << 15), PO.SpanTrace(capacity=1 << 15))
+        self.alarms, self.port_alarms = [], []
+        self.monitor = Twin(*(
+            O.LoadMonitor(router, metrics=m, config=O.LoadConfig(drain_every=1 << 30),
+                          on_alarm=alarms.append)
+            for O, router, m, alarms in zip((RO, PO), self.router.pair, self.metrics.pair,
+                                            (self.alarms, self.port_alarms))))
+        self.total_served = 0
+        self.res = ScenarioResult(kind=kind, engine=engine, seed=seed)
+        self.spike_mult = 1.0
+
+    def make_frontend(self, rate_per_s=None):
+        def on_events(events):
+            self.res.events += len(events)
+
+        sides = []
+        for i, (S, L, mgr, store, clock, metrics, trace) in enumerate(zip(
+                (RS, PS), (R, P), self.mgr.pair, self.store.pair, self.clock.pair,
+                self.metrics.pair, self.trace.pair)):
+            def probe(shard, detector=mgr.detector, suspect=L.SUSPECT):
+                try:
+                    slow = detector.state_of(int(shard)) == suspect
+                except KeyError:
+                    slow = False
+                return 900 if slow else 120
+
+            sides.append(S.StreamingFrontEnd(
+                mgr, store=store,
+                config=S.StreamConfig(max_batch=self.MAX_BATCH, max_wait_us=self.MAX_WAIT_US,
+                                      service_bound_us=self.SERVICE_BOUND_US, hedge_after_us=300,
+                                      tenant_rate_per_s=rate_per_s),
+                clock=clock,
+                breaker_config=S.BreakerConfig(trip_after=3, window_us=30_000_000,
+                                               cooldown_us=2_000_000),
+                dispatch_fn=S.LifecycleDispatch(mgr, on_events=on_events if i == 0 else None),
+                service_model=self._service_model, probe=probe, metrics=metrics, tracer=trace))
+        return Twin(*sides)
+
+    def drive(self, fe, n_requests: int, gap_us: int, slo_us: int, jitter: float = 0.2):
+        """``chaos.py``'s open-loop arrivals, each request a twin (one object
+        per side, so each side stamps its own arrival)."""
+        served = shed = 0
+        for _ in range(n_requests):
+            fields = dict(key=int(self.rng.integers(0, 1 << 32)),
+                          deadline_us=self.clock.now_us() + slo_us,
+                          tenant=f"t{int(self.rng.integers(0, 4))}")
+            try:
+                fe.submit(Twin(RS.StreamRequest(**fields), PS.StreamRequest(**fields)))
+            except R.AdmissionRejectedError:
+                shed += 1
+            lo, hi = (1 - jitter) * gap_us, (1 + jitter) * gap_us
+            self.clock.advance_us(max(1, int(self.rng.uniform(lo, hi))))
+            served += self._consume(fe.pump())
+        served += self._consume(fe.drain())
+        return served, shed
+
+
 def run_lockstep(kind: str, engine: str, seed: int):
     """``chaos.run_scenario``'s set-up (fleet size, replication factor) with
     the lockstep runners."""
     n_initial = int(np.random.default_rng(seed).integers(4, 17))
-    if kind in PLACEMENT_KINDS:
+    if kind in STREAMING_KINDS:
+        runner = StreamingLockstep(kind, engine, seed, max(n_initial, 6))
+    elif kind in PLACEMENT_KINDS:
         rep = 3 if kind == "repair_race" else 2 + seed % 2
         runner = PlacementLockstep(kind, engine, seed, max(n_initial, rep + 2), rep)
     else:
@@ -282,7 +383,7 @@ def run_lockstep(kind: str, engine: str, seed: int):
 
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("kind", ROUTING_KINDS + PLACEMENT_KINDS)
+@pytest.mark.parametrize("kind", ROUTING_KINDS + PLACEMENT_KINDS + STREAMING_KINDS)
 def test_storyline_in_lockstep(kind, engine, seed):
     run = run_lockstep(kind, engine, seed)
     assert run.res.violations == [] and run.res.events > 0 and run.res.replay_checks > 0
@@ -291,12 +392,19 @@ def test_storyline_in_lockstep(kind, engine, seed):
     assert port.journal.epoch == port.router.routing_epoch == ref.router.routing_epoch
     assert port.snapshot().to_json() == ref.snapshot().to_json()
     np.testing.assert_array_equal(port.router._fleet_host.packed, ref.router._fleet_host.packed[0, :port.router.n_words])
-    if kind in PLACEMENT_KINDS:
+    if kind in PLACEMENT_KINDS + STREAMING_KINDS:
         rs, ps = run.store.pair
         np.testing.assert_array_equal(ps.holders, rs.holders)
         rr, pr = run.repairer.pair
         assert (pr.lost, pr.completed, pr.batches) == (rr.lost, rr.completed, rr.batches)
-        assert pr.completed == run.res.repair_copies > 0
         assert ps.keys.size == N_PROBE
+    if kind in PLACEMENT_KINDS:
+        assert pr.completed == run.res.repair_copies > 0
+    if kind in STREAMING_KINDS:
+        (rm, pm), (rt, pt), (rmon, pmon) = run.metrics.pair, run.trace.pair, run.monitor.pair
+        assert PO.to_json(pm, trace=pt, monitor=pmon) == RO.to_json(rm, trace=rt, monitor=rmon)
+        assert PO.to_prometheus(pm) == RO.to_prometheus(rm)
+        assert run.port_alarms == run.alarms == []
+        assert run.total_served > 0 and pmon.total_keys == run.total_served
     if kind == "flap":
         assert run.res.recovery_latencies

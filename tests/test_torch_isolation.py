@@ -39,7 +39,12 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.launch.serve", "repro_torch.serving.lifecycle.journal",
             "repro_torch.serving.lifecycle.detector", "repro_torch.serving.lifecycle.manager",
             "repro_torch.observability.trace", "repro_torch.placement.store",
-            "repro_torch.placement.assignment", "repro_torch.core.placement_torch"} <= set(mods)
+            "repro_torch.placement.assignment", "repro_torch.core.placement_torch",
+            "repro_torch.observability.metrics", "repro_torch.observability.alarms",
+            "repro_torch.observability.export", "repro_torch.observability.load",
+            "repro_torch.serving.streaming.clock", "repro_torch.serving.streaming.admission",
+            "repro_torch.serving.streaming.hedge", "repro_torch.serving.streaming.batcher",
+            "repro_torch.serving.streaming.frontend"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -109,10 +114,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA devices"):
         BINOMIAL.route_family(keys.to("meta"), 3, keys.to("meta"), keys.to("meta"),
                               keys[:2].to("meta"))
-    # the kernels' r <= 8 is theirs alone: the plain version takes any r
+    # the plain version and the kernels take any r >= 1
     assert BINOMIAL.route_family(keys, 9, keys, keys, torch.tensor([8, 8])).shape == (4, 9)
     with pytest.raises(ValueError, match="CUDA devices"):
         BINOMIAL.resolve(keys.to("meta"), keys.reshape(4, 1).to("meta"), keys.to("meta"),
                          keys[:2].to("meta"), 1)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        BINOMIAL.route_load(keys.to("meta"), keys.to("meta"), keys.to("meta"), keys[:2].to("meta"),
+                            keys.to("meta"))
     assert BINOMIAL.launches == {"route": 0, "ingest": 0, "lookup_dyn": 0, "lookup_vec": 0,
-                                 "route_family": 0, "resolve": 0}
+                                 "route_family": 0, "resolve": 0, "route_load": 0}

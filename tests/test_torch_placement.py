@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from repro.core import bits as ref_bits  # noqa: E402
 from repro.core.bulk import PlacementSpec as RefPlacementSpec  # noqa: E402
 from repro.core.bulk import RouterSpec as RefRouterSpec  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
@@ -175,6 +176,94 @@ def test_placement_diff_matches_reference_ops(engine, capacity):
     for g, w in zip(impl, got):
         assert torch.equal(g, w)
     assert 0 < int(got[2].sum()) < got[2].numel()
+
+
+def _wide_fleets(engine, capacity):
+    """(reference router, port router, the port's fleet before the
+    failures): n_alive above 32 and, at capacity 64, below 9, so columns
+    past n_alive are the defined duplicates."""
+    out = []
+    cases = ((60, 8), (12, 4)) if capacity == 64 else ((1000, 250),)
+    for n, fail in cases:
+        rr = RefRouter(n, engine=engine, capacity=capacity)
+        pr = BatchRouter(n, engine=engine, capacity=capacity, device="cpu")
+        h = rr._fleet_host
+        old_ref = type(h)(h.packed.copy(), h.table.copy(), h.state.copy())
+        old_port = store.StorePlacement(pr, r=1)._fleet_snapshot().to("cpu")
+        victims = np.random.default_rng(n).choice(n - 1, size=fail, replace=False)
+        with rr.coalesced_events(), pr.coalesced_events():
+            for v in victims:
+                rr.fail(int(v)), pr.fail(int(v))
+        rr._check_routable(), pr._check_routable()
+        out.append((rr, pr, old_ref, old_port))
+    return out
+
+
+@pytest.mark.parametrize("r,diff", [(9, True), (16, False)])
+@pytest.mark.parametrize("engine", ENGINES)
+def test_wide_replication_matches_reference_ops(engine, r, diff):
+    """r past the card kernel's register columns (``MAX_R`` = 8), at
+    capacity 64: placement (and at r = 9 the migration diff) against the
+    reference's ops.  (The reference's jit of these passes grows with r and
+    ``n_words``: 4 s at r = 9 and 21 s at r = 16 for 64 slots, minutes at
+    r = 32 or 1024 slots; those cases are held against the reference's
+    scalar control plane below.)"""
+    keys = np.random.default_rng(r).integers(0, 1 << 32, 1024, dtype=np.uint32)
+    tkeys = torch.from_numpy(keys.view(np.int32))
+    for rr, pr, old_ref, old_port in _wide_fleets(engine, 64):
+        ref_pspec, pspec = RefPlacementSpec(router=rr.spec, r=r), PlacementSpec(router=pr.spec, r=r)
+        want = ref_ops.route_replicas_bulk(keys, rr._fleet_dev, ref_pspec)
+        got = ops.route_replicas_bulk(tkeys, pr._fleet_dev, pspec)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert (distinct(got[0]) == min(r, pr.alive)).all() and not got[1].any()
+        if diff:
+            want = ref_ops.placement_diff_bulk(keys, old_ref, rr._fleet_dev, ref_pspec)
+            got = ops.placement_diff_bulk(tkeys, old_port, pr._fleet_dev, pspec)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _reference_scalar_placement(domain, key: int, r: int) -> list[int]:
+    """One key's placement from the reference's scalar control plane: each
+    salted family located by its ``FailureDomain``, a collision re-salted
+    into the table's alive prefix and probed as ``route_replicas_impl``
+    specifies (store.py:131-178)."""
+    n_alive, slots = domain.alive_count, domain.replacement_table.slots
+    cols = []
+    for salt in ref_store.family_salts(r).tolist():
+        fam = ref_bits.mix32(key ^ salt)
+        b = domain.locate(fam)
+        if b in cols:
+            q = ref_bits.mulhi32(ref_bits.mix32(fam ^ int(ref_store.RESALT_SALT)), n_alive)
+            for _ in range(r):
+                if slots[q] not in cols:
+                    b = slots[q]
+                    break
+                q = q + 1 - n_alive if q + 1 >= n_alive else q + 1
+        cols.append(b)
+    return cols
+
+
+@pytest.mark.parametrize("capacity,r", [(64, 32), (1024, 9), (1024, 16), (1024, 32)])
+@pytest.mark.parametrize("engine", ENGINES)
+def test_wide_replication_matches_reference_scalar_plane(engine, capacity, r):
+    """r = 9, 16 and 32 where the reference's jit is too slow to compile in
+    a test: the plain passes against a placement computed key by key from
+    the reference's ``FailureDomain``, and the moved mask against the
+    placements' membership."""
+    keys = np.random.default_rng(r + capacity).integers(0, 1 << 32, 256, dtype=np.uint32)
+    tkeys = torch.from_numpy(keys.view(np.int32))
+    for rr, pr, _, old_port in _wide_fleets(engine, capacity):
+        pspec = PlacementSpec(router=pr.spec, r=r)
+        got, ex = ops.route_replicas_bulk(tkeys, pr._fleet_dev, pspec)
+        want = [_reference_scalar_placement(rr.domain, int(k), r) for k in keys]
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert not ex.any() and (distinct(got) == min(r, pr.alive)).all()
+        old, new, moved, _ = ops.placement_diff_bulk(tkeys, old_port, pr._fleet_dev, pspec)
+        assert torch.equal(new, got)
+        member = (new.numpy()[:, :, None] == old.numpy()[:, None, :]).any(-1)
+        np.testing.assert_array_equal(moved.numpy(), ~member)
 
 
 def test_family_salts_and_constants_match_reference():
