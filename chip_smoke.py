@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card: the routing
-datapath, the hash-routed MoE serving path, the R-way replicated
-placement tier with its fleet lifecycle, and the streaming front end with
-its live load telemetry.
+datapath and its chain-mode two-pass path, the hash-routed MoE serving
+path (Qwen3-235B-A22B and DeepSeek-V3), the R-way replicated placement
+tier with its fleet lifecycle, and the streaming front end with its live
+load telemetry.
 
     python3 chip_smoke.py
 
@@ -31,8 +32,12 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    instrumented route ``route_load`` over the fleets at sample shifts 0, 3
    and 6 and ragged sizes up to 2^20, from accumulators near 2^32, against
    its plain version and ``route`` (capacity 65,536 takes its
-   global-atomic instance);
-3. the four main paths, each with the kernels' launch counts set to 0
+   global-atomic instance); the chain-mode remap ``chain_remap`` over the
+   seven fleets and 1000/1024 at 6 % and 50 % failed (chain-mode control
+   planes), ``max_chain`` 0, 1 and 4096, at the ragged sizes and 2^20 keys,
+   against its plain version (one launch per call), and with its
+   ``lookup_dyn`` first pass against the scalar chain oracle;
+3. the six main paths, each with the kernels' launch counts set to 0
    just before it and read just after:
    - the routing datapath: ``BatchRouter`` on the card, both engines, fused
      and two-pass: ``route_keys`` (CUDA tensor and numpy), ``route_ids``,
@@ -41,6 +46,12 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      entry points (``ops.binomial_bulk_lookup``, the jump engine's
      ``kernels.lookup_vec``); route, ingest, lookup_dyn and lookup_vec must
      have run;
+   - the chain-mode two-pass path (``ops.route_chain_bulk``: lookup_dyn,
+     then chain_remap) per engine over a chain-mode plane of 1000 through
+     6 %, 25 % and 50 % failed, 100 recovered, a scale-up and a
+     scale-down, 2^20 keys at each state: bit-exact with the plain
+     versions and the scalar oracle, lookup_dyn and chain_remap each
+     launched once per call and nothing else;
    - ``ServingTier`` serving Qwen3-235B-A22B at its published widths, cut
      to 4 layers, bf16, random weights from a seeded generator, with the
      BinomialHash MoE router: 3 replicas, 24 requests of 8 tokens, 8 new
@@ -54,6 +65,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      runs under ``torch.profiler`` for the device's busy share and its
      operator count.  Before it, a reduced float32 model served on the
      card agrees with the same tier on the CPU;
+   - then, its weights released, ``ServingTier`` serving DeepSeek-V3 at its
+     published widths (MLA ranks 1536/512, 256 experts of 2048, top-8, a
+     shared expert, vocab 129,280), bf16, random weights, cut from 61
+     layers to the 3 dense and the first 2 MoE layers, the MTP module left
+     out, with the hash router per engine and the same traffic and checks
+     (lookup_router = 2 MoE layers x (1 + new tokens) x groups), and one
+     profiled call; before it a reduced DeepSeek-V3 on the card against
+     the CPU;
    - placement, per engine: ``BatchRouter(1000, capacity=1024)``, a
      ``LifecycleManager`` on a ``ManualClock``, ``StorePlacement(r=3)`` with
      2^20 registered keys and a ``PlacementRepairer``; 2 replicas fall
@@ -88,8 +107,11 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    ``BatchRouter.route_keys`` at 2^24 keys on the healthy fleet and with
    250 failed (the storm/steady ratio); ``route_load`` at 2^24 keys, shifts
    6 and 0, against ``route`` in turns (instrumented/bare), beside its
-   bound, its plain version and ``route`` + ``torch.bincount``; and
-   ``place_keys`` at 2^20 keys, r = 16.
+   bound, its plain version and ``route`` + ``torch.bincount``;
+   ``place_keys`` at 2^20 keys, r = 16; and the storm cliff: the
+   chain-mode two-pass path against ``route`` (table) at 2^24 keys in
+   turns at 0, 6, 25 and 50 % failed, ``chain_remap`` alone beside its
+   bound, with the mean and per-warp-maximum walk.
 
 ``--baseline DIR [DIR ...]`` also builds each ``DIR/routing.cu`` (another
 build of the kernels with the same C interface: the parent commit's, or a
@@ -107,6 +129,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import shutil
 import statistics
@@ -134,6 +157,8 @@ REPLACES = {
     "route_load": "src/repro/observability/load.py:71 (route_with_load_impl: jnp in the JAX "
                   "package, no pallas_call; its route is the K1/K2 pallas_call, "
                   "src/repro/kernels/fused.py:202)",
+    "chain_remap": "src/repro/core/memento_jax.py:101 (memento_remap: a jnp lax.while_loop in "
+                   "the JAX package, no pallas_call)",
 }
 ENGINES = ("binomial", "jump")
 #: the kernels that read a fleet (the routing datapath), and all kernels
@@ -213,6 +238,8 @@ SASS_STATIC = {
     ("binomial", "resolve_rows"): 800, ("jump", "resolve_rows"): 800,
     ("binomial", "route_load"): 1480, ("jump", "route_load"): 1176,
     ("binomial", "route_load_global"): 1816, ("jump", "route_load_global"): 1072,
+    # the chain-mode remap, one function for both engines
+    ("binomial", "chain_remap"): 352, ("jump", "chain_remap"): 352,
 }
 #: each kernel instance's mangled name in the library, up to its parameters
 FUNCTIONS = {
@@ -229,6 +256,7 @@ FUNCTIONS = {
         ("resolve_rows", "_ZN7routing14resolve_kernelILb0EEEv"),
         ("route_load", "_ZN7routing17route_load_kernelINS_{E}ELb1EEEv"),
         ("route_load_global", "_ZN7routing17route_load_kernelINS_{E}ELb0EEEv"),
+        ("chain_remap", "_ZN7routing18chain_remap_kernelE"),  # one function for both engines
     )
 }
 #: bytes each kernel must move per key: keys (or two id halves) in, ids out
@@ -237,8 +265,8 @@ BYTES_PER_KEY = {"route": 8, "ingest": 12, "lookup_dyn": 8, "lookup_vec": 8}
 #: and the distinct-resolution pass
 PLACEMENT_KINDS = ("route_family", "resolve")
 #: the kernels line's rows: every kind, the router's static-n lookup, the
-#: placement kernels, then the instrumented route
-ROWS = (*KINDS, "lookup_router", *PLACEMENT_KINDS, "route_load")
+#: placement kernels, the instrumented route, then the chain remap
+ROWS = (*KINDS, "lookup_router", *PLACEMENT_KINDS, "route_load", "chain_remap")
 
 N_CHECK = 1 << 20  # the repo's acceptance batch (benchmarks/bench_router.py)
 N_TIME = 1 << 24
@@ -313,7 +341,8 @@ def make_fleet(engine: str, n: int, capacity: int, n_fail: int, seed: int):
     from repro_torch.core.registry import make_bulk
     from repro_torch.serving.router import SessionRouter
 
-    plane = SessionRouter(n, engine=make_bulk(engine).scalar_engine)
+    plane = SessionRouter(n, engine=make_bulk(engine).scalar_engine, chain_bits=32,
+                          resolve="table", allow_empty=True)
     rng = np.random.default_rng(seed)
     for b in rng.choice(max(n - 1, 1), size=n_fail, replace=False):
         plane.fail(int(b))
@@ -773,6 +802,85 @@ def phase_placement_wide(max_err: dict) -> None:
               f"without old; max |kernel - plain|: " + "; ".join(report))
 
 
+# --- the chain-mode remap ---------------------------------------------------
+
+#: failed shares of the chain checks and times: the JAX package's severity
+#: sweep (0, 6, 25, 50 %), at 1000 of 1024 slots
+CHAIN_SHARES = (0.0, 0.06, 0.25, 0.5)
+#: max_chain checked: no step (every removed lane takes first_alive), one
+#: step, and the default
+CHAIN_MAX = (0, 1, 4096)
+#: (n, capacity, failed, seed): the seven fleets of the route checks, then
+#: the sweep's other shares
+CHAIN_FLEETS = {
+    "1000/1024 healthy": (1000, 1024, 0, 1), "1000/1024 250 failed": (1000, 1024, 250, 2),
+    "40000/65536 25% failed": (40000, 65536, 10000, 3), "n=1": (1, 64, 0, 4),
+    "n=1023": (1023, 2048, 0, 5), "n=1024": (1024, 2048, 0, 6),
+    "n=1025 3 failed": (1025, 2048, 3, 7), "1000/1024 6% failed": (1000, 1024, 60, 8),
+    "1000/1024 50% failed": (1000, 1024, 500, 9),
+}
+
+
+def chain_plane(engine: str, n: int, n_fail: int, seed: int, max_chain: int = 4096):
+    """A chain-mode control plane (``resolve="chain"``, ``chain_bits=32``:
+    the chain remap's scalar oracle) with ``n_fail`` random slots of
+    ``[0, n-1)`` failed: the same slots as ``make_fleet`` at that seed."""
+    from repro_torch.core.registry import make_bulk
+    from repro_torch.serving.router import SessionRouter
+
+    plane = SessionRouter(n, engine=make_bulk(engine).scalar_engine, chain_bits=32,
+                          max_chain=max_chain)
+    rng = np.random.default_rng(seed)
+    for b in rng.choice(max(n - 1, 1), size=n_fail, replace=False):
+        plane.fail(int(b))
+    return plane
+
+
+def phase_chain_remap(max_err: dict) -> None:
+    """``chain_remap`` (one launch per call) against its plain version on
+    the card, bit-exact, over ``CHAIN_FLEETS`` x ``CHAIN_MAX`` at the
+    ragged sizes and 2^20 keys, its base buckets from ``lookup_dyn``; and
+    both launches together against the scalar chain oracle
+    (``FailureDomain.locate`` of the chain-mode plane) on 4,096 keys."""
+    from repro_torch.core.bulk import ChainFleet
+    from repro_torch.core.registry import make_bulk
+
+    rng = np.random.default_rng(5)
+    keys = u32_tensor(rng, N_CHECK).cuda()
+    sample = keys[:N_ORACLE].cpu().numpy().view(np.uint32)
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        worst, cases = 0, 0
+        for label, (n, capacity, n_fail, seed) in CHAIN_FLEETS.items():
+            for max_chain in CHAIN_MAX:
+                plane = chain_plane(engine, n, n_fail, seed, max_chain)
+                chain = ChainFleet.pack(plane.domain, capacity).to("cuda")
+                base = kernels.lookup_dyn(keys, chain.state[:1])
+                for size in (*TAIL_SIZES, N_CHECK):
+                    k, b = keys[:size], base[:size]
+                    before = kernels.launches["chain_remap"]
+                    got = kernels.chain_remap(k, b, chain.packed, chain.state, max_chain)
+                    want = kernels.chain_remap_plain(k, b, chain.packed, chain.state, max_chain)
+                    torch.cuda.synchronize()
+                    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                    worst = max(worst, err)
+                    if err or got.shape != want.shape or \
+                            kernels.launches["chain_remap"] - before != 1:
+                        fail(f"chain_remap[{engine}] on {label}, max_chain {max_chain}, {size} "
+                             "keys disagrees with its plain version or launched other than once")
+                expect = [plane.domain.locate(int(x)) for x in sample]
+                if got[:N_ORACLE].cpu().numpy().tolist() != expect:
+                    fail(f"lookup_dyn + chain_remap[{engine}] on {label}, max_chain {max_chain} "
+                         "disagrees with the scalar chain oracle")
+                cases += 1
+        max_err[engine, "chain_remap"] = worst
+        print(f"phase 2 chain_remap[{engine}]: {cases} cases ({len(CHAIN_FLEETS)} fleets: "
+              f"{', '.join(CHAIN_FLEETS)}; x max_chain {CHAIN_MAX}) at "
+              f"{', '.join(map(str, TAIL_SIZES))} and {N_CHECK} keys: max |kernel - plain| = "
+              f"{worst}, one launch per call; lookup_dyn + chain_remap agree with the scalar "
+              f"chain oracle on {N_ORACLE}/{N_ORACLE} keys of every case")
+
+
 # --- the main path ----------------------------------------------------------
 
 
@@ -864,6 +972,65 @@ def phase_router() -> dict:
     return launches
 
 
+def phase_chain_path() -> dict:
+    """The chain-mode two-pass path through its entry point
+    (``ops.route_chain_bulk``: ``lookup_dyn``, then ``chain_remap``), per
+    engine, over a chain-mode control plane of 1000 replicas (capacity
+    1024) through fleet events: healthy, 6 %, 25 % and 50 % failed, 100
+    recovered, a scale-up and a scale-down, the ``ChainFleet`` packed and
+    uploaded once per event.  At each state 2^20 keys on the card,
+    bit-exact with the plain versions and with the scalar oracle on 4,096
+    keys; each call launches lookup_dyn and chain_remap once."""
+    from repro_torch.core.bulk import ChainFleet, RouterSpec
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.kernels import ops
+
+    for eng in BULK_ENGINES.values():
+        eng.kernels.reset_launches()
+    rng = np.random.default_rng(6)
+    keys = u32_tensor(rng, N_CHECK).cuda()
+    sample = keys[:N_ORACLE].cpu().numpy().view(np.uint32)
+    calls = {}
+    for engine in ENGINES:
+        kernels = BULK_ENGINES[engine].kernels
+        spec = RouterSpec(engine, 1024)
+        plane = chain_plane(engine, 1000, 0, 0)
+        order = [int(b) for b in rng.permutation(999)]
+        steps = [("healthy", lambda: None)]
+        for frac in CHAIN_SHARES[1:]:
+            def fail_to(frac=frac):
+                for b in order[len(plane.domain.removed):int(frac * 1000)]:
+                    plane.fail(b)
+            steps.append((f"{frac:.0%} failed", fail_to))
+        steps += [("100 recovered", lambda: [plane.recover(b) for b in order[:100]]),
+                  ("scale up", plane.scale_up), ("scale down", plane.scale_down)]
+        for label, event in steps:
+            event()
+            chain = ChainFleet.pack(plane.domain, spec.capacity).to("cuda")
+            got = ops.route_chain_bulk(keys, chain, spec)
+            base = kernels.lookup_dyn_plain(keys, chain.state[:1])
+            want = kernels.chain_remap_plain(keys, base, chain.packed, chain.state)
+            if not (got.is_cuda and torch.equal(got, want)):
+                fail(f"chain path[{engine}] at {label} differs from the plain versions")
+            if got[:N_ORACLE].cpu().numpy().tolist() != [plane.domain.locate(int(x))
+                                                         for x in sample]:
+                fail(f"chain path[{engine}] at {label} differs from the scalar chain oracle")
+        calls[engine] = len(steps)
+        print(f"phase 3 chain path[{engine}]: ops.route_chain_bulk on {N_CHECK} keys over "
+              f"{', '.join(label for label, _ in steps)}: bit-exact with the plain versions and "
+              f"the scalar chain oracle ({N_ORACLE} keys) at every state")
+    torch.cuda.synchronize()
+    launches = {(e, k): n for e in ENGINES for k, n in BULK_ENGINES[e].kernels.launches.items()}
+    print("phase 3 chain path launches " + json.dumps(
+        {f"{k}[{e}]": n for (e, k), n in launches.items() if n}))
+    for engine in ENGINES:
+        ran = {k: n for (e, k), n in launches.items() if e == engine and n}
+        if ran != {"lookup_dyn": calls[engine], "chain_remap": calls[engine]}:
+            fail(f"the chain path[{engine}] launched {ran}, expected lookup_dyn and chain_remap "
+                 f"{calls[engine]} times each")
+    return {key: n for key, n in launches.items() if n}
+
+
 # --- the serving path ------------------------------------------------------
 
 
@@ -913,17 +1080,18 @@ def check_answers(tag, out, reqs, vocab: int) -> None:
             fail(f"{tag}: {r.session_id} got {row!r}")
 
 
-def check_small_model() -> None:
-    """The reduced hash-routed model served on the card (float32) against
-    the same tier on the CPU, which runs the plain versions: the same
-    tokens, and prefill logits within ``SMALL_LOGIT_TOL``."""
+def check_small_model(arch: str) -> None:
+    """The reduced hash-routed model of ``arch`` served on the card
+    (float32) against the same tier on the CPU, which runs the plain
+    versions: the same tokens, and prefill logits within
+    ``SMALL_LOGIT_TOL``."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingTier
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     for engine in ENGINES:
-        cfg = hash_routed(reduced_config(SERVE_ARCH), engine)
+        cfg = hash_routed(reduced_config(arch), engine)
         params = M.init_params(torch.Generator().manual_seed(0), cfg)
         reqs = make_requests(cfg.vocab_size, 7)
         tiers = [ServingTier(cfg, p, SERVE_REPLICAS, max_len=SERVE_PROMPT + SERVE_NEW + 2,
@@ -936,11 +1104,12 @@ def check_small_model() -> None:
         logits = [M.prefill(t.replicas[0].params, {"tokens": prompts.to(t.device)}, cfg, 18)[1].cpu()
                   for t in tiers]
         err = float((logits[0] - logits[1]).abs().max())
-        print(f"phase 3 reduced serve[{engine}] ({cfg.num_layers} layers, d_model {cfg.d_model}, "
-              f"float32): card vs CPU tokens {'identical' if same else 'DIFFER'}, "
-              f"max |logit diff| {err:.3g} (tolerance {SMALL_LOGIT_TOL})")
+        print(f"phase 3 reduced serve {arch}[{engine}] ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.attention}, float32): card vs CPU tokens "
+              f"{'identical' if same else 'DIFFER'}, max |logit diff| {err:.3g} (tolerance "
+              f"{SMALL_LOGIT_TOL})")
         if not same or not err <= SMALL_LOGIT_TOL:
-            fail(f"the reduced serve[{engine}] on the card disagrees with the CPU")
+            fail(f"the reduced serve {arch}[{engine}] on the card disagrees with the CPU")
 
 
 def tree_bytes(tree) -> int:
@@ -951,7 +1120,7 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def profile_serve(engine, tier, reqs, n_steps: int, step_floor_ms: float, card: str) -> None:
+def profile_serve(tag: str, tier, reqs, n_steps: int, step_floor_ms: float, card: str) -> None:
     """One more serve() call of the same batch under ``torch.profiler``:
     the device's busy share of the wall time and the kernels that take it
     (the profiler's own overhead included in the wall)."""
@@ -968,12 +1137,12 @@ def profile_serve(engine, tier, reqs, n_steps: int, step_floor_ms: float, card: 
     n_ops = sum(e.count for e in events if e.key.startswith("aten::"))
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print(f"phase 3 serve[{engine}] profiled serve() call: the profiler recorded no "
+        print(f"phase 3 {tag} profiled serve() call: the profiler recorded no "
               f"device time (wall {wall_ms:.1f} ms)")
         return
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"phase 3 serve[{engine}] profiled serve() call: wall {wall_ms:.1f} ms for {n_steps} "
+    print(f"phase 3 {tag} profiled serve() call: wall {wall_ms:.1f} ms for {n_steps} "
           f"steps, {n_ops} torch operators ({n_ops / n_steps:.0f} per step), "
           f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}; floor "
           f"{n_steps * step_floor_ms:.1f} ms) on {card}; top kernels by device time: "
@@ -1053,16 +1222,11 @@ def check_dynamic_router(cfg, engine: str) -> None:
           f"to the default call's (lookup_router)")
 
 
-def phase_serve(card: str) -> tuple[dict, dict]:
-    """ServingTier at full width: -> (launches, the largest router call's
-    token ids and layer salt, by phase and engine)."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.registry import BULK_ENGINES
+def init_full_width(base, card: str, what: str, reckoned: str):
+    """Random bf16 weights of ``base`` on the card from a seeded generator
+    -> (params, bytes held, the floor of one model step in ms)."""
     from repro_torch.models import model as M
-    from repro_torch.serving.engine import ServingTier
 
-    check_small_model()
-    base = dataclasses.replace(get_config(SERVE_ARCH), num_layers=SERVE_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1073,12 +1237,25 @@ def phase_serve(card: str) -> tuple[dict, dict]:
     # a step (prefill or decode) reads each layer's weights, the final norm
     # and the unembedding once; the expert products run over all experts
     step_floor_ms = (held - tree_bytes(params["embed"]["embedding"])) / HBM_BYTES_S * 1e3
-    print(f"phase 3 serve model: {SERVE_ARCH} at its published widths (d_model {base.d_model}, "
-          f"{base.num_heads}/{base.num_kv_heads} heads of {base.resolved_head_dim}, "
-          f"{base.moe.num_experts} experts top-{base.moe.top_k} of width {base.moe.d_ff_expert}, "
-          f"vocab {base.vocab_size} padded to {base.padded_vocab}), {base.dtype}, layers cut "
-          f"94 -> {SERVE_LAYERS}; random weights in {init_s:.2f} s; parameters {held / 1e9:.3f} GB "
-          f"(reckoned: 4 x 4.975 GB per layer + 2.491 GB embeddings = 22.39 GB)")
+    print(f"phase 3 {what}: random weights in {init_s:.2f} s; parameters {held / 1e9:.3f} GB "
+          f"(reckoned: {reckoned}); init peak {init_peak / 1e9:.3f} GB on {card}")
+    return params, held, step_floor_ms
+
+
+def serve_engines(tag: str, base, params, held: int, step_floor_ms: float, card: str,
+                  extra=None) -> tuple[dict, dict]:
+    """``ServingTier`` over ``params`` with the hash router, per engine:
+    ``SERVE_REQUESTS`` requests before and after replica ``SERVE_FAIL``
+    fails, the launch counts set to 0 just before and read just after;
+    every request answered, only the failed replica's sessions moved,
+    ``lookup_router`` launched MoE layers x (1 + new tokens) x groups times
+    with every expert id equal to the plain lookup's, route twice; then
+    ``extra(cfg, engine)`` and one profiled call.  -> (launches, the
+    largest router call's token ids and layer salt, by phase and engine)."""
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.serving.engine import ServingTier
+
+    n_moe = sum(k == "attn_moe" for k in base.layer_kinds())
     launches, calls_seen = {}, {"prefill": {}, "decode": {}}
     for engine in ENGINES:
         cfg = hash_routed(base, engine)
@@ -1104,7 +1281,7 @@ def phase_serve(card: str) -> tuple[dict, dict]:
                 out = tier.serve(reqs)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-                check_answers(f"serve[{engine}]", out, reqs, cfg.padded_vocab)
+                check_answers(f"{tag}[{engine}]", out, reqs, cfg.padded_vocab)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         # moe.route's static-n lookup is lookup_router, whose launches the
@@ -1115,49 +1292,123 @@ def phase_serve(card: str) -> tuple[dict, dict]:
         moved = [i for i, a, b in zip(ids, before, after) if a != b]
         if any(b != SERVE_FAIL for i, a, b in zip(ids, after, before) if a != b) \
                 or SERVE_FAIL in after:
-            fail(f"serve[{engine}]: sessions moved that were not on replica {SERVE_FAIL}")
-        want = SERVE_LAYERS * (1 + SERVE_NEW) * groups
+            fail(f"{tag}[{engine}]: sessions moved that were not on replica {SERVE_FAIL}")
+        want = n_moe * (1 + SERVE_NEW) * groups
         if launches[engine]["lookup_router"] != want or launches[engine]["route"] != 2:
-            fail(f"serve[{engine}]: launches {launches[engine]}, expected lookup_router = "
-                 f"{SERVE_LAYERS} layers x (1 + {SERVE_NEW}) x {groups} groups = {want}, route = 2")
+            fail(f"{tag}[{engine}]: launches {launches[engine]}, expected lookup_router = "
+                 f"{n_moe} MoE layers x (1 + {SERVE_NEW}) x {groups} groups = {want}, route = 2")
         if len(log.calls) != want:
-            fail(f"serve[{engine}]: {len(log.calls)} router calls for {want} launches")
+            fail(f"{tag}[{engine}]: {len(log.calls)} router calls for {want} launches")
         m = cfg.moe
         for salt, tokens, expert_ids in log.calls:
             plain = kernels.lookup_router_plain(tokens, salt, m.top_k, m.num_experts,
                                                 m.router_hash_omega)
             if not torch.equal(expert_ids, plain):
-                fail(f"serve[{engine}]: the expert ids of layer {salt} differ from the plain lookup's")
+                fail(f"{tag}[{engine}]: the expert ids of layer {salt} differ from the plain "
+                     "lookup's")
             phase = "prefill" if tokens.shape[1] > 1 else "decode"
             if tokens.numel() > calls_seen[phase].get(engine, (torch.empty(0), 0))[0].numel():
                 calls_seen[phase][engine] = (tokens, salt)
         tokens_out = SERVE_REQUESTS * SERVE_NEW
-        print(f"phase 3 serve[{engine}]: {SERVE_REQUESTS} requests x {SERVE_NEW} new tokens on "
+        print(f"phase 3 {tag}[{engine}]: {SERVE_REQUESTS} requests x {SERVE_NEW} new tokens on "
               f"{SERVE_REPLICAS} replicas, all answered; fail({SERVE_FAIL}) moved "
               f"{len(moved)}/{len(ids)} sessions, all from replica {SERVE_FAIL}; "
               f"{len(log.calls)} router calls, every expert id equal to the plain lookup's")
-        print(f"phase 3 serve[{engine}] launches " + json.dumps(
+        print(f"phase 3 {tag}[{engine}] launches " + json.dumps(
             {f"{k}[{engine}]": n for k, n in launches[engine].items()})
-            + f" (lookup_router = {SERVE_LAYERS} x (1 + {SERVE_NEW}) x {groups} groups)")
-        print(f"phase 3 serve[{engine}] wall per serve() call: "
+            + f" (lookup_router = {n_moe} MoE layers x (1 + {SERVE_NEW}) x {groups} groups)")
+        print(f"phase 3 {tag}[{engine}] wall per serve() call: "
               + ", ".join(f"{w * 1e3:.1f} ms ({tokens_out / w:.1f} new tokens/s; {n} model steps, "
                           f"{w * 1e3 / n:.2f} ms per step)" for w, n in zip(walls, steps))
               + f" [first call, then after the failure]; floor per step {step_floor_ms:.2f} ms "
               f"(every weight but the embedding table read once at {HBM_BYTES_S / 1e12} TB/s); "
-              f"peak memory {peak / 1e9:.3f} GB (parameters {held / 1e9:.3f} GB; init peak "
-              f"{init_peak / 1e9:.3f} GB) on {card}")
-        check_router_call(cfg, engine)
-        check_dynamic_router(cfg, engine)
-        profile_serve(engine, tier, reqs, steps[-1], step_floor_ms, card)
+              f"peak memory {peak / 1e9:.3f} GB (parameters {held / 1e9:.3f} GB) on {card}")
+        if extra is not None:
+            extra(cfg, engine)
+        profile_serve(f"{tag}[{engine}]", tier, reqs, steps[-1], step_floor_ms, card)
+    return launches, calls_seen
+
+
+def check_full_width_logits(base, params) -> None:
+    from repro_torch.models import model as M
+
     probe = make_requests(base.vocab_size, 12)[:2]
     prompts = torch.from_numpy(np.stack([r.prompt for r in probe])).cuda()
     _, logits = M.prefill(params, {"tokens": prompts}, hash_routed(base, "binomial"), 18)
     if logits.shape != (2, base.padded_vocab) or not bool(torch.isfinite(logits).all()):
-        fail(f"full-width prefill logits: shape {tuple(logits.shape)}, finite "
+        fail(f"{base.name} full-width prefill logits: shape {tuple(logits.shape)}, finite "
              f"{bool(torch.isfinite(logits).all())}")
-    del params, logits
+
+
+def phase_serve(card: str) -> tuple[dict, dict]:
+    """ServingTier at full width, Qwen3-235B-A22B: -> (launches, the
+    largest router call's token ids and layer salt, by phase and engine)."""
+    from repro_torch.configs import get_config
+
+    check_small_model(SERVE_ARCH)
+    base = dataclasses.replace(get_config(SERVE_ARCH), num_layers=SERVE_LAYERS)
+    params, held, step_floor_ms = init_full_width(
+        base, card,
+        f"serve model: {SERVE_ARCH} at its published widths (d_model {base.d_model}, "
+        f"{base.num_heads}/{base.num_kv_heads} heads of {base.resolved_head_dim}, "
+        f"{base.moe.num_experts} experts top-{base.moe.top_k} of width {base.moe.d_ff_expert}, "
+        f"vocab {base.vocab_size} padded to {base.padded_vocab}), {base.dtype}, layers cut "
+        f"94 -> {SERVE_LAYERS}",
+        "4 x 4.975 GB per layer + 2.491 GB embeddings = 22.39 GB")
+
+    def router_checks(cfg, engine):
+        check_router_call(cfg, engine)
+        check_dynamic_router(cfg, engine)
+
+    launches, calls_seen = serve_engines("serve", base, params, held, step_floor_ms, card,
+                                         router_checks)
+    check_full_width_logits(base, params)
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
     return launches, calls_seen
+
+
+#: the DeepSeek-V3 serve: its published config (repro_torch.configs), cut
+#: from 61 layers to the 3 dense layers and the first 2 MoE layers (two
+#: layer salts through lookup_router), the MTP module left out (serving
+#: never reads it); the Qwen3 phase's traffic
+DSV3_ARCH = "deepseek-v3-671b"
+DSV3_LAYERS = 5
+
+
+def phase_serve_dsv3(card: str) -> dict:
+    """ServingTier at full width, DeepSeek-V3 (MLA, a shared expert, 256
+    experts) with the hash router, after the Qwen3 phase released its
+    weights: -> launches by engine."""
+    from repro_torch.configs import get_config
+
+    check_small_model(DSV3_ARCH)
+    torch.cuda.synchronize()
+    free_before = torch.cuda.memory_allocated()
+    published = get_config(DSV3_ARCH)
+    base = dataclasses.replace(published, num_layers=DSV3_LAYERS, mtp_depth=0)
+    m, a = base.moe, base.mla
+    print(f"phase 3 serve {DSV3_ARCH} cuts: layers {published.num_layers} -> {DSV3_LAYERS} (the "
+          f"{published.moe_layer_start} dense layers, then {DSV3_LAYERS - published.moe_layer_start}"
+          f" MoE layers); MTP depth {published.mtp_depth} -> 0 (serving never reads it); router "
+          f"{published.moe.router} -> hash (the published sigmoid router is held on the CPU); "
+          f"allocated before init {free_before / 1e9:.3f} GB (the Qwen3 serve's weights released)")
+    params, held, step_floor_ms = init_full_width(
+        base, card,
+        f"serve model: {DSV3_ARCH} at its published widths (d_model {base.d_model}, "
+        f"{base.num_heads} heads, MLA ranks {a.q_lora_rank}/{a.kv_lora_rank}, rope "
+        f"{a.qk_rope_head_dim}, {m.num_experts} experts top-{m.top_k} of width {m.d_ff_expert}, "
+        f"{m.shared_experts} shared expert, dense d_ff {base.d_ff}, vocab {base.vocab_size} "
+        f"padded to {base.padded_vocab}), {base.dtype}",
+        "5 x 0.374 GB of MLA + 3 x 0.793 GB dense MLPs + 2 x 22.64 GB MoE layers + 3.71 GB "
+        "embeddings = 53.2 GB")
+    launches, _ = serve_engines(f"serve {DSV3_ARCH}", base, params, held, step_floor_ms, card)
+    check_full_width_logits(base, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --- the placement path ------------------------------------------------------
@@ -2019,6 +2270,118 @@ def phase_route_load_times(rows: dict, card: str) -> None:
               f"on {card}")
 
 
+#: SASS instructions of chain_remap_kernel (sm_90a, max_chain > 0: the
+#: compiler gives max_chain <= 0 a loop of its own), counted by hand in
+#: ``cuobjdump -sass`` of the build: ``CHAIN_KEY`` along the path of a key
+#: whose bucket is alive (the thread's prologue and its state loads, 19,
+#: since each thread takes one key; the grid-stride loop, the bucket load,
+#: the mask-word test and the store, 32), ``CHAIN_REMOVED`` more for a key
+#: whose bucket is removed (its key load, the reciprocal of n_total for the
+#: remainder, the fall-back test) and ``CHAIN_STEP`` per step of its walk
+#: (hash_iter's add and fmix32, the pair mix, the u32 remainder by n_total,
+#: the mask-word test, the loop test).
+CHAIN_KEY = 51
+CHAIN_REMOVED = 22
+CHAIN_STEP = 49
+
+
+def phase_chain_times(rows: dict, card: str) -> None:
+    """The storm cliff on the card: the chain-mode two-pass path
+    (``lookup_dyn`` + ``chain_remap``) against the table route (``route``,
+    one launch) at 2^24 keys, in turns (chain, route, route, chain) x 3, at
+    each failed share of ``CHAIN_SHARES`` (1000/1024); ``chain_remap``
+    alone, held against its plain version, beside its bound (bytes: 8 B a
+    key, and the 32-byte key sectors that hold a removed key, since only
+    those keys are read; operations: ``CHAIN_KEY`` per key,
+    ``CHAIN_REMOVED`` per removed key and ``CHAIN_STEP`` per step of this
+    data's walks, counted by the plain version's own walk) and the plain
+    version's time; the mean walk per key and per removed key and the mean
+    over warps of 32 consecutive keys of their longest walk (one thread per
+    key, so a warp issues its longest walk)."""
+    from repro_torch.core.bulk import ChainFleet, RouterSpec
+    from repro_torch.core.registry import make_bulk
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(7)
+    keys = u32_tensor(rng, N_TIME).cuda()
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        spec = RouterSpec(engine, 1024)
+        by_share = {}
+        for i, frac in enumerate(CHAIN_SHARES):
+            n_fail = int(frac * 1000)
+            plane = chain_plane(engine, 1000, n_fail, 20 + i)
+            _, fleet = make_fleet(engine, 1000, 1024, n_fail, 20 + i)  # the same failed slots
+            chain = ChainFleet.pack(plane.domain, 1024).to("cuda")
+            if not torch.equal(chain.packed, fleet.packed):
+                fail("the chain and table fleets of the storm sweep differ")
+            base = kernels.lookup_dyn(keys, chain.state[:1])
+            cases = {
+                "chain": lambda: ops.route_chain_bulk(keys, chain, spec),
+                "route": lambda: kernels.route(keys, fleet.packed, fleet.table, fleet.state),
+            }
+            readings = {w: [] for w in cases}
+            for _ in range(3):
+                for which in ("chain", "route", "route", "chain"):
+                    readings[which].append(time_ms(cases[which]))
+            med = {w: statistics.median(v) for w, v in readings.items()}
+            remap_ms = time_ms(lambda: kernels.chain_remap(keys, base, chain.packed, chain.state))
+            lookup_ms = time_ms(lambda: kernels.lookup_dyn(keys, chain.state[:1]))
+            plain_ms = time_ms(lambda: kernels.chain_remap_plain(keys, base, chain.packed,
+                                                                 chain.state), 1, 3)
+            want, steps = kernels.chain_remap_plain(keys, base, chain.packed, chain.state,
+                                                    return_steps=True)
+            if not torch.equal(kernels.chain_remap(keys, base, chain.packed, chain.state), want):
+                fail(f"chain_remap[{engine}] at {frac:.0%} failed disagrees with its plain version")
+            total_steps = int(steps.sum())
+            hit = int((steps > 0).sum())
+            warp_max = steps.reshape(-1, 32).max(1).values.double()
+            # Bytes this data needs: each bucket read and written (8 B a
+            # key), a key read only where its bucket is removed, in whole
+            # 32-byte sectors of 8 keys, and the mask words and scalars.
+            key_sectors = int((steps.reshape(-1, 8) > 0).any(1).sum())
+            t_bytes = (8 * N_TIME + 32 * key_sectors + 4 * (chain.packed.numel() + 2)) \
+                / HBM_BYTES_S * 1e3
+            t_ops = (CHAIN_KEY * N_TIME + CHAIN_REMOVED * hit + CHAIN_STEP * total_steps) \
+                / LANE_INSTR_S * 1e3
+            b = dict(bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes")
+            by_share[f"{frac:.0%}"] = dict(
+                ms=remap_ms, plain_ms=plain_ms, two_pass_ms=med["chain"], route_ms=med["route"],
+                lookup_dyn_ms=lookup_ms, key_sector_share=key_sectors * 8 / N_TIME,
+                mean_steps=total_steps / N_TIME,
+                mean_steps_removed=total_steps / max(hit, 1), removed_share=hit / N_TIME,
+                warp_max_mean=float(warp_max.mean()), warp_max_max=int(warp_max.max()), **b)
+            print(f"phase 4 chain[{engine}] {N_TIME} keys, 1000/1024 with {n_fail} failed "
+                  f"({frac:.0%}): two-pass chain (lookup_dyn + chain_remap) {med['chain']:.4f} ms "
+                  f"against route (table) {med['route']:.4f} ms in turns, chain/route "
+                  f"{med['chain'] / med['route']:.3f} (chain "
+                  f"{', '.join(f'{t:.4f}' for t in readings['chain'])}; route "
+                  f"{', '.join(f'{t:.4f}' for t in readings['route'])}); chain_remap alone "
+                  f"{remap_ms:.4f} ms, lookup_dyn alone {lookup_ms:.4f} ms; walk: "
+                  f"{hit / N_TIME:.2%} of keys removed, mean {total_steps / N_TIME:.4f} steps per "
+                  f"key ({total_steps / max(hit, 1):.3f} per removed key), per warp of 32 keys "
+                  f"the longest walk {float(warp_max.mean()):.3f} on average (at most "
+                  f"{int(warp_max.max())}); bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+                  f"instructions {t_ops:.4f} ms, bytes {t_bytes:.4f} ms with "
+                  f"{key_sectors * 8 / N_TIME:.2%} of the key sectors read), bound/time "
+                  f"{share(b['bound_ms'], remap_ms)}; plain version {plain_ms:.3f} ms; "
+                  f"on {card}")
+        base0 = by_share["0%"]
+        for key, row in by_share.items():
+            row.update(chain_storm_over_steady=row["two_pass_ms"] / base0["two_pass_ms"],
+                       route_storm_over_steady=row["route_ms"] / base0["route_ms"])
+        print(f"phase 4 storm cliff[{engine}]: two-pass chain at "
+              + ", ".join(f"{k} {v['chain_storm_over_steady']:.3f}x" for k, v in by_share.items())
+              + " of its healthy time; route (table) at "
+              + ", ".join(f"{k} {v['route_storm_over_steady']:.3f}x" for k, v in by_share.items())
+              + f"; on {card}")
+        head = by_share["25%"]
+        rows[engine, "chain_remap"] = dict(
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], failed_share=0.25, by_share=by_share)
+
+
 def baseline_library(src_dir: Path):
     """Another build of the kernels (``src_dir/routing.cu``, the same C
     interface), compiled with this build's flags and loaded."""
@@ -2177,9 +2540,13 @@ def main() -> int:
     phase_placement_kernels(max_err)
     phase_placement_wide(max_err)
     phase_route_load(max_err)
-    by_path = {"router": phase_router()}
+    phase_chain_remap(max_err)
+    by_path = {"router": phase_router(), "chain": phase_chain_path()}
     serve_launches, serve_calls = phase_serve(card)
     by_path["serve"] = {(e, k): n for e, counts in serve_launches.items() for k, n in counts.items()}
+    dsv3_launches = phase_serve_dsv3(card)
+    by_path["serve_dsv3"] = {(e, k): n for e, counts in dsv3_launches.items()
+                             for k, n in counts.items()}
     place_launches, place_host = phase_placement()
     by_path["placement"] = {(e, k): n for e, counts in place_launches.items() for k, n in counts.items()}
     stream_launches, stream_numbers = phase_streaming()
@@ -2190,6 +2557,7 @@ def main() -> int:
     rows = phase_times(serve_calls, moe_cfg)
     phase_placement_times(rows, card)
     phase_route_load_times(rows, card)
+    phase_chain_times(rows, card)
     for engine, numbers in stream_numbers.items():
         rows[engine, "route_load"]["streaming"] = {
             k: v for k, v in numbers.items() if isinstance(v, (int, float))}

@@ -37,6 +37,11 @@ def mix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+def hash_iter(key: torch.Tensor, i) -> torch.Tensor:
+    """hash^i(key) — ``i`` a Python int or a u32 tensor."""
+    return mix32((key + ((i * GOLDEN32) & MASK32)) & MASK32)
+
+
 def hash_pair(h: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return mix32(h ^ mix32((f + GOLDEN32) & MASK32))
 

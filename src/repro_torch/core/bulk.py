@@ -8,6 +8,9 @@
   n_alive]``) with the pack / incremental-update hooks the serving tier
   drives at fleet-event time.  The host instance holds numpy arrays;
   ``to(device)`` makes the device twin in one copy.
+* ``ChainFleet`` — the operands of the chain-mode two-pass path (packed
+  removed-slot bit-words and ``[n_total, first_alive]``), packed from a
+  ``resolve="chain"`` domain.
 * ``PlacementSpec`` — the frozen configuration of one R-way replicated
   placement tier over a ``RouterSpec`` (DESIGN.md §13).
 * ``BulkEngine`` — one engine's bundle: the name of its scalar oracle and
@@ -25,7 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.memento_torch import mask_words, pack_removed_mask, pack_table
+from repro_torch.core.memento_torch import chain_state, mask_words, pack_removed_mask, pack_table
 
 #: engines that step through f32 arithmetic (jump) need b+1 exact in a
 #: float32 mantissa, so the slot space is bounded well below u32
@@ -132,6 +135,44 @@ class FleetState:
         flat = torch.from_numpy(np.concatenate(parts)).to(device)
         packed, table, state = torch.split(flat, [p.size for p in parts])
         return FleetState(packed, table, state, self.capacity)
+
+
+@dataclasses.dataclass
+class ChainFleet:
+    """The device operands of the chain-mode path (``resolve="chain"``).
+
+    packed    (W,) removed-slot bit-words, as ``FleetState.packed``
+    state     (2,) ``[n_total, first_alive]``: uint32 on the host, int32 on
+              a device; the lookup reads ``state[:1]`` as its n and the
+              chain remap both, so a fleet event is one upload and a batch
+              needs no host copy of either
+    capacity  the slot-space bound the mask was packed for
+    max_chain the domain's rejection bound, so the remap walks no further
+              and no less than ``FailureDomain.locate`` does
+    """
+
+    packed: Any
+    state: Any
+    capacity: int
+    max_chain: int
+
+    @classmethod
+    def pack(cls, domain, capacity: int) -> "ChainFleet":
+        """Host-side pack of a ``FailureDomain``'s removed set and scalars.
+        Only a ``resolve="chain", chain_bits=32`` domain walks the chain the
+        kernel walks; any other is refused."""
+        if domain.resolve != "chain" or domain.chain_bits != 32:
+            raise ValueError("ChainFleet packs a resolve='chain', chain_bits=32 domain, got "
+                             f"resolve={domain.resolve!r}, chain_bits={domain.chain_bits}")
+        return cls(pack_removed_mask(domain.removed, capacity), chain_state(domain), capacity,
+                   domain.max_chain)
+
+    def to(self, device) -> "ChainFleet":
+        """The device twin, in one host-to-device copy."""
+        parts = [np.asarray(a).reshape(-1).view(np.int32) for a in (self.packed, self.state)]
+        flat = torch.from_numpy(np.concatenate(parts)).to(device)
+        packed, state = torch.split(flat, [p.size for p in parts])
+        return ChainFleet(packed, state, self.capacity, self.max_chain)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,22 +4,28 @@ LIFO consistent-hash engine.
 The BinomialHash paper (§1, §7) notes that all constant-time LIFO algorithms
 "can be extended to handle arbitrary node removals and random failures by
 leveraging the procedure described in MementoHash".  This module implements
-that composition with a MementoHash-style replacement table (DESIGN.md §7):
+that composition; the base engine addresses the full slot space
+``[0, n_total)`` and the removed/failed slots are recorded in an
+O(#removed) set.  A lookup that lands on a removed slot is resolved in one
+of two ways (``resolve=``):
 
-* the base engine addresses the full slot space ``[0, n_total)``;
-* the removed/failed slots are recorded in an O(#removed) set, and the
-  ``ReplacementTable`` keeps a permutation of the slot space whose prefix is
-  exactly the alive slots, updated O(1) per fleet event;
-* a lookup that lands on a removed slot is diverted through the table in AT
-  MOST TWO u32-hash redirects, so storm-time lookup cost is a hard constant.
+* ``"chain"`` (default) — the paper-faithful rejection chain: re-hash,
+  seeded by the slot id and the attempt, until an alive slot is hit
+  (``max_chain`` attempts, then the lowest alive slot).  Expected O(1) per
+  key but data-dependent.  ``chain_bits=64`` (default) walks a splitmix64
+  chain; ``chain_bits=32`` an fmix32 chain on ``key & MASK32``, the
+  bit-exact scalar oracle of the device remap
+  (``repro_torch.core.memento_torch.memento_remap`` and its kernel).
+* ``"table"`` — the MementoHash-style ``ReplacementTable`` (DESIGN.md §7):
+  a permutation of the slot space whose prefix is exactly the alive slots,
+  updated O(1) per fleet event, resolving a removed slot in AT MOST TWO
+  u32-hash redirects, so storm-time lookup cost is a hard constant.  This
+  is the semantics of the serving datapath
+  (``repro_torch.serving.batch_router.BatchRouter``), whose kernels
+  implement the same math on an uploaded copy of the table.
 
-This is the semantics of the serving datapath
-(``repro_torch.serving.batch_router.BatchRouter``): the device kernels
-implement the same math on an uploaded copy of the table, and this module
-is their scalar oracle.  Pair it with a u32 base engine (``binomial32``,
-``jump32``) so the whole lookup+divert path shares one word size.  (The
-JAX package also keeps the paper-faithful rejection-chain resolution; the
-port has no caller for it.)
+Pair ``chain_bits=32`` or the table with a u32 base engine (``binomial32``,
+``jump32``) so the whole lookup+resolve path shares one word size.
 """
 from __future__ import annotations
 
@@ -131,21 +137,42 @@ class MementoWrapper:
     name = "memento"
     exact = False  # reconstruction of the published description
 
-    def __init__(self, base_factory, n: int):
+    def __init__(
+        self,
+        base_factory,
+        n: int,
+        max_chain: int = 4096,
+        chain_bits: int = 64,
+        resolve: str = "chain",
+        allow_empty: bool = False,
+    ):
         """``base_factory(n) -> engine`` builds the underlying LIFO engine.
 
-        The LAST alive bucket may fail too (the slot space never shrinks
-        below one slot — the removal is tombstoned, so recovery works): an
-        all-failed fleet is a queryable *state* (``size == 0``; lookups
-        raise), not a forbidden transition.  The serving tier answers
-        routes on it with a typed ``FleetUnavailableError`` rather than
-        refusing the failure event itself, which no real outage asks
-        permission for.
+        ``resolve="chain"`` walks the rejection chain (paper-faithful);
+        ``resolve="table"`` resolves removed slots through the
+        ``ReplacementTable`` in at most two redirects (the serving-datapath
+        semantics; ``max_chain`` is then irrelevant to lookups).
+
+        ``allow_empty=True`` lets the LAST alive bucket fail too (the slot
+        space never shrinks below one slot — the removal is tombstoned, so
+        recovery works): an all-failed fleet is then a queryable *state*
+        (``size == 0``; lookups raise) instead of a forbidden transition.
+        The serving tier uses this to answer routes on an all-failed fleet
+        with a typed ``FleetUnavailableError`` rather than refusing the
+        failure event itself, which no real outage asks permission for.
         """
+        if chain_bits not in (32, 64):
+            raise ValueError(f"chain_bits must be 32 or 64, got {chain_bits}")
+        if resolve not in ("chain", "table"):
+            raise ValueError(f"resolve must be 'chain' or 'table', got {resolve!r}")
         self._base_factory = base_factory
         self.base = base_factory(n)
         self.removed: set[int] = set()
-        self.table = ReplacementTable(n)
+        self.max_chain = max_chain
+        self.chain_bits = chain_bits
+        self.resolve = resolve
+        self.allow_empty = allow_empty
+        self.table = ReplacementTable(n) if resolve == "table" else None
 
     # -- size/state ---------------------------------------------------------
     @property
@@ -163,12 +190,15 @@ class MementoWrapper:
     def add_bucket(self) -> int:
         """LIFO append of a brand-new slot (scale-up)."""
         out = self.base.add_bucket()
-        self.table.append()
+        if self.table is not None:
+            self.table.append()
         return out
 
     def remove_bucket(self, b: int | None = None) -> int:
         """Remove an arbitrary bucket (failure) or the last one (LIFO)."""
         if self.size <= 1:
+            if not self.allow_empty:
+                raise ValueError("cannot remove the last alive bucket")
             if self.size == 0:
                 raise ValueError("no alive buckets left to remove")
             # the last alive bucket fails: tombstone it (even when it is the
@@ -178,23 +208,27 @@ class MementoWrapper:
             if last in self.removed or not (0 <= last < self.n_total):
                 raise ValueError(f"bucket {last} is not alive")
             self.removed.add(last)
-            self.table.fail(last)
+            if self.table is not None:
+                self.table.fail(last)
             return last
         if b is None or b == self.n_total - 1:
             # true LIFO removal — shrink the base engine; also garbage-collect
             # any tombstones that fall off the end.
             out = self.base.remove_bucket()
             self.removed.discard(out)
-            self.table.pop_last()
+            if self.table is not None:
+                self.table.pop_last()
             while self.n_total - 1 in self.removed and self.n_total > 1:
                 self.removed.discard(self.n_total - 1)
                 self.base.remove_bucket()
-                self.table.pop_last()
+                if self.table is not None:
+                    self.table.pop_last()
             return out
         if b in self.removed or not (0 <= b < self.n_total):
             raise ValueError(f"bucket {b} is not alive")
         self.removed.add(b)
-        self.table.fail(b)
+        if self.table is not None:
+            self.table.fail(b)
         return b
 
     def restore_bucket(self, b: int) -> None:
@@ -202,16 +236,38 @@ class MementoWrapper:
         if b not in self.removed:
             raise ValueError(f"bucket {b} is not removed")
         self.removed.discard(b)
-        self.table.recover(b)
+        if self.table is not None:
+            self.table.recover(b)
 
     # -- lookup -------------------------------------------------------------
+    def _chain_step(self, key: int, b: int, i: int, total: int) -> int:
+        """Deterministic chain seeded by (key, failed slot, attempt)."""
+        if self.chain_bits == 64:
+            return bits.hash_pair64(bits.hash_iter64(key, i + 1), b) % total
+        return bits.hash_pair32(bits.hash_iter32(key & bits.MASK32, i + 1), b) % total
+
+    def first_alive(self) -> int:
+        """Lowest alive slot id (the max_chain-overflow fallback target)."""
+        for b in range(self.n_total):
+            if b not in self.removed:
+                return b
+        raise ValueError("no alive buckets")
+
     def get_bucket(self, key: int) -> int:
         if not self.size:
-            # every bucket is a tombstone: there
+            # every bucket is a tombstone (allow_empty fleets only): there
             # is no alive target — the serving layer turns this into a
             # typed FleetUnavailableError before any lookup gets here
             raise ValueError("no alive buckets")
         b = self.base.get_bucket(key)
         if b not in self.removed:
             return b
-        return self.table.resolve(key, b)
+        if self.table is not None:
+            return self.table.resolve(key, b)
+        total = self.n_total
+        for i in range(self.max_chain):
+            b = self._chain_step(key, b, i, total)
+            if b not in self.removed:
+                return b
+        # unreachable for any sane failure fraction; fall back to first alive
+        return self.first_alive()

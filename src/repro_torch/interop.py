@@ -92,18 +92,23 @@ def _tree(x, fn):
 def params_from_numpy(tree, cfg: ArchConfig, device) -> dict:
     """The reference's parameters (``params["embed"]``,
     ``params["final_norm"]``, ``params["seg{i}"]["sub{j}"]`` with every
-    leaf stacked along its segment's scan axis) as numpy arrays -> this
-    package's ``{"embed", "final_norm", "layers"}`` on ``device``.  Step
-    ``s`` of sub-block ``j`` of segment ``i`` is layer
-    ``seg.base + s * len(seg.unit) + j``."""
+    leaf stacked along its segment's scan axis, and ``params["mtp"]`` where
+    the config has one) as numpy arrays -> this package's ``{"embed",
+    "final_norm", "layers"}`` (and ``"mtp"``) on ``device``.  Step ``s`` of
+    sub-block ``j`` of segment ``i`` is layer ``seg.base + s *
+    len(seg.unit) + j``.  Every leaf keeps its name and layout (MLA's
+    per-head projections, ``router_bias``, ``shared`` included)."""
     layers: list = [None] * cfg.num_layers
     for i, seg in enumerate(build_segments(cfg)):
         for j in range(len(seg.unit)):
             sub = tree[f"seg{i}"][f"sub{j}"]
             for s in range(seg.count):
                 layers[seg.base + s * len(seg.unit) + j] = _tree(sub, lambda a, s=s: _tensor(a[s], device))
-    return {
+    params = {
         "embed": _tree(tree["embed"], lambda a: _tensor(a, device)),
         "final_norm": _tree(tree["final_norm"], lambda a: _tensor(a, device)),
         "layers": layers,
     }
+    if "mtp" in tree:  # not stacked: one module
+        params["mtp"] = _tree(tree["mtp"], lambda a: _tensor(a, device))
+    return params

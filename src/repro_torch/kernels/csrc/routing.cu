@@ -29,7 +29,12 @@
 //       src/repro/observability/load.py:71-118 (route_with_load_impl, jnp in
 //       the reference, one jitted dispatch): route_kernel's chunk loop with
 //       every settled replica also counted into a (capacity,) u32
-//       accumulator, in the same launch.
+//       accumulator, in the same launch;
+//   chain_remap_kernel                the Memento rejection chain of
+//       src/repro/core/memento_jax.py:101-145 (memento_remap: a jnp
+//       lax.while_loop over the whole batch, no Pallas kernel), the port's
+//       own kernel: the second launch of the chain-mode two-pass path, after
+//       lookup_dyn_kernel.  One thread per key (see its note).
 //
 // What bounds them: instruction issue, never bytes (8 B/key moved, 12 for
 // ingest: 0.040-0.060 ms at 2^24 keys on the H100, against 0.11-0.34 ms of
@@ -559,6 +564,82 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
   }
 }
 
+// The rejection-chain remap, one thread per key over a grid-stride loop: a
+// key whose base bucket b is removed moves to
+// hash_pair(hash^(s+1)(key), b) % n_total at step s = 0, 1, ... until it
+// lands on an alive slot; after max_chain steps it takes first_alive.
+// The JAX package walks the whole batch in one while loop whose rounds end
+// when every lane has settled or at i = max_chain; a lane that settles stays
+// put, so each lane's answer depends only on its own walk and that shared
+// bound.  A per-lane walk of at most max_chain steps therefore gives the
+// whole-batch loop's answer bit for bit.
+//
+// The removed mask is read as the packed u32 words (bit b = slot b removed)
+// that FleetState and ChainFleet already hold, not as the JAX package's
+// (capacity,) bool array: 32 times fewer bytes (128 B for 1,024 slots, held
+// in L1 after the first warps), the operand the route kernels read, and
+// uploaded once per fleet event with the scalars.  Words past n_words read
+// as 0 (b < n_total <= capacity, so a real gather never goes past them).
+// n_total and first_alive are read from device memory (state[0], state[1])
+// by each thread, so a fleet event costs the host no synchronisation and no
+// launch argument is ever stale.  n_total >= 1 (a domain never empties its
+// slot space).  % n_total is a u32 remainder, not the table's Lemire
+// reduction.
+//
+// What bounds it, on chip_smoke.py phase 4's 1000 of 1024 slots: bytes, at
+// every failed share up to one half.  Each bucket is read and written (8 B a
+// key); a key is read only where its bucket is removed, so the key bytes grow
+// with the share of 32-byte sectors that hold a removed lane (none when
+// healthy, nine in ten at a quarter failed).  The instructions (a step is two
+// fmix32 mixers, the pair mix and a u32 remainder by a runtime divisor) stay
+// below the bytes but near them at one half.  The time follows neither: a
+// warp runs as many steps as its longest chain, so at a failed share f it is
+// set by the warp maximum of 32 geometric chain lengths, not by the mean of
+// 1/(1-f).  No chunking or queueing is done here: a simple, correct kernel
+// (chip_smoke.py phase 4 prints the mean and the per-warp maximum chain
+// beside its time).
+__device__ __forceinline__ bool removed_bit(const uint32_t* mask, int n_words, uint32_t b) {
+  const uint32_t w = b >> 5;
+  const uint32_t word = w < static_cast<uint32_t>(n_words) ? mask[w] : 0u;
+  return ((word >> (b & 31u)) & 1u) != 0;
+}
+
+__global__ void __launch_bounds__(THREADS)
+chain_remap_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ buckets,
+                   const uint32_t* __restrict__ mask, int n_words,
+                   const int32_t* __restrict__ state, int max_chain, int32_t* __restrict__ out,
+                   int64_t n) {
+  const uint32_t n_total = static_cast<uint32_t>(state[0]);
+  const uint32_t first_alive = static_cast<uint32_t>(state[1]);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < n; i += stride) {
+    uint32_t b = buckets[i];
+    if (removed_bit(mask, n_words, b)) {
+      const uint32_t key = keys[i];
+      int s = 0;
+      for (; s < max_chain; ++s) {
+        b = hash_pair(mix32(key + static_cast<uint32_t>(s + 1) * GOLDEN32), b) % n_total;
+        if (!removed_bit(mask, n_words, b)) break;
+      }
+      if (s == max_chain) b = first_alive;
+    }
+    out[i] = static_cast<int32_t>(b);
+  }
+}
+
+int launch_chain_remap(const void* keys, const void* buckets, const void* mask, int n_words,
+                       const void* state, int max_chain, void* out, int64_t n,
+                       cudaStream_t stream) {
+  if (max_chain < 0) return -1;
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  const int grid = static_cast<int>(blocks < (1 << 30) ? blocks : (1 << 30));
+  chain_remap_kernel<<<grid, THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(buckets),
+      static_cast<const uint32_t*>(mask), n_words, static_cast<const int32_t*>(state), max_chain,
+      static_cast<int32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Keys per lane and chunk, and the grid: as many keys per lane (up to
 // MAX_ITEMS) as fill the blocks the card holds at once, then at most one
 // block per THREADS * items keys.  `resident` caches, per device, the blocks of `kernel` that
@@ -780,4 +861,14 @@ extern "C" int routing_resolve(const void* keys, const void* base, const void* s
                                void* stream) {
   return routing::launch_resolve(keys, base, slots, state, r, max_resalt, old, out, exhausted,
                                  moved, n, static_cast<cudaStream_t>(stream));
+}
+
+// The chain-mode remap of n keys' base buckets: state = [n_total,
+// first_alive] on the device, mask the packed removed words (n_words of
+// them); max_chain >= 0 (-1 otherwise).
+extern "C" int routing_chain_remap(const void* keys, const void* buckets, const void* mask,
+                                   int n_words, const void* state, int max_chain, void* out,
+                                   long long n, void* stream) {
+  return routing::launch_chain_remap(keys, buckets, mask, n_words, state, max_chain, out, n,
+                                     static_cast<cudaStream_t>(stream));
 }

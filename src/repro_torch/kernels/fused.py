@@ -3,8 +3,9 @@
 building the MoE hash router's keys from token ids), ``route_load`` (the
 route with the load monitor's per-shard count in the same launch), and the
 R-way placement's ``route_family`` (the route kernel over a key's ``r``
-salted families) and ``resolve`` (the distinct-resolution pass), each
-beside its plain torch version and with a launch count.
+salted families) and ``resolve`` (the distinct-resolution pass), and ``chain_remap`` (the chain-mode
+Memento remap), each beside its plain torch version and with a launch
+count.
 
 A wrapper given CPU tensors returns its plain version's result.  Given CUDA
 tensors it launches the hand-written kernel (``csrc/routing.cu``, built by
@@ -30,6 +31,11 @@ TPU's Pallas kernels of ``repro.kernels.fused.make_fused_kernels``
     route_load  the instrumented route of
                 ``repro.observability.load.route_with_load_impl``
                 (load.py:71-118; jnp in the reference, no Pallas kernel)
+    chain_remap the rejection-chain remap of
+                ``repro.core.memento_jax.memento_remap`` (memento_jax.py:101-145;
+                a jnp while loop in the reference, no Pallas kernel), the
+                second launch of the chain-mode two-pass path after
+                ``lookup_dyn``
 
 Operands: keys and id halves are int32 tensors holding u32 bit patterns;
 the fleet operands are those of ``repro_torch.core.bulk.FleetState``
@@ -37,7 +43,9 @@ the fleet operands are those of ``repro_torch.core.bulk.FleetState``
 ``lookup_dyn`` is a 1-element int32 tensor, that of ``lookup_vec`` a Python
 int.  Outputs are int32 tensors of the keys' shape (``lookup_router``: the
 token ids' shape plus ``top_k``; ``route_family`` and ``resolve``: the
-keys' count by ``r``).  ``route_load``'s accumulator is a ``(capacity,)``
+keys' count by ``r``).  ``chain_remap`` takes the keys, their base
+buckets, the packed mask and a ``(2,)`` int32 ``[n_total, first_alive]``
+(``repro_torch.core.bulk.ChainFleet``).  ``route_load``'s accumulator is a ``(capacity,)``
 int32 tensor of u32 bit patterns, advanced in place.
 """
 from __future__ import annotations
@@ -61,13 +69,18 @@ from repro_torch.core.jump_torch import (
     jump_lookup_vec,
     jump_memento_route,
 )
-from repro_torch.core.memento_torch import binomial_ingest_route, binomial_memento_route
+from repro_torch.core.memento_torch import (
+    binomial_ingest_route,
+    binomial_memento_route,
+    chain_remap_impl,
+)
 from repro_torch.core.placement_torch import family_keys, resolve_columns
 from repro_torch.kernels import build
 from repro_torch.observability.load import route_with_load_impl
 
 #: kernel kinds, as the launch counts are keyed
-KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec", "route_family", "resolve", "route_load")
+KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec", "route_family", "resolve", "route_load",
+         "chain_remap")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -113,8 +126,9 @@ class RoutingKernels:
 
     ``launches[kind]`` grows by one at each kernel launch and nowhere else
     (plain-version calls do not count; ``lookup_router`` counts under
-    ``lookup_vec``, whose kernel it launches; ``resolve``, the same kernel
-    for both engines, counts under the engine whose placement called it).
+    ``lookup_vec``, whose kernel it launches; ``resolve`` and
+    ``chain_remap``, each one kernel for both engines, count under the
+    engine whose path called them).
     ``fold(n)`` gives the static-n kernel's host constants ``(E, M)`` and
     raises where the reference does.
     """
@@ -356,6 +370,37 @@ class RoutingKernels:
             _check(rc, f"{self.name} resolve")
             self.launches["resolve"] += 1
         return out, exhausted, moved
+
+
+    # -- chain-mode failure resolution --------------------------------------
+    chain_remap_plain = staticmethod(chain_remap_impl)
+
+    def chain_remap(self, keys, buckets, packed, state, max_chain: int = 4096) -> torch.Tensor:
+        """The rejection-chain remap: keys and their base buckets (one shape)
+        -> int32 buckets, those on a removed slot walked to an alive one
+        (at most ``max_chain`` steps, then ``state[1]``, the first alive
+        slot); ``state`` is ``[n_total, first_alive]`` on the device."""
+        if buckets.shape != keys.shape:
+            raise ValueError(
+                f"keys and buckets must agree in shape, got {tuple(keys.shape)} "
+                f"vs {tuple(buckets.shape)}"
+            )
+        if max_chain < 0:
+            raise ValueError(f"max_chain must be >= 0, got {max_chain}")
+        if _on_cpu(keys, buckets, packed, state):
+            return self.chain_remap_plain(keys, buckets, packed, state, max_chain)
+        if state.numel() != 2:
+            raise ValueError(f"state must hold [n_total, first_alive], got {state.numel()} elements")
+        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        if keys.numel():
+            with torch.cuda.device(keys.device):
+                rc = build.library().routing_chain_remap(
+                    _ptr(keys), _ptr(buckets), _ptr(packed), packed.numel(), _ptr(state),
+                    max_chain, _ptr(out), keys.numel(), _stream(keys),
+                )
+            _check(rc, f"{self.name} chain_remap")
+            self.launches["chain_remap"] += 1
+        return out
 
 
 BINOMIAL = RoutingKernels(

@@ -10,6 +10,8 @@ tensors and runs the plain torch version for CPU tensors:
   load monitor's per-shard count, in one launch;
 * ``route_ingest_bulk(lo, hi, fleet, spec)`` — fused u64-id ingest;
 * ``lookup_bulk_dyn(keys, n, spec)``         — bare lookup, n on the device;
+* ``route_chain_bulk(keys, chain, spec)``    — the chain-mode two-pass path:
+  the dynamic-n lookup, then the rejection-chain remap (two launches);
 * ``route_replicas_bulk(keys, fleet, pspec)`` — R-way placement: the family
   route, then the distinct-resolution pass (two launches);
 * ``placement_diff_bulk(keys, old, new, pspec)`` — both placements and the
@@ -30,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.binomial_torch import u32
-from repro_torch.core.bulk import FleetState, PlacementSpec, RouterSpec
+from repro_torch.core.bulk import ChainFleet, FleetState, PlacementSpec, RouterSpec
 from repro_torch.device import resolve_device
 
 
@@ -74,6 +76,20 @@ def lookup_bulk_dyn(keys: torch.Tensor, n: torch.Tensor, spec: RouterSpec) -> to
     """Bare lookup with ``n`` a 1-element device tensor — the two-pass
     baseline's first dispatch."""
     return _kernels(spec).lookup_dyn(keys, n, spec.omega)
+
+
+def route_chain_bulk(keys: torch.Tensor, chain: ChainFleet, spec: RouterSpec) -> torch.Tensor:
+    """Chain-mode routing (``resolve="chain"``, ``chain_bits=32``): keys +
+    the chain operands -> int32 replica ids, bit-exact with the scalar
+    ``FailureDomain.locate`` of the domain ``chain`` was packed from (its
+    ``max_chain`` travels in ``chain``).  Two launches: ``lookup_dyn`` over
+    ``n_total = chain.state[0]`` writes the base buckets, then
+    ``chain_remap`` walks the removed ones (the JAX package's two-pass
+    chain baseline; its cost follows the longest chain in each warp).
+    ``n_alive >= 1`` is the caller's precondition."""
+    k = _kernels(spec)
+    buckets = k.lookup_dyn(keys, chain.state[:1], spec.omega)
+    return k.chain_remap(keys, buckets, chain.packed, chain.state, chain.max_chain)
 
 
 def route_replicas_bulk(keys: torch.Tensor, fleet: FleetState, pspec: PlacementSpec) -> tuple:

@@ -1,7 +1,9 @@
 """Decoder blocks — the counterparts of ``repro.models.blocks`` for the
 kinds ``attn`` (pre-norm attention + pre-norm MLP) and ``attn_moe``
-(pre-norm attention + pre-norm MoE).  ``rec`` (RG-LRU) and ``ssd``
-(Mamba-2) are not ported yet and raise.
+(pre-norm attention + pre-norm MoE); the attention is GQA or, with
+``cfg.attention == "mla"``, Multi-head Latent Attention with its latent
+cache.  ``rec`` (RG-LRU) and ``ssd`` (Mamba-2) are not ported yet and
+raise.
 
 ``build_segments`` is the reference's grouping of layers into scanned
 segments; the port runs its layers in a Python loop and uses the segments
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attention as attn_mod
+from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers.common import (
     apply_mlp,
@@ -75,11 +78,12 @@ def _check_kind(kind: str) -> None:
 def init_block(gen, kind: str, cfg: ArchConfig) -> dict:
     _check_kind(kind)
     attn_mod.check_supported(cfg)
-    p = {
-        "norm1": init_norm(cfg, cfg.d_model, gen.device),
-        "mixer": attn_mod.init_attention(gen, cfg),
-        "norm2": init_norm(cfg, cfg.d_model, gen.device),
-    }
+    p = {"norm1": init_norm(cfg, cfg.d_model, gen.device)}
+    if cfg.attention == "mla":
+        p["mixer"] = mla_mod.init_mla(gen, cfg)
+    else:
+        p["mixer"] = attn_mod.init_attention(gen, cfg)
+    p["norm2"] = init_norm(cfg, cfg.d_model, gen.device)
     if kind == "attn_moe":
         p["moe"] = moe_mod.init_moe(gen, cfg)
     else:
@@ -97,9 +101,8 @@ def _ffn(p, kind, x, token_ids, salt, cfg: ArchConfig):
 def block_prefill(p, kind, x, positions, token_ids, salt: int, cfg: ArchConfig, cache_len: int):
     """-> (x, cache, aux)"""
     _check_kind(kind)
-    mix, cache = attn_mod.attention_prefill(
-        p["mixer"], apply_norm(p["norm1"], x, cfg), positions, cfg, cache_len
-    )
+    prefill = mla_mod.mla_prefill if cfg.attention == "mla" else attn_mod.attention_prefill
+    mix, cache = prefill(p["mixer"], apply_norm(p["norm1"], x, cfg), positions, cfg, cache_len)
     x = x + mix
     y, aux = _ffn(p, kind, x, token_ids, salt, cfg)
     return x + y, cache, aux
@@ -108,16 +111,20 @@ def block_prefill(p, kind, x, positions, token_ids, salt: int, cfg: ArchConfig, 
 def block_decode(p, kind, x, pos: int, cache, token_ids, salt: int, cfg: ArchConfig):
     """x (B,1,D) -> (x, cache), the cache updated in place."""
     _check_kind(kind)
-    mix, cache = attn_mod.attention_decode(p["mixer"], apply_norm(p["norm1"], x, cfg), pos, cache, cfg)
+    decode = mla_mod.mla_decode if cfg.attention == "mla" else attn_mod.attention_decode
+    mix, cache = decode(p["mixer"], apply_norm(p["norm1"], x, cfg), pos, cache, cfg)
     x = x + mix
     y, _ = _ffn(p, kind, x, token_ids, salt, cfg)
     return x + y, cache
 
 
 def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
-    """Empty cache for one block: k/v (B,T,G,hd) zeros, pos (B,T) -1."""
+    """Empty cache for one block: k/v (B,T,G,hd) zeros, pos (B,T) -1; MLA:
+    ckv (B,T,r) and kr (B,T,dr) zeros, pos (B,T) -1."""
     _check_kind(kind)
     attn_mod.check_supported(cfg)
+    if cfg.attention == "mla":
+        return mla_mod.init_mla_cache(cfg, batch, cache_len, device)
     G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     dt = torch_dtype(cfg.dtype)
     return {

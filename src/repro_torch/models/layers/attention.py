@@ -11,7 +11,8 @@ divided by their f32 sum afterwards).  Scores are f32, as the reference's
 ``(D, H*hd)``, and the cache is the reference's dict ``{k, v, pos}``:
 k/v ``(B, T, G, hd)``, pos ``(B, T)`` with -1 for empty slots.
 
-Sliding windows and MLA are not ported yet and raise.
+Sliding windows are not ported yet and raise; MLA is
+``repro_torch.models.layers.mla``.
 """
 from __future__ import annotations
 
@@ -33,10 +34,9 @@ NEG_INF = -1e30
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the attention flavours the port does not have yet."""
-    if cfg.attention == "mla":
-        raise not_ported("MLA attention (DeepSeek-V3)")
-    if cfg.attention != "gqa":
+    """Raise for the attention flavours the port does not have yet (GQA
+    runs here, MLA in ``repro_torch.models.layers.mla``)."""
+    if cfg.attention not in ("gqa", "mla"):
         raise not_ported(f"attention={cfg.attention!r}")
     if cfg.window is not None:
         raise not_ported("sliding-window attention and its ring-buffer cache")

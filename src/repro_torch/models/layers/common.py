@@ -19,7 +19,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item 11)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item 3)")
 
 
 # ---------------------------------------------------------------------------
@@ -27,11 +27,29 @@ def not_ported(what: str) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 
 
+#: a draw of more elements than this is made in slices along its first
+#: axis, so that its float32 draw never holds more than 1 GiB beside the
+#: result (a full-width MoE layer's (256, 7168, 2048) experts would
+#: otherwise hold 15 GB of float32 for a 7.5 GB bf16 tensor)
+DRAW_SLICE = 1 << 28
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float = 0.02) -> torch.Tensor:
     """A standard normal draw times ``scale``, made in float32 on the
-    generator's device and cast to ``dtype``."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return x.mul_(scale).to(dtype)
+    generator's device and cast to ``dtype`` (in slices along the first
+    axis past ``DRAW_SLICE`` elements)."""
+    shape = tuple(shape)
+    numel = int(np.prod(shape))
+    if numel <= DRAW_SLICE or len(shape) < 2:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, DRAW_SLICE // (numel // shape[0]))
+    for i in range(0, shape[0], rows):
+        part = torch.randn((min(rows, shape[0] - i), *shape[1:]), generator=gen,
+                           dtype=torch.float32, device=gen.device)
+        out[i:i + part.shape[0]] = part.mul_(scale)
+    return out
 
 
 # ---------------------------------------------------------------------------

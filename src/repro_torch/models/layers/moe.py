@@ -10,10 +10,16 @@ Routers:
   in the same launch), or with ``router_dynamic_n`` the dynamic-n kernel
   over ``router_keys``; on CPU tensors their plain versions run.
 * ``topk`` — softmax top-k with the Switch load-balancing aux loss.
+* ``sigmoid`` — DeepSeek-V3's: sigmoid scores plus the selection bias
+  ``router_bias`` pick the top k, the gates are the picked scores
+  renormalised; no aux loss.  Equal selection scores go to the lower
+  expert id first, as ``lax.top_k`` orders them (a stable descending sort
+  here, since ``torch.topk`` promises no order among ties).
 
-The ``sigmoid`` router (DeepSeek-V3) and shared experts are not ported yet
-and raise; ``apply_moe`` is the reference's unmeshed branch (the
-expert-parallel mesh branch waits for ROADMAP Queue 1, item 13).
+Shared experts (``shared_experts > 0``) are one dense MLP of width
+``shared_experts * d_ff_expert`` added to every token's output.
+``apply_moe`` is the reference's unmeshed branch (the expert-parallel mesh
+branch waits for the multi-device slice).
 
 Dispatch is sort-based: assignments are stably sorted by expert id, ranked
 within their expert, and the first ``C`` of each expert (``_capacity``) are
@@ -30,15 +36,18 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.binomial_torch import router_keys
 from repro_torch.core.registry import make_bulk
-from repro_torch.models.layers.common import dense_init, not_ported, torch_dtype
+from repro_torch.models.layers.common import (
+    apply_mlp,
+    dense_init,
+    init_mlp,
+    not_ported,
+    torch_dtype,
+)
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    m = cfg.moe
-    if m.router not in ("hash", "topk"):
-        raise not_ported(f"the {m.router!r} MoE router (DeepSeek-V3)")
-    if m.shared_experts > 0:
-        raise not_ported("shared experts (DeepSeek-V3)")
+    if cfg.moe.router not in ("hash", "topk", "sigmoid"):
+        raise not_ported(f"the {cfg.moe.router!r} MoE router")
 
 
 def init_moe(gen, cfg: ArchConfig) -> dict:
@@ -46,12 +55,17 @@ def init_moe(gen, cfg: ArchConfig) -> dict:
     m = cfg.moe
     D, E, Fe = cfg.d_model, m.num_experts, m.d_ff_expert
     dt = torch_dtype(cfg.param_dtype)
-    return {
+    p = {
         "router": dense_init(gen, (D, E), torch.float32, scale=0.006),
         "experts_wi": dense_init(gen, (E, D, Fe), dt),
         "experts_wg": dense_init(gen, (E, D, Fe), dt),
         "experts_wo": dense_init(gen, (E, Fe, D), dt, scale=0.02 / math.sqrt(2 * cfg.num_layers)),
     }
+    if m.router == "sigmoid":
+        p["router_bias"] = torch.zeros(E, dtype=torch.float32, device=gen.device)
+    if m.shared_experts > 0:
+        p["shared"] = init_mlp(gen, cfg, d_ff=m.shared_experts * Fe)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +90,14 @@ def route(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg: Arc
         return expert_ids, torch.full(expert_ids.shape, 1.0 / K, device=x.device), zero
 
     logits = x.float() @ p["router"]
+    if m.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+        sel = scores + p["router_bias"]
+        # lax.top_k's order: descending, ties to the lower expert id
+        expert_ids = torch.sort(sel, dim=-1, descending=True, stable=True).indices[..., :K]
+        g = torch.gather(scores, -1, expert_ids)
+        gates = g / g.sum(-1, keepdim=True).clamp(min=1e-9)
+        return expert_ids.to(torch.int32), gates, zero  # aux-loss-free (bias balancing)
     probs = torch.softmax(logits, dim=-1)
     g, expert_ids = torch.topk(probs, K, dim=-1)
     gates = g / g.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -170,5 +192,7 @@ def apply_moe(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg:
         x.reshape(-1, D), expert_ids.reshape(-1, m.top_k), gates.reshape(-1, m.top_k),
         p["experts_wi"], p["experts_wg"], p["experts_wo"], 0, m.num_experts,
         _capacity(cfg, B * S),
-    )
-    return y.reshape(B, S, D), aux
+    ).reshape(B, S, D)
+    if m.shared_experts > 0:
+        y = y + apply_mlp(p["shared"], x, cfg)
+    return y, aux

@@ -7,9 +7,15 @@ reference stacks each segment's layers along a scan axis; here a Python
 loop runs over the layers).  The cache is ``{"cur": int, "layers": [...]}``
 with one ``{k, v, pos}`` dict per layer.
 
-Token inputs only; embeds inputs, sinusoidal positions and multi-token
-prediction are not ported yet and raise.  Training (the loss and its
-backward) waits for a later slice.
+With ``mtp_depth > 0`` (DeepSeek-V3) ``init_params`` also builds the
+reference's multi-token-prediction subtree ``params["mtp"]`` (two norms,
+the ``(2D, D)`` input projection, one block and a final norm), so that
+parameter trees and counts match; prefill and decode never read it, as in
+the reference, and its loss comes with training.
+
+Token inputs only; embeds inputs and sinusoidal positions are not ported
+yet and raise.  Training (the loss and its backward) waits for a later
+slice.
 """
 from __future__ import annotations
 
@@ -19,10 +25,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.layers.common import (
     apply_norm,
+    dense_init,
     embed_tokens,
     init_embeddings,
     init_norm,
     not_ported,
+    torch_dtype,
     unembed,
 )
 
@@ -30,19 +38,35 @@ from repro_torch.models.layers.common import (
 def check_supported(cfg: ArchConfig) -> None:
     if cfg.input_mode != "tokens":
         raise not_ported(f"input_mode={cfg.input_mode!r}")
-    if cfg.mtp_depth > 0:
-        raise not_ported("multi-token prediction (DeepSeek-V3)")
+
+
+def init_mtp(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """The multi-token-prediction module's parameters (the reference's
+    ``params["mtp"]``)."""
+    D = cfg.d_model
+    dev = gen.device
+    return {
+        "norm_h": init_norm(cfg, D, dev),
+        "norm_e": init_norm(cfg, D, dev),
+        "in_proj_mtp": dense_init(gen, (2 * D, D), torch_dtype(cfg.param_dtype)),
+        "block": B.init_block(gen, "attn_moe" if cfg.moe else "attn", cfg),
+        "final_norm": init_norm(cfg, D, dev),
+    }
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random parameters on the generator's device, drawn from it in order
-    (embeddings, then layer by layer)."""
+    (embeddings, then layer by layer, then the MTP module where
+    ``mtp_depth > 0``)."""
     check_supported(cfg)
-    return {
+    params = {
         "embed": init_embeddings(gen, cfg),
         "final_norm": init_norm(cfg, cfg.d_model, gen.device),
         "layers": [B.init_block(gen, kind, cfg) for kind in cfg.layer_kinds()],
     }
+    if cfg.mtp_depth > 0:
+        params["mtp"] = init_mtp(gen, cfg)
+    return params
 
 
 def params_to(params, device) -> dict:

@@ -55,19 +55,28 @@ class FailureDomain:
     """Arbitrary-failure placement built on the Memento-style wrapper.
 
     Lookups always return an alive node; failures and recoveries move only
-    the affected keys.  Failures resolve through the constant-time
-    replacement table (DESIGN.md §7), the semantics the device implements;
-    with a u32 engine (``binomial32``, ``jump32``) the whole lookup+divert
-    path is u32 — the word size of the batched device datapath
-    (``repro_torch.serving.batch_router``), which mirrors this domain's
-    state on the device bit-exactly.
+    the affected keys.
+
+    ``chain_bits=32`` (with a u32 engine such as ``binomial32``) makes the
+    whole lookup+remap path u32 — the word size of the device chain remap
+    (``repro_torch.core.memento_torch.memento_remap``).
+
+    ``resolve="table"`` switches failure resolution from the rejection
+    chain to the constant-time replacement table (DESIGN.md §7) — the
+    semantics the batched device datapath
+    (``repro_torch.serving.batch_router``) implements and mirrors
+    bit-exactly.
     """
 
     def __init__(
         self,
         n: int,
         engine: str = "binomial",
+        chain_bits: int = 64,
         omega: int | None = None,
+        max_chain: int = 4096,
+        resolve: str = "chain",
+        allow_empty: bool = False,
     ):
         def factory(m: int):
             eng = make(engine, m)
@@ -77,7 +86,14 @@ class FailureDomain:
                 eng.omega = omega
             return eng
 
-        self._eng = MementoWrapper(factory, n)
+        self._eng = MementoWrapper(
+            factory,
+            n,
+            max_chain=max_chain,
+            chain_bits=chain_bits,
+            resolve=resolve,
+            allow_empty=allow_empty,
+        )
 
     @property
     def alive_count(self) -> int:
@@ -92,10 +108,30 @@ class FailureDomain:
     def removed(self) -> frozenset[int]:
         return frozenset(self._eng.removed)
 
+    def first_alive(self) -> int:
+        return self._eng.first_alive()
+
+    @property
+    def resolve(self) -> str:
+        """``"chain"`` or ``"table"``: how a removed slot is resolved."""
+        return self._eng.resolve
+
+    @property
+    def chain_bits(self) -> int:
+        """Word size of the rejection chain (32 or 64)."""
+        return self._eng.chain_bits
+
+    @property
+    def max_chain(self) -> int:
+        """Rejection steps before a key falls back to ``first_alive``."""
+        return self._eng.max_chain
+
     @property
     def replacement_table(self):
-        """The ``ReplacementTable`` — the host truth the device copies are
-        uploaded from."""
+        """The ``ReplacementTable`` (``resolve="table"`` domains only) —
+        the host truth the device copies are uploaded from."""
+        if self._eng.table is None:
+            raise ValueError("domain was not constructed with resolve='table'")
         return self._eng.table
 
     def locate(self, key: int) -> int:

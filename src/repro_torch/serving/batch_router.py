@@ -60,9 +60,12 @@ class BatchRouter:
         omega: int = 16,
         device=None,
         fused: bool = True,
+        max_chain: int = 4096,
     ):
         """``capacity=None`` sizes the device table at
-        ``max(64, next_pow2(2 * n_replicas))``."""
+        ``max(64, next_pow2(2 * n_replicas))``.  ``max_chain`` is inert: the
+        table resolution has a hard two-redirect bound; it is validated and
+        forwarded to the control plane as the JAX package's router does."""
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
         if capacity is None:
@@ -70,13 +73,29 @@ class BatchRouter:
         spec = RouterSpec(engine=engine, capacity=capacity, omega=omega)
         if n_replicas > spec.capacity:
             raise ValueError(f"n_replicas ({n_replicas}) exceeds capacity ({spec.capacity})")
+        if max_chain < 0:
+            raise ValueError(
+                f"max_chain must be >= 0, got {max_chain}; note the table "
+                "resolution has a hard two-redirect bound, so max_chain only "
+                "labels the (unused) chain budget — any value >= 0 routes "
+                "identically"
+            )
         self.device = resolve_device(device)
         self.spec = spec
         bulk = make_bulk(spec.engine)  # fails loudly on unknown engines
-        # control-plane truth: the engine's u32 scalar oracle with table
+        # control-plane truth: the engine's u32 scalar oracle with u32 table
         # resolution (the device semantics); an all-failed fleet is a state
         # the route entry points answer with FleetUnavailableError
-        self.scalar = SessionRouter(n_replicas, engine=bulk.scalar_engine, omega=spec.omega)
+        self.scalar = SessionRouter(
+            n_replicas,
+            engine=bulk.scalar_engine,
+            chain_bits=32,
+            omega=spec.omega,
+            max_chain=max_chain,
+            resolve="table",
+            allow_empty=True,
+        )
+        self.max_chain = max_chain
         self.fused = fused
         # host mirror of the device fleet state, mutated incrementally on
         # fleet events; the device twin is refreshed only then

@@ -250,13 +250,15 @@ class LifecycleManager:
     # -- crash recovery ------------------------------------------------------
     def _domain_factory(self, n: int):
         """Build a domain EXACTLY like the router's control plane builds
-        its oracle — same engine flavour and omega.  (The reference also
-        passes ``max_chain``, which its table resolution never reads; the
-        port's domain resolves by table only and takes none.)"""
+        its oracle — same engine flavour, omega and resolution."""
         return FailureDomain(
             n,
             engine=make_bulk(self.router.spec.engine).scalar_engine,
+            chain_bits=32,
             omega=self.router.spec.omega,
+            max_chain=self.router.max_chain,
+            resolve="table",
+            allow_empty=True,
         )
 
     def snapshot(self) -> JournalSnapshot:

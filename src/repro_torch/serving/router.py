@@ -10,9 +10,10 @@ hot).
 Two tiers share this architecture:
 
 * ``SessionRouter`` (this module) — the scalar control plane: one Python
-  lookup per call through ``FailureDomain.locate``.  With a u32 engine
-  (``binomial32``, ``jump32``) it is the bit-exact oracle for the batched
-  datapath.
+  lookup per call through ``FailureDomain.locate``.  With
+  ``engine="binomial32", chain_bits=32, resolve="table"`` it is the
+  bit-exact oracle for the batched datapath (``resolve="chain"``, the
+  default, keeps the paper-faithful rejection-chain flavour).
 * ``BatchRouter`` (``repro_torch.serving.batch_router``) — the device datapath:
   whole request batches flow through the fused lookup+divert kernel
   (fleet state, removed-slot mask and replacement table as fixed-capacity
@@ -152,9 +153,21 @@ class SessionRouter:
         self,
         n_replicas: int,
         engine: str = "binomial",
+        chain_bits: int = 64,
         omega: int | None = None,
+        max_chain: int = 4096,
+        resolve: str = "chain",
+        allow_empty: bool = False,
     ):
-        self.domain = FailureDomain(n_replicas, engine, omega=omega)
+        self.domain = FailureDomain(
+            n_replicas,
+            engine,
+            chain_bits=chain_bits,
+            omega=omega,
+            max_chain=max_chain,
+            resolve=resolve,
+            allow_empty=allow_empty,
+        )
         self.stats = RoutingStats()
         #: session key -> last replica (observability only): bulk
         #: open-addressing store, vectorised probe/insert (DESIGN.md §9)

@@ -9,8 +9,11 @@ the R-way placement kernels (the family route and ``resolve``, also past
 the register columns at r = 9, 16 and 32) against their plain versions, the
 placement tier with its lifecycle and repairer on the card against the same
 tier on the CPU, the instrumented route (``route_load``) against its plain
-version on both sides of its shared-histogram threshold, and the streaming
-front end over a monitored router on the card against the same on the CPU.
+version on both sides of its shared-histogram threshold, the streaming
+front end over a monitored router on the card against the same on the CPU,
+the chain-mode remap (``chain_remap``) against its plain version and the
+scalar chain oracle, and a reduced DeepSeek-V3 ``ServingTier`` (MLA, the
+hash router, shared experts) on the card against the same tier on the CPU.
 Needs a CUDA card and ``nvcc``; skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
@@ -25,7 +28,7 @@ import dataclasses  # noqa: E402
 
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.core.binomial import binomial_lookup32  # noqa: E402
-from repro_torch.core.bulk import FleetState  # noqa: E402
+from repro_torch.core.bulk import ChainFleet, FleetState, RouterSpec  # noqa: E402
 from repro_torch.core.jump import jump_lookup32  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import moe  # noqa: E402
@@ -49,7 +52,8 @@ def cuda():
 
 
 def _fleet(engine, n, capacity, n_fail, seed):
-    plane = SessionRouter(n, engine=BULK_ENGINES[engine].scalar_engine)
+    plane = SessionRouter(n, engine=BULK_ENGINES[engine].scalar_engine, chain_bits=32,
+                          resolve="table", allow_empty=True)
     for b in np.random.default_rng(seed).choice(n - 1, size=n_fail, replace=False):
         plane.fail(int(b))
     return FleetState.pack(plane.domain, capacity).to("cuda")
@@ -429,3 +433,74 @@ def test_streaming_front_end_on_card_matches_cpu(cuda, engine):
                       [(r.shard, r.hedged) for r in reads], O.to_json(reg, trace=fe.tracer, monitor=mon),
                       mon.totals.tolist()))
     assert sides[0] == sides[1]
+
+
+#: (n, capacity, failed) of the chain checks: 0, 6, 25 and 50 % failed
+CHAIN_FLEETS = ((1000, 1024, 0), (1000, 1024, 60), (1000, 1024, 250), (1000, 1024, 500),
+                (40, 64, 20))
+
+
+@pytest.mark.parametrize("max_chain", [0, 1, 2, 4096])
+@pytest.mark.parametrize("fleet", CHAIN_FLEETS)
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_chain_remap_matches_plain_and_oracle(cuda, engine, fleet, max_chain):
+    n, capacity, n_fail = fleet
+    plane = SessionRouter(n, engine=BULK_ENGINES[engine].scalar_engine, chain_bits=32,
+                          max_chain=max_chain)
+    for b in np.random.default_rng(n_fail).choice(n - 1, size=n_fail, replace=False):
+        plane.fail(int(b))
+    chain = ChainFleet.pack(plane.domain, capacity)
+    dev, host = chain.to(cuda), chain.to("cpu")
+    k = BULK_ENGINES[engine].kernels
+    spec = RouterSpec(engine, capacity)
+    for size in (1, 33, 4097, 1 << 18):
+        keys = _u32(size, size, cuda)
+        before = k.launches["chain_remap"]
+        got = ops.route_chain_bulk(keys, dev, spec)
+        assert k.launches["chain_remap"] - before == 1
+        want = ops.route_chain_bulk(keys.cpu(), host, spec)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    sample = keys[:2048].cpu().numpy().view(np.uint32)
+    assert got[:2048].cpu().numpy().tolist() == [plane.domain.locate(int(x)) for x in sample]
+
+
+def test_chain_remap_reads_first_alive_from_device(cuda):
+    """Rewriting the device scalars between two launches re-aims the
+    exhausted lanes without a host copy of them."""
+    plane = SessionRouter(100, engine="binomial32", chain_bits=32)
+    for b in range(0, 99, 2):
+        plane.fail(b)
+    chain = ChainFleet.pack(plane.domain, 128).to(cuda)
+    k = BULK_ENGINES["binomial"].kernels
+    keys = _u32(3, 1 << 16, cuda)
+    buckets = k.lookup_dyn(keys, chain.state[:1])
+    first = k.chain_remap(keys, buckets, chain.packed, chain.state, 0)
+    chain.state[1] = 7
+    second = k.chain_remap(keys, buckets, chain.packed, chain.state, 0)
+    removed = first != buckets
+    assert bool(removed.any()) and bool((first[removed] == 1).all())
+    assert bool((second[removed] == 7).all()) and torch.equal(first[~removed], second[~removed])
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_deepseek_v3_serving_on_card(cuda, engine):
+    cfg = reduced_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router="hash", router_hash_engine=engine))
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = ServingTier(cfg, M.params_to(params, cuda), 3, max_len=16, engine=engine)
+    cpu = ServingTier(cfg, params, 3, max_len=16, engine=engine, device="cpu")
+    rng = np.random.default_rng(8)
+    reqs = [Request(f"s-{i}", rng.integers(0, cfg.vocab_size, size=6).astype(np.int32), 4)
+            for i in range(12)]
+    for failed in (None, 1):
+        if failed is not None:
+            gpu.fail(failed), cpu.fail(failed)
+        got, want = gpu.serve(reqs), cpu.serve(reqs)
+        assert sorted(got) == sorted(want)
+        for sid in want:
+            np.testing.assert_array_equal(got[sid], want[sid])
+    prompts = torch.from_numpy(np.stack([r.prompt for r in reqs]))
+    _, on_card = M.prefill(gpu.replicas[0].params, {"tokens": prompts.to(cuda)}, cfg, 16)
+    _, on_cpu = M.prefill(params, {"tokens": prompts}, cfg, 16)
+    np.testing.assert_allclose(on_card.cpu().numpy(), on_cpu.numpy(), atol=1e-4, rtol=1e-4)

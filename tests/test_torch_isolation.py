@@ -44,7 +44,9 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.observability.export", "repro_torch.observability.load",
             "repro_torch.serving.streaming.clock", "repro_torch.serving.streaming.admission",
             "repro_torch.serving.streaming.hedge", "repro_torch.serving.streaming.batcher",
-            "repro_torch.serving.streaming.frontend"} <= set(mods)
+            "repro_torch.serving.streaming.frontend", "repro_torch.core.baselines",
+            "repro_torch.core.analysis", "repro_torch.analysis.markers",
+            "repro_torch.models.layers.mla"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -122,5 +124,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA devices"):
         BINOMIAL.route_load(keys.to("meta"), keys.to("meta"), keys.to("meta"), keys[:2].to("meta"),
                             keys.to("meta"))
+    with pytest.raises(ValueError, match="CUDA devices"):
+        BINOMIAL.chain_remap(keys.to("meta"), keys.to("meta"), keys.to("meta"),
+                             keys[:2].to("meta"))
     assert BINOMIAL.launches == {"route": 0, "ingest": 0, "lookup_dyn": 0, "lookup_vec": 0,
-                                 "route_family": 0, "resolve": 0, "route_load": 0}
+                                 "route_family": 0, "resolve": 0, "route_load": 0,
+                                 "chain_remap": 0}

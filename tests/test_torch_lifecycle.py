@@ -32,7 +32,7 @@ def ref_domain(n):
 
 
 def port_domain(n):
-    return FailureDomain(n, engine="binomial32")
+    return FailureDomain(n, engine="binomial32", chain_bits=32, resolve="table", allow_empty=True)
 
 
 def same_state(a, b) -> None:

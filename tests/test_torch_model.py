@@ -53,26 +53,33 @@ def _reference_params(arch: str):
     return params, jax.tree.map(np.asarray, params)
 
 
-def _record_routes(monkeypatch):
-    """Capture (layer salt, token ids, expert ids) of every port MoE call."""
+def _record_routes(monkeypatch, with_inputs=False):
+    """Capture (layer salt, token ids, expert ids) of every port MoE call;
+    ``with_inputs`` also keeps the router's input activations and the
+    gates: (salt, token ids, x, expert ids, gates)."""
     log = []
     route = tmoe.route
 
     def recording(p, x, token_ids, layer_salt, cfg):
         out = route(p, x, token_ids, layer_salt, cfg)
-        log.append((layer_salt, token_ids.numpy().copy(), out[0].numpy().copy()))
+        ids = out[0].numpy().copy()
+        if with_inputs:
+            log.append((layer_salt, token_ids.numpy().copy(), x.detach().numpy().copy(), ids,
+                        out[1].numpy().copy()))
+        else:
+            log.append((layer_salt, token_ids.numpy().copy(), ids))
         return out
 
     monkeypatch.setattr(tmoe, "route", recording)
     return log
 
 
-def _run_both(arch, monkeypatch, batch=3, prompt=8, **moe):
+def _run_both(arch, monkeypatch, batch=3, prompt=8, with_inputs=False, **moe):
     jcfg, tcfg = _configs(arch, **moe)
     jparams, host = _reference_params(arch)
     tparams = params_from_numpy(host, tcfg, "cpu")
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, size=(batch, prompt)).astype(np.int32)
-    log = _record_routes(monkeypatch)
+    log = _record_routes(monkeypatch, with_inputs)
     jcache, jl = JM.prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, MAX_LEN)
     tcache, tl = TM.prefill(tparams, {"tokens": torch.from_numpy(tokens)}, tcfg, MAX_LEN)
     steps = [(np.asarray(jl), tl.numpy())]
@@ -146,22 +153,79 @@ def test_dispatch_plan_and_combine_match_reference(capacity_factor):
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
 
 
-@pytest.mark.parametrize(
-    "arch", sorted(a for a in ARCHS if a not in ("qwen3-moe-235b-a22b", "stablelm-3b", "deepseek-coder-33b", "qwen2.5-14b"))
-)
+PORTED = ("qwen3-moe-235b-a22b", "stablelm-3b", "deepseek-coder-33b", "qwen2.5-14b",
+          "deepseek-v3-671b")
+
+
+@pytest.mark.parametrize("arch", sorted(a for a in ARCHS if a not in PORTED))
 def test_unported_flavours_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TM.init_params(torch.Generator().manual_seed(0), reduced_config(arch))
 
 
-def test_sigmoid_router_raises():
-    cfg = reduced_config("qwen3-moe-235b-a22b")
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router="sigmoid"))
-    with pytest.raises(NotImplementedError, match="sigmoid"):
-        TM.init_params(torch.Generator().manual_seed(0), cfg)
+DSV3 = "deepseek-v3-671b"
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "stablelm-3b"])
+@pytest.mark.parametrize(
+    "moe",
+    [dict(), dict(router="hash"), dict(router="hash", router_hash_engine="jump")],
+    ids=["sigmoid", "hash-binomial", "hash-jump"],
+)
+def test_deepseek_v3_matches_reference(moe, monkeypatch):
+    """DeepSeek-V3 reduced (MLA, 1 dense + 2 MoE layers, a shared expert):
+    prefill and absorbed-decode logits within 1e-4, and the expert ids of
+    every router call identical to the reference's router on the same
+    inputs.  The sigmoid router's ids are compared in order: the port
+    breaks equal selection scores toward the lower expert id, as
+    ``lax.top_k`` does (a stable sort), so not even a tie may reorder
+    them; its gates agree within 1e-6."""
+    jcfg, steps, log = _run_both(DSV3, monkeypatch, with_inputs=True, **moe)
+    assert jcfg.attention == "mla" and jcfg.moe.shared_experts == 1
+    assert jcfg.layer_kinds() == ["attn", "attn_moe", "attn_moe"]
+    for want, got in steps:
+        assert got.shape == want.shape == (3, jcfg.padded_vocab)
+        np.testing.assert_allclose(got, want, **TOL)
+    n_moe = sum(k == "attn_moe" for k in jcfg.layer_kinds())
+    assert len(log) == n_moe * (1 + N_DECODE)
+    tparams = params_from_numpy(_reference_params(DSV3)[1], reduced_config(DSV3), "cpu")
+    for salt, tokens, x, expert_ids, gates in log:
+        p = {k: jnp.asarray(v.numpy()) for k, v in tparams["layers"][salt]["moe"].items()
+             if k in ("router", "router_bias")}
+        want, want_gates, _ = jmoe.route(p, jnp.asarray(x), jnp.asarray(tokens.astype(np.int32)),
+                                         salt, jcfg)
+        np.testing.assert_array_equal(expert_ids, np.asarray(want))
+        np.testing.assert_allclose(gates, np.asarray(want_gates), atol=1e-6, rtol=1e-6)
+
+
+def test_deepseek_v3_parameter_tree_matches_reference():
+    """``init_params`` builds the reference's tree: every leaf's name,
+    shape and dtype, the ``mtp`` subtree included (which serving never
+    reads), and ``params_from_numpy`` carries every leaf over."""
+    jparams, host = _reference_params(DSV3)
+    cfg = reduced_config(DSV3)
+    port = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    carried = params_from_numpy(host, cfg, "cpu")
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for name, sub in tree.items() for k, v in leaves(sub, f"{prefix}/{name}").items()}
+        if isinstance(tree, list):
+            return {k: v for i, sub in enumerate(tree) for k, v in leaves(sub, f"{prefix}/{i}").items()}
+        return {prefix: tree}
+
+    got = {k: (tuple(v.shape), str(v.dtype)) for k, v in leaves(port).items()}
+    assert got == {k: (tuple(v.shape), str(v.dtype)) for k, v in leaves(carried).items()}
+    want_mtp = {k: (tuple(v.shape), f"torch.{v.dtype}") for k, v in leaves(host["mtp"], "/mtp").items()}
+    assert {k: v for k, v in got.items() if k.startswith("/mtp/")} == want_mtp
+    assert {"/mtp/in_proj_mtp", "/mtp/block/moe/shared/wi", "/mtp/block/moe/router_bias",
+            "/mtp/block/mixer/w_uk", "/mtp/norm_e/scale"} <= set(want_mtp)
+    n_ref = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(jparams))
+    assert sum(v.numel() for v in leaves(port).values()) == n_ref
+    for k, v in leaves(host["mtp"], "/mtp").items():
+        np.testing.assert_array_equal(leaves(carried)[k].numpy(), v)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "stablelm-3b", DSV3])
 def test_empty_cache_matches_reference(arch):
     """``init_cache``: one {k, v, pos} per layer, the reference's stacked
     leaves split along their scan axis."""

@@ -423,7 +423,7 @@ def test_assignment_resize_matches_reference(old, new):
 
 
 def test_failure_domain_matches_reference_table_domain():
-    fd = elastic.FailureDomain(12, engine="binomial32")
+    fd = elastic.FailureDomain(12, engine="binomial32", chain_bits=32, resolve="table")
     rd = ref_elastic.FailureDomain(12, engine="binomial32", chain_bits=32, resolve="table")
     keys = range(6000)
     for event in (("fail", 3), ("fail", 0), ("scale_up",), ("recover", 3), ("scale_down",)):

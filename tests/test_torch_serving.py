@@ -1,5 +1,6 @@
 """The port's ``ServingTier`` (``repro_torch.serving.engine``) against the
-JAX package's on the CPU: the reduced hash-routed Qwen3-MoE, the same
+JAX package's on the CPU: the reduced hash-routed Qwen3-MoE (and
+DeepSeek-V3 under its sigmoid router and the hash router), the same
 parameters (JAX ``init_params`` carried over by ``params_from_numpy``) and
 the same requests, served before and after a replica fails.  Routes and
 generated tokens must be identical.  Also: the entry points run on CUDA by
@@ -40,7 +41,24 @@ def _requests(vocab: int):
 
 
 def test_serving_tier_matches_reference_through_a_failure():
-    jcfg, tcfg = _hash(ref_reduced_config(ARCH)), _hash(reduced_config(ARCH))
+    _serve_through_a_failure(_hash(ref_reduced_config(ARCH)), _hash(reduced_config(ARCH)))
+
+
+@pytest.mark.parametrize("moe", [dict(), dict(router="hash"),
+                                 dict(router="hash", router_hash_engine="jump")],
+                         ids=["sigmoid", "hash-binomial", "hash-jump"])
+def test_deepseek_v3_serving_tier_matches_reference_through_a_failure(moe):
+    """DeepSeek-V3 reduced (MLA's latent cache, a shared expert) under its
+    published sigmoid router and under the hash router of either engine."""
+    jcfg, tcfg = (dataclasses.replace(c, moe=dataclasses.replace(c.moe, **moe))
+                  for c in (ref_reduced_config("deepseek-v3-671b"),
+                            reduced_config("deepseek-v3-671b")))
+    _serve_through_a_failure(jcfg, tcfg)
+
+
+def _serve_through_a_failure(jcfg, tcfg):
+    """Both tiers on the same parameters and requests, before and after
+    replica 1 fails: identical tokens and routes, only its sessions move."""
     jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
     ref = RefServingTier(jcfg, jparams, 3, max_len=16)
