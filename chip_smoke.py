@@ -33,10 +33,12 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    and 6 and ragged sizes up to 2^20, from accumulators near 2^32, against
    its plain version and ``route`` (capacity 65,536 takes its
    global-atomic instance); the chain-mode remap ``chain_remap`` over the
-   seven fleets and 1000/1024 at 6 % and 50 % failed (chain-mode control
-   planes), ``max_chain`` 0, 1 and 4096, at the ragged sizes and 2^20 keys,
-   against its plain version (one launch per call), and with its
-   ``lookup_dyn`` first pass against the scalar chain oracle;
+   seven fleets and 1000/1024 at 6, 50 and 90 % failed (chain-mode control
+   planes), ``max_chain`` 0, 1, 2, 8 and 4096, at the ragged sizes, 2^20
+   keys and sizes around the ring's carry-over from chunk to chunk (one,
+   two and three passes of the resident grid), against its plain version
+   (one launch per call), and with its ``lookup_dyn`` first pass against
+   the scalar chain oracle;
 3. the six main paths, each with the kernels' launch counts set to 0
    just before it and read just after:
    - the routing datapath: ``BatchRouter`` on the card, both engines, fused
@@ -111,13 +113,15 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    ``place_keys`` at 2^20 keys, r = 16; and the storm cliff: the
    chain-mode two-pass path against ``route`` (table) at 2^24 keys in
    turns at 0, 6, 25 and 50 % failed, ``chain_remap`` alone beside its
-   bound, with the mean and per-warp-maximum walk.
+   bound, with the walk steps per lane of its resident grid beside the
+   per-warp-maximum walk that one thread per key would issue.
 
 ``--baseline DIR [DIR ...]`` also builds each ``DIR/routing.cu`` (another
 build of the kernels with the same C interface: the parent commit's, or a
 variant of this one) and times it against this one in turns (baseline,
-this, this, baseline), three rounds: every instance at 2^24 keys, and the
-router call at the serve path's sizes (a baseline without
+this, this, baseline), three rounds: every instance at 2^24 keys,
+``chain_remap`` at each failed share of the storm sweep, and the router
+call at the serve path's sizes (a baseline without
 ``routing_lookup_router`` builds its keys with torch).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -239,7 +243,7 @@ SASS_STATIC = {
     ("binomial", "route_load"): 1480, ("jump", "route_load"): 1176,
     ("binomial", "route_load_global"): 1816, ("jump", "route_load_global"): 1072,
     # the chain-mode remap, one function for both engines
-    ("binomial", "chain_remap"): 352, ("jump", "chain_remap"): 352,
+    ("binomial", "chain_remap"): 768, ("jump", "chain_remap"): 768,
 }
 #: each kernel instance's mangled name in the library, up to its parameters
 FUNCTIONS = {
@@ -808,17 +812,40 @@ def phase_placement_wide(max_err: dict) -> None:
 #: sweep (0, 6, 25, 50 %), at 1000 of 1024 slots
 CHAIN_SHARES = (0.0, 0.06, 0.25, 0.5)
 #: max_chain checked: no step (every removed lane takes first_alive), one
-#: step, and the default
-CHAIN_MAX = (0, 1, 4096)
+#: step, two and eight (walks run out inside refilled lanes), and the default
+CHAIN_MAX = (0, 1, 2, 8, 4096)
 #: (n, capacity, failed, seed): the seven fleets of the route checks, then
-#: the sweep's other shares
+#: the sweep's other shares and 90 % failed (long walks)
 CHAIN_FLEETS = {
     "1000/1024 healthy": (1000, 1024, 0, 1), "1000/1024 250 failed": (1000, 1024, 250, 2),
     "40000/65536 25% failed": (40000, 65536, 10000, 3), "n=1": (1, 64, 0, 4),
     "n=1023": (1023, 2048, 0, 5), "n=1024": (1024, 2048, 0, 6),
     "n=1025 3 failed": (1025, 2048, 3, 7), "1000/1024 6% failed": (1000, 1024, 60, 8),
-    "1000/1024 50% failed": (1000, 1024, 500, 9),
+    "1000/1024 50% failed": (1000, 1024, 500, 9), "1000/1024 90% failed": (1000, 1024, 900, 10),
 }
+
+
+#: keys a block of chain_remap takes in one chunk per warp (routing.cu's
+#: THREADS x MAX_ITEMS)
+CHAIN_BLOCK_KEYS = 256 * 8
+
+
+def chain_pass() -> int:
+    """Keys one pass of chain_remap's resident grid takes: every warp one
+    chunk of 32 x MAX_ITEMS keys.  Past it a warp walks several chunks and
+    its ring of removed keys carries from one to the next."""
+    from repro_torch.kernels import build
+
+    return build.library().routing_chain_grid(1 << 40) * CHAIN_BLOCK_KEYS
+
+
+def chain_sizes() -> tuple:
+    """The chain checks' key counts: around a warp and a chunk
+    (``TAIL_SIZES``), 2^20, and around the ring's carry-over: one key past
+    a pass (one warp takes a second chunk of one key), a ragged second
+    chunk, two passes less one, three passes and a ragged chunk."""
+    r = chain_pass()
+    return (*TAIL_SIZES, N_CHECK, r + 1, r + 33, 2 * r - 1, 3 * r + 4097)
 
 
 def chain_plane(engine: str, n: int, n_fail: int, seed: int, max_chain: int = 4096):
@@ -838,15 +865,16 @@ def chain_plane(engine: str, n: int, n_fail: int, seed: int, max_chain: int = 40
 
 def phase_chain_remap(max_err: dict) -> None:
     """``chain_remap`` (one launch per call) against its plain version on
-    the card, bit-exact, over ``CHAIN_FLEETS`` x ``CHAIN_MAX`` at the
-    ragged sizes and 2^20 keys, its base buckets from ``lookup_dyn``; and
-    both launches together against the scalar chain oracle
+    the card, bit-exact, over ``CHAIN_FLEETS`` x ``CHAIN_MAX`` at
+    ``chain_sizes()``, its base buckets from ``lookup_dyn``; and both
+    launches together against the scalar chain oracle
     (``FailureDomain.locate`` of the chain-mode plane) on 4,096 keys."""
     from repro_torch.core.bulk import ChainFleet
     from repro_torch.core.registry import make_bulk
 
+    sizes = chain_sizes()
     rng = np.random.default_rng(5)
-    keys = u32_tensor(rng, N_CHECK).cuda()
+    keys = u32_tensor(rng, max(sizes)).cuda()
     sample = keys[:N_ORACLE].cpu().numpy().view(np.uint32)
     for engine in ENGINES:
         kernels = make_bulk(engine).kernels
@@ -856,7 +884,7 @@ def phase_chain_remap(max_err: dict) -> None:
                 plane = chain_plane(engine, n, n_fail, seed, max_chain)
                 chain = ChainFleet.pack(plane.domain, capacity).to("cuda")
                 base = kernels.lookup_dyn(keys, chain.state[:1])
-                for size in (*TAIL_SIZES, N_CHECK):
+                for size in sizes:
                     k, b = keys[:size], base[:size]
                     before = kernels.launches["chain_remap"]
                     got = kernels.chain_remap(k, b, chain.packed, chain.state, max_chain)
@@ -876,9 +904,10 @@ def phase_chain_remap(max_err: dict) -> None:
         max_err[engine, "chain_remap"] = worst
         print(f"phase 2 chain_remap[{engine}]: {cases} cases ({len(CHAIN_FLEETS)} fleets: "
               f"{', '.join(CHAIN_FLEETS)}; x max_chain {CHAIN_MAX}) at "
-              f"{', '.join(map(str, TAIL_SIZES))} and {N_CHECK} keys: max |kernel - plain| = "
-              f"{worst}, one launch per call; lookup_dyn + chain_remap agree with the scalar "
-              f"chain oracle on {N_ORACLE}/{N_ORACLE} keys of every case")
+              f"{', '.join(map(str, sizes))} keys (a pass of the resident grid: "
+              f"{chain_pass()} keys): max |kernel - plain| = {worst}, one launch per call; "
+              f"lookup_dyn + chain_remap agree with the scalar chain oracle on "
+              f"{N_ORACLE}/{N_ORACLE} keys of every case")
 
 
 # --- the main path ----------------------------------------------------------
@@ -2270,19 +2299,25 @@ def phase_route_load_times(rows: dict, card: str) -> None:
               f"on {card}")
 
 
-#: SASS instructions of chain_remap_kernel (sm_90a, max_chain > 0: the
-#: compiler gives max_chain <= 0 a loop of its own), counted by hand in
-#: ``cuobjdump -sass`` of the build: ``CHAIN_KEY`` along the path of a key
-#: whose bucket is alive (the thread's prologue and its state loads, 19,
-#: since each thread takes one key; the grid-stride loop, the bucket load,
-#: the mask-word test and the store, 32), ``CHAIN_REMOVED`` more for a key
-#: whose bucket is removed (its key load, the reciprocal of n_total for the
-#: remainder, the fall-back test) and ``CHAIN_STEP`` per step of its walk
-#: (hash_iter's add and fmix32, the pair mix, the u32 remainder by n_total,
-#: the mask-word test, the loop test).
-CHAIN_KEY = 51
-CHAIN_REMOVED = 22
+#: SASS instructions of chain_remap_kernel (sm_90a, max_chain > 0),
+#: counted by hand in ``cuobjdump -sass`` of the build: ``CHAIN_KEY`` per
+#: key of a chunk's scan (325 a lane for its 8 keys of a full chunk: the
+#: chunk's head and its bucket loads, 48; the 8 keys' mask-word tests,
+#: stores and ballots, 265; the chunk's tail, 12), ``CHAIN_REMOVED`` more
+#: for a key whose bucket is removed (its ring entry written and its key's
+#: cp.async issued, 14; the entry taken at a refill, 25; its answer's
+#: store, 6) and ``CHAIN_STEP`` per step of its walk (hash_iter's add and
+#: fmix32, the pair mix, the fastmod, the mask-word test, the steps-left
+#: test).  The bound counts these, the work.  ``CHAIN_TRIP`` is the
+#: refill's bookkeeping a trip of one step (the top-up test, the ballot
+#: cursor, the copy wait, the loop): this design's overhead, not the work,
+#: so phase 4 adds it only to what this build issues.  The thread's
+#: prologue (the state loads, the fastmod magic) is once per thread, not
+#: per key, and is left out.
+CHAIN_KEY = 325 / 8
+CHAIN_REMOVED = 45
 CHAIN_STEP = 49
+CHAIN_TRIP = 64
 
 
 def phase_chain_times(rows: dict, card: str) -> None:
@@ -2294,16 +2329,23 @@ def phase_chain_times(rows: dict, card: str) -> None:
     key, and the 32-byte key sectors that hold a removed key, since only
     those keys are read; operations: ``CHAIN_KEY`` per key,
     ``CHAIN_REMOVED`` per removed key and ``CHAIN_STEP`` per step of this
-    data's walks, counted by the plain version's own walk) and the plain
-    version's time; the mean walk per key and per removed key and the mean
-    over warps of 32 consecutive keys of their longest walk (one thread per
-    key, so a warp issues its longest walk)."""
+    data's walks, counted by the plain version's own walk), what this build
+    issues (the bound's operations and ``CHAIN_TRIP`` a step), its time at
+    max_chain 0 (the scan alone) and 1, and the plain version's time.  The
+    walk: the mean per key and per removed key; the steps per lane of the
+    kernel's resident grid (what its warps issue: each lane walks queued
+    keys until the ring runs dry); and, for the first build's one thread
+    per key, the mean over warps of 32 consecutive keys of their longest
+    walk, and the steps per lane that layout issued (every warp its longest
+    walk, over the same resident grid)."""
     from repro_torch.core.bulk import ChainFleet, RouterSpec
     from repro_torch.core.registry import make_bulk
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
 
     rng = np.random.default_rng(7)
     keys = u32_tensor(rng, N_TIME).cuda()
+    grid = build.library().routing_chain_grid(N_TIME)
+    lanes = grid * 256
     for engine in ENGINES:
         kernels = make_bulk(engine).kernels
         spec = RouterSpec(engine, 1024)
@@ -2344,14 +2386,25 @@ def phase_chain_times(rows: dict, card: str) -> None:
                 / HBM_BYTES_S * 1e3
             t_ops = (CHAIN_KEY * N_TIME + CHAIN_REMOVED * hit + CHAIN_STEP * total_steps) \
                 / LANE_INSTR_S * 1e3
+            t_issued = t_ops + CHAIN_TRIP * total_steps / LANE_INSTR_S * 1e3
             b = dict(bound_ms=max(t_ops, t_bytes),
                      bound_by="operations" if t_ops >= t_bytes else "bytes")
+            # what the walk costs on the card: the scan alone (max_chain 0:
+            # removed keys take first_alive, nothing is queued), one step
+            by_max = {m: time_ms(lambda m=m: kernels.chain_remap(keys, base, chain.packed,
+                                                                  chain.state, m))
+                      for m in (0, 1)}
+            per_lane = total_steps / lanes
+            per_lane_one_thread = float(warp_max.sum()) * 32 / lanes
             by_share[f"{frac:.0%}"] = dict(
                 ms=remap_ms, plain_ms=plain_ms, two_pass_ms=med["chain"], route_ms=med["route"],
                 lookup_dyn_ms=lookup_ms, key_sector_share=key_sectors * 8 / N_TIME,
                 mean_steps=total_steps / N_TIME,
                 mean_steps_removed=total_steps / max(hit, 1), removed_share=hit / N_TIME,
-                warp_max_mean=float(warp_max.mean()), warp_max_max=int(warp_max.max()), **b)
+                steps_per_lane=per_lane, steps_per_lane_one_thread_per_key=per_lane_one_thread,
+                warp_max_mean=float(warp_max.mean()), warp_max_max=int(warp_max.max()),
+                t_ops_ms=t_ops, t_bytes_ms=t_bytes, issued_ms=t_issued,
+                max_chain0_ms=by_max[0], max_chain1_ms=by_max[1], **b)
             print(f"phase 4 chain[{engine}] {N_TIME} keys, 1000/1024 with {n_fail} failed "
                   f"({frac:.0%}): two-pass chain (lookup_dyn + chain_remap) {med['chain']:.4f} ms "
                   f"against route (table) {med['route']:.4f} ms in turns, chain/route "
@@ -2360,13 +2413,17 @@ def phase_chain_times(rows: dict, card: str) -> None:
                   f"{', '.join(f'{t:.4f}' for t in readings['route'])}); chain_remap alone "
                   f"{remap_ms:.4f} ms, lookup_dyn alone {lookup_ms:.4f} ms; walk: "
                   f"{hit / N_TIME:.2%} of keys removed, mean {total_steps / N_TIME:.4f} steps per "
-                  f"key ({total_steps / max(hit, 1):.3f} per removed key), per warp of 32 keys "
-                  f"the longest walk {float(warp_max.mean()):.3f} on average (at most "
+                  f"key ({total_steps / max(hit, 1):.3f} per removed key), {per_lane:.2f} steps "
+                  f"per lane of the resident grid ({grid} blocks of 256); one thread per key "
+                  f"would issue {per_lane_one_thread:.2f} per lane (per warp of 32 keys the "
+                  f"longest walk {float(warp_max.mean()):.3f} on average, at most "
                   f"{int(warp_max.max())}); bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
                   f"instructions {t_ops:.4f} ms, bytes {t_bytes:.4f} ms with "
                   f"{key_sectors * 8 / N_TIME:.2%} of the key sectors read), bound/time "
-                  f"{share(b['bound_ms'], remap_ms)}; plain version {plain_ms:.3f} ms; "
-                  f"on {card}")
+                  f"{share(b['bound_ms'], remap_ms)}; this build issues {t_issued:.4f} ms "
+                  f"with the refill's bookkeeping; chain_remap at max_chain 0 (the scan "
+                  f"alone) {by_max[0]:.4f} ms, at max_chain 1 {by_max[1]:.4f} ms; plain "
+                  f"version {plain_ms:.3f} ms; on {card}")
         base0 = by_share["0%"]
         for key, row in by_share.items():
             row.update(chain_storm_over_steady=row["two_pass_ms"] / base0["two_pass_ms"],
@@ -2431,11 +2488,13 @@ def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
                    rounds: int = 3) -> None:
     """This build against ``src_dir``'s, in turns (baseline, this, this,
     baseline) for ``rounds`` rounds, medians: every instance at 2^24 keys,
-    and the router call at the serve path's sizes, where a baseline without
+    ``chain_remap`` at each failed share of ``CHAIN_SHARES`` (both builds'
+    answers equal), and the router call at the serve path's sizes, where a baseline without
     ``routing_lookup_router`` builds the keys with torch (``router_keys``)
     before its lookup_vec.  Rows gain ``in_turns[<directory name>]``."""
     from repro_torch.configs import get_config
     from repro_torch.core.binomial_torch import router_keys
+    from repro_torch.core.bulk import ChainFleet
     from repro_torch.core.registry import make_bulk
     from repro_torch.kernels import build
 
@@ -2459,12 +2518,26 @@ def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
         if fused:
             cases["lookup_router", "ms"] = lambda: kernels.lookup_router(
                 tokens_big, 3, moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.router_hash_omega)
+        if hasattr(libs["baseline"], "routing_chain_remap"):
+            # the storm sweep's chain fleets: 2^24 keys at each failed share
+            for i, frac in enumerate(CHAIN_SHARES):
+                plane = chain_plane(engine, 1000, int(frac * 1000), 20 + i)
+                chain = ChainFleet.pack(plane.domain, 1024).to("cuda")
+                base = kernels.lookup_dyn(keys, chain.state[:1])
+                fn = (lambda chain=chain, base=base:
+                      kernels.chain_remap(keys, base, chain.packed, chain.state))
+                outs = in_turns(libs, {"baseline": fn, "this": fn}, lambda f: f(), 1)
+                if not torch.equal(outs["baseline"][0], outs["this"][0]):
+                    fail(f"chain_remap[{engine}] of {name} and of this build differ at "
+                         f"{frac:.0%} failed")
+                cases["chain_remap", f"{frac:.0%}_ms"] = fn
         for (kind, field), fn in cases.items():
             times = in_turns(libs, {"baseline": fn, "this": fn}, time_ms, rounds)
             med = {w: statistics.median(t) for w, t in times.items()}
             turns = rows[engine, kind].setdefault("in_turns", {}).setdefault(name, {})
             turns[field] = {"baseline": med["baseline"], "this": med["this"]}
-            label = kind + (f" n={VEC_N_HALF}" if field == "n1025_ms" else "")
+            label = kind + (f" n={VEC_N_HALF}" if field == "n1025_ms" else "") + (
+                f" {field[:-3]} failed" if kind == "chain_remap" else "")
             print(f"phase 4 baseline {name} {label}[{engine}] {N_TIME} keys, in turns x{rounds}: "
                   f"baseline {med['baseline']:.4f} ms, this build {med['this']:.4f} ms "
                   f"({med['baseline'] / med['this']:.3f}x); baseline "

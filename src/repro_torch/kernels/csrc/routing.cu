@@ -34,17 +34,19 @@
 //       src/repro/core/memento_jax.py:101-145 (memento_remap: a jnp
 //       lax.while_loop over the whole batch, no Pallas kernel), the port's
 //       own kernel: the second launch of the chain-mode two-pass path, after
-//       lookup_dyn_kernel.  One thread per key (see its note).
+//       lookup_dyn_kernel.  Each warp queues its chunks' removed keys and
+//       walks them with lane refill (see its note).
 //
-// What bounds them: instruction issue, never bytes (8 B/key moved, 12 for
-// ingest: 0.040-0.060 ms at 2^24 keys on the H100, against 0.11-0.34 ms of
-// kernel time).  The keys are hashes, so the lanes of a warp leave the
-// lookup loops at different trips, and a warp issues the union of its lanes'
-// paths.  With one thread per key (the first build's layout), at n = 1000 a
-// binomial warp runs 1.55 loop trips and block A/C's fold where its keys
-// need 1.02 trips, a jump warp 12.9 steps where its keys need 7.5, and
-// nearly every route warp the divert that a quarter of its lanes need
-// (chip_smoke.py phase 4 counts these for its data).  So every kernel
+// What bounds the lookups (route, ingest, lookup_dyn, lookup_vec):
+// instruction issue, never bytes (8 B/key moved, 12 for ingest: 0.040-0.060
+// ms at 2^24 keys on the H100, against 0.11-0.34 ms of kernel time).  The
+// keys are hashes, so the lanes of a warp leave the lookup loops at
+// different trips, and a warp issues the union of its lanes' paths.  With
+// one thread per key (the first build's layout), at n = 1000 a binomial
+// warp runs 1.55 loop trips and block A/C's fold where its keys need 1.02
+// trips, a jump warp 12.9 steps where its keys need 7.5, and nearly every
+// route warp the divert that a quarter of its lanes need (chip_smoke.py
+// phase 4 counts these for its data).  So every kernel
 // gives each warp a chunk of up to 32 x MAX_ITEMS keys (a grid of resident
 // blocks walks the chunks; SMs x blocks per SM comes from the occupancy
 // query) and keeps its lanes on the same work, through one loop per engine
@@ -564,80 +566,186 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
   }
 }
 
-// The rejection-chain remap, one thread per key over a grid-stride loop: a
-// key whose base bucket b is removed moves to
+// The rejection-chain remap: a key whose base bucket b is removed moves to
 // hash_pair(hash^(s+1)(key), b) % n_total at step s = 0, 1, ... until it
-// lands on an alive slot; after max_chain steps it takes first_alive.
-// The JAX package walks the whole batch in one while loop whose rounds end
-// when every lane has settled or at i = max_chain; a lane that settles stays
-// put, so each lane's answer depends only on its own walk and that shared
-// bound.  A per-lane walk of at most max_chain steps therefore gives the
-// whole-batch loop's answer bit for bit.
+// lands on an alive slot; after max_chain steps it takes first_alive.  It
+// replaces src/repro/core/memento_jax.py:101-145 (memento_remap), a
+// lax.while_loop over the whole batch whose rounds end when every lane has
+// settled or at i = max_chain.  A lane that settles stays put, so each key's
+// answer depends only on its own walk and that shared bound: walking the
+// keys one at a time, in any order and in any lane, gives the whole-batch
+// loop's answer bit for bit.
 //
 // The removed mask is read as the packed u32 words (bit b = slot b removed)
 // that FleetState and ChainFleet already hold, not as the JAX package's
-// (capacity,) bool array: 32 times fewer bytes (128 B for 1,024 slots, held
-// in L1 after the first warps), the operand the route kernels read, and
-// uploaded once per fleet event with the scalars.  Words past n_words read
-// as 0 (b < n_total <= capacity, so a real gather never goes past them).
-// n_total and first_alive are read from device memory (state[0], state[1])
-// by each thread, so a fleet event costs the host no synchronisation and no
-// launch argument is ever stale.  n_total >= 1 (a domain never empties its
-// slot space).  % n_total is a u32 remainder, not the table's Lemire
-// reduction.
+// (capacity,) bool array; words past n_words read as 0 (b < n_total <=
+// capacity, so a real gather never goes past them).  n_total and
+// first_alive are read from device memory (state[0], state[1]), so a fleet
+// event costs the host no synchronisation and no launch argument is ever
+// stale.  n_total >= 1 (a domain never empties its slot space).
+//
+// One thread per key (the first build) made a warp issue the longest of its
+// 32 walks: at a failed share f, the maximum of 32 geometric walk lengths
+// (5.4 steps at f = 1/2) where a removed key needs 1/(1-f) (2.0).  So a
+// resident grid of warps (shape_for) walks chunks of 32 x items keys, and
+// each warp
+// - scans a chunk: loads its buckets coalesced, stores every bucket at once
+//   (whole sectors: a removed key's base bucket stands until its walk ends)
+//   and appends each removed key to a ring in the warp's shared memory with
+//   one ballot per 32 keys: its position and bucket, and its key by a
+//   cp.async that the scan does not wait for.  A key is read only where its
+//   bucket is removed; with max_chain = 0 those lanes store first_alive and
+//   nothing is queued;
+// - walks the ring with lane refill: each lane holds one queued key and
+//   takes one step of it between refills; a lane whose walk ended stores
+//   its answer and takes the ring's next entry through a ballot cursor,
+//   waiting for the key copies only when it reaches the last scan's;
+// - scans its next chunk whenever fewer than CHAIN_LOW keys wait, so the
+//   ring carries across chunks and the lanes stay busy until the warp's
+//   last chunk: a warp issues about its keys' total steps / 32 trips and
+//   one tail of its longest walk, not one longest walk per 32 keys.
+// % n_total is Lemire's fastmod: M = 2^64 / n_total rounded up, computed
+// once per thread, and x % n_total = the high word of (M * x mod 2^64) *
+// n_total, exact for every u32 x and 1 <= n_total < 2^32 (n_total = 1 wraps
+// M to 0 and gives 0); two wide multiplies, no division.
 //
 // What bounds it, on chip_smoke.py phase 4's 1000 of 1024 slots: bytes, at
-// every failed share up to one half.  Each bucket is read and written (8 B a
-// key); a key is read only where its bucket is removed, so the key bytes grow
-// with the share of 32-byte sectors that hold a removed lane (none when
-// healthy, nine in ten at a quarter failed).  The instructions (a step is two
-// fmix32 mixers, the pair mix and a u32 remainder by a runtime divisor) stay
-// below the bytes but near them at one half.  The time follows neither: a
-// warp runs as many steps as its longest chain, so at a failed share f it is
-// set by the warp maximum of 32 geometric chain lengths, not by the mean of
-// 1/(1-f).  No chunking or queueing is done here: a simple, correct kernel
-// (chip_smoke.py phase 4 prints the mean and the per-warp maximum chain
-// beside its time).
-__device__ __forceinline__ bool removed_bit(const uint32_t* mask, int n_words, uint32_t b) {
+// every failed share up to one half (8 B a key, and the 32-byte key sectors
+// that hold a removed key: none healthy, nine in ten at a quarter failed);
+// the work's instructions (CHAIN_KEY, CHAIN_REMOVED and CHAIN_STEP in
+// chip_smoke.py, counted from this build's SASS) stay just below them at
+// one half.  Healthy the scan streams at about 0.7 of the bytes bound; each
+// failed share adds the removed keys' reads and walk steps to it, and at one
+// half the walk, with the refill's bookkeeping (CHAIN_TRIP), issues more
+// than the bytes take (phase 4 prints the time at max_chain 0 and 1 beside
+// the default, and what this build issues).
+constexpr int CHAIN_LOW = 64;             // scan while fewer keys wait
+constexpr int CHAIN_Q = CHAIN_LOW + SEG;  // the ring: what waits + one chunk
+
+// One warp's ring of removed keys: chunk position, key (copied in by
+// cp.async), bucket.  A queued key's position is c * SEG + e for offset e
+// of the warp's c-th chunk: a u32 while a warp has fewer than 2^24 chunks
+// (the launch checks).
+struct ChainRing {
+  uint32_t pos[CHAIN_Q];
+  uint32_t key[CHAIN_Q];
+  uint32_t bucket[CHAIN_Q];
+};
+
+__device__ __forceinline__ bool removed_bit(const uint32_t* __restrict__ mask, int n_words,
+                                            uint32_t b) {
   const uint32_t w = b >> 5;
   const uint32_t word = w < static_cast<uint32_t>(n_words) ? mask[w] : 0u;
   return ((word >> (b & 31u)) & 1u) != 0;
+}
+
+// x % d for the magic M = UINT64_MAX / d + 1: the high 64 bits of
+// (M * x mod 2^64) * d, from two 32 x 32 -> 64 products.
+__device__ __forceinline__ uint32_t fastmod(uint32_t x, uint64_t M, uint32_t d) {
+  const uint64_t low = M * x;
+  const uint64_t lo = static_cast<uint64_t>(static_cast<uint32_t>(low)) * d;
+  const uint64_t hi = static_cast<uint64_t>(static_cast<uint32_t>(low >> 32)) * d;
+  return static_cast<uint32_t>((hi + (lo >> 32)) >> 32);
 }
 
 __global__ void __launch_bounds__(THREADS)
 chain_remap_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ buckets,
                    const uint32_t* __restrict__ mask, int n_words,
                    const int32_t* __restrict__ state, int max_chain, int32_t* __restrict__ out,
-                   int64_t n) {
+                   int64_t n, int items) {
+  __shared__ ChainRing rings[WARPS];
+  ChainRing& r = rings[threadIdx.x >> 5];
   const uint32_t n_total = static_cast<uint32_t>(state[0]);
   const uint32_t first_alive = static_cast<uint32_t>(state[1]);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < n; i += stride) {
-    uint32_t b = buckets[i];
-    if (removed_bit(mask, n_words, b)) {
-      const uint32_t key = keys[i];
-      int s = 0;
-      for (; s < max_chain; ++s) {
-        b = hash_pair(mix32(key + static_cast<uint32_t>(s + 1) * GOLDEN32), b) % n_total;
-        if (!removed_bit(mask, n_words, b)) break;
+  const uint64_t M = ~0ull / n_total + 1ull;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = lanemask_lt();
+  const uint32_t key_dst = static_cast<uint32_t>(__cvta_generic_to_shared(r.key));
+  const int64_t seg = 32 * items;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * WARPS * seg;
+  const int64_t first = (static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * seg;
+  uint32_t scan = 0;         // the warp's next chunk: it starts at first + scan * stride
+  int head = 0, queued = 0;  // the ring's entries: head, head + 1, ... mod CHAIN_Q
+  int fresh = 0;             // the last `fresh` of them came from the last scan
+  bool live = false;         // this lane walks a key: output index, key + s * GOLDEN32,
+  int64_t at = 0;            // bucket, steps left
+  uint32_t kacc = 0, b = 0;
+  int left = 0;
+  while (true) {
+    // top up: scan chunks while fewer than CHAIN_LOW keys wait
+    for (int64_t base = first + scan * stride; queued < CHAIN_LOW && base < n;
+         base += stride, ++scan) {
+      const int count = static_cast<int>(n - base < seg ? n - base : seg);
+      uint32_t bk[MAX_ITEMS];
+#pragma unroll
+      for (int j = 0; j < MAX_ITEMS; ++j) {
+        const int e = j * 32 + lane;
+        bk[j] = e < count ? buckets[base + e] : 0u;
       }
-      if (s == max_chain) b = first_alive;
+      fresh = 0;
+#pragma unroll
+      for (int j = 0; j < MAX_ITEMS; ++j) {
+        if (j * 32 >= count) break;
+        const int e = j * 32 + lane;
+        const bool in = e < count;
+        const bool hit = in && removed_bit(mask, n_words, bk[j]);
+        // whole sectors: a removed key's base bucket stands until its walk
+        // ends (max_chain = 0: first_alive at once)
+        if (in) out[base + e] = static_cast<int32_t>(hit && max_chain == 0 ? first_alive : bk[j]);
+        const bool walk = hit && max_chain > 0;
+        const unsigned m = __ballot_sync(FULL, walk);
+        if (walk) {
+          int q = head + queued + fresh + __popc(m & below);
+          q = q >= CHAIN_Q ? q - CHAIN_Q : q;
+          r.pos[q] = scan * SEG + e;
+          r.bucket[q] = bk[j];
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(key_dst + 4u * q),
+                       "l"(keys + base + e)
+                       : "memory");
+        }
+        fresh += __popc(m);
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      queued += fresh;
     }
-    out[i] = static_cast<int32_t>(b);
+    // refill: idle lanes take the next entries in lane order, once the
+    // copies of their keys have landed (the last scan's only if needed)
+    const unsigned idle = __ballot_sync(FULL, !live);
+    const int taken = min(__popc(idle), queued);
+    if (taken > queued - fresh) {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      fresh = 0;
+    } else {
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    }
+    __syncwarp();
+    const int rank = __popc(idle & below);
+    if (!live && rank < taken) {
+      int q = head + rank;
+      q = q >= CHAIN_Q ? q - CHAIN_Q : q;
+      const uint32_t p = r.pos[q];
+      at = first + static_cast<int64_t>(p / SEG) * stride + p % SEG;
+      kacc = r.key[q];
+      b = r.bucket[q];
+      left = max_chain;
+      live = true;
+    }
+    head += taken;
+    head = head >= CHAIN_Q ? head - CHAIN_Q : head;
+    queued -= taken;
+    fresh = min(fresh, queued);
+    if (!__any_sync(FULL, live)) break;  // nothing queued, no chunk left
+    if (live) {  // one step
+      kacc += GOLDEN32;
+      b = fastmod(hash_pair(mix32(kacc), b), M, n_total);
+      const bool alive = !removed_bit(mask, n_words, b);
+      if (alive || --left == 0) {
+        out[at] = static_cast<int32_t>(alive ? b : first_alive);
+        live = false;
+      }
+    }
+    __syncwarp();  // the ring's slots just read are written again by the next scan
   }
-}
-
-int launch_chain_remap(const void* keys, const void* buckets, const void* mask, int n_words,
-                       const void* state, int max_chain, void* out, int64_t n,
-                       cudaStream_t stream) {
-  if (max_chain < 0) return -1;
-  const int64_t blocks = (n + THREADS - 1) / THREADS;
-  const int grid = static_cast<int>(blocks < (1 << 30) ? blocks : (1 << 30));
-  chain_remap_kernel<<<grid, THREADS, 0, stream>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(buckets),
-      static_cast<const uint32_t*>(mask), n_words, static_cast<const int32_t*>(state), max_chain,
-      static_cast<int32_t*>(out), n);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Keys per lane and chunk, and the grid: as many keys per lane (up to
@@ -664,6 +772,26 @@ Shape shape_for(Kernel kernel, int64_t n, int (&resident)[64]) {
   items = items < 1 ? 1 : (items > MAX_ITEMS ? MAX_ITEMS : items);
   const int64_t tiles = (n + THREADS * items - 1) / (THREADS * items);
   return {static_cast<int>(tiles < blocks ? tiles : blocks), static_cast<int>(items)};
+}
+
+Shape chain_shape(int64_t n) {
+  static int resident[64] = {};
+  return shape_for(chain_remap_kernel, n, resident);
+}
+
+int launch_chain_remap(const void* keys, const void* buckets, const void* mask, int n_words,
+                       const void* state, int max_chain, void* out, int64_t n,
+                       cudaStream_t stream) {
+  if (max_chain < 0) return -1;
+  const Shape shape = chain_shape(n);
+  // a queued key's position c * SEG + e is a u32: fewer than 2^24 chunks a warp
+  const int64_t stride = static_cast<int64_t>(shape.grid) * THREADS * shape.items;
+  if ((n + stride - 1) / stride >= (int64_t{1} << 24)) return -1;
+  chain_remap_kernel<<<shape.grid, THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(buckets),
+      static_cast<const uint32_t*>(mask), n_words, static_cast<const int32_t*>(state), max_chain,
+      static_cast<int32_t*>(out), n, shape.items);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Engine, class Source>
@@ -872,3 +1000,7 @@ extern "C" int routing_chain_remap(const void* keys, const void* buckets, const 
   return routing::launch_chain_remap(keys, buckets, mask, n_words, state, max_chain, out, n,
                                      static_cast<cudaStream_t>(stream));
 }
+
+// The chain remap's grid for n keys (the resident blocks, or fewer for a
+// small n), so a caller can reckon the keys and walk steps per lane.
+extern "C" int routing_chain_grid(long long n) { return routing::chain_shape(n).grid; }

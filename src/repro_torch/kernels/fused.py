@@ -33,9 +33,12 @@ TPU's Pallas kernels of ``repro.kernels.fused.make_fused_kernels``
                 (load.py:71-118; jnp in the reference, no Pallas kernel)
     chain_remap the rejection-chain remap of
                 ``repro.core.memento_jax.memento_remap`` (memento_jax.py:101-145;
-                a jnp while loop in the reference, no Pallas kernel), the
-                second launch of the chain-mode two-pass path after
-                ``lookup_dyn``
+                a jnp while loop over the whole batch in the reference, no
+                Pallas kernel), the second launch of the chain-mode
+                two-pass path after ``lookup_dyn``; each warp queues its
+                chunks' removed keys in shared memory and walks them with
+                lane refill, so a key's walk is its own and the batch
+                never waits for its longest
 
 Operands: keys and id halves are int32 tensors holding u32 bit patterns;
 the fleet operands are those of ``repro_torch.core.bulk.FleetState``

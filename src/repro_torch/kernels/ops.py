@@ -85,8 +85,10 @@ def route_chain_bulk(keys: torch.Tensor, chain: ChainFleet, spec: RouterSpec) ->
     ``max_chain`` travels in ``chain``).  Two launches: ``lookup_dyn`` over
     ``n_total = chain.state[0]`` writes the base buckets, then
     ``chain_remap`` walks the removed ones (the JAX package's two-pass
-    chain baseline; its cost follows the longest chain in each warp).
-    ``n_alive >= 1`` is the caller's precondition."""
+    chain baseline).  Each warp of the remap queues its removed keys and
+    walks them with lane refill, so its cost follows the total of the
+    walks, not the longest walk of each 32 keys.  ``n_alive >= 1`` is the
+    caller's precondition."""
     k = _kernels(spec)
     buckets = k.lookup_dyn(keys, chain.state[:1], spec.omega)
     return k.chain_remap(keys, buckets, chain.packed, chain.state, chain.max_chain)

@@ -6,7 +6,11 @@ bit for bit, at failure shares 0, 6, 25 and 50 % and capacities 64 and
 1024, at ``max_chain`` 0, 1, 2 and 4096; the packed-mask plain version of
 the kernel (``chain_remap_impl``) against it; and the two-pass chain path
 (``ops.route_chain_bulk``) on CPU tensors against the scalar domain, for
-both engines.  Integer outputs, so every comparison is exact.
+both engines.  Two properties the card's kernel rests on: its remainder
+(Lemire's fastmod, mirrored here in numpy) equals ``%``, and the remap of a
+key does not depend on the other keys of its batch or their order (its
+warps walk queued keys in whatever order their lanes free up).  Integer
+outputs, so every comparison is exact.
 """
 import numpy as np
 import pytest
@@ -193,3 +197,54 @@ def test_plain_walk_counts_its_steps(share):
         want.append(s)
     assert steps.dtype == torch.int64 and steps.tolist() == want
     assert bool((steps > 0).any()) == (share > 0)
+
+
+def _fastmod(x, d):
+    """The chain kernel's ``x % d`` (``fastmod`` in routing.cu) in numpy
+    uint64 arithmetic, which wraps as the card's does: M = UINT64_MAX // d
+    + 1, then the high 64 bits of (M * x mod 2^64) * d from two 32 x 32 ->
+    64-bit products."""
+    x = np.asarray(x, dtype=np.uint64)
+    d = np.array([d], dtype=np.uint64)
+    magic = np.array([2**64 - 1], dtype=np.uint64) // d + np.uint64(1)
+    low = magic * x
+    lo = (low & np.uint64(0xFFFFFFFF)) * d
+    hi = (low >> np.uint64(32)) * d
+    return (hi + (lo >> np.uint64(32))) >> np.uint64(32)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 1000, 1024, 65536, 2**31, 2**32 - 1])
+def test_fastmod_matches_remainder(d):
+    """Exact for every u32 dividend and every divisor 1 <= d < 2^32; at
+    d = 1 the magic wraps to 0 and gives 0."""
+    edges = np.array([0, d - 1, d, 2**32 - 1], dtype=np.uint64)
+    x = np.concatenate([edges, _keys(d % 1009, 1 << 16).astype(np.uint64)])
+    np.testing.assert_array_equal(_fastmod(x, d), x % np.uint64(d))
+
+
+@pytest.mark.parametrize("max_chain", [0, 1, 2, 4096])
+@pytest.mark.parametrize("share", [0.06, 0.25, 0.5, 0.9])
+def test_chain_remap_is_order_independent(share, max_chain):
+    """``chain_remap_impl`` of a permuted batch is the permuted result, and
+    of a batch split in two the joined result: each key's answer depends
+    only on its own walk and ``max_chain``, which is what lets the kernel's
+    lanes take queued keys in any order."""
+    n = 1021
+    port = MementoWrapper(lambda m: make("binomial32", m), n, max_chain=max_chain,
+                          chain_bits=32)
+    rng = np.random.default_rng(int(share * 100) + max_chain)
+    for b in rng.choice(n - 1, size=int(share * n), replace=False):
+        port.remove_bucket(int(b))
+    packed = torch.from_numpy(pack_removed_mask(port.removed, 1024).view(np.int32))
+    state = torch.tensor([port.n_total, port.first_alive()], dtype=torch.int32)
+    keys = torch.from_numpy(_keys(15 + max_chain).view(np.int32))
+    base = torch.from_numpy(rng.integers(0, n, size=N_KEYS).astype(np.int32))
+    whole = chain_remap_impl(keys, base, packed, state, max_chain)
+    assert bool((whole != base).any())
+    perm = torch.from_numpy(rng.permutation(N_KEYS))
+    assert torch.equal(chain_remap_impl(keys[perm], base[perm], packed, state, max_chain),
+                       whole[perm])
+    cut = 1337
+    parts = [chain_remap_impl(keys[s], base[s], packed, state, max_chain)
+             for s in (slice(None, cut), slice(cut, None))]
+    assert torch.equal(torch.cat(parts), whole)
