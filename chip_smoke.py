@@ -29,9 +29,11 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    the ragged sizes, and a 4,096-key sample against a scalar placement
    computed on the host from the ``FailureDomain``; the same at r = 9, 16
    and 32 (resolve's row path past its register columns); the
-   instrumented route ``route_load`` over the fleets at sample shifts 0, 3
-   and 6 and ragged sizes up to 2^20, from accumulators near 2^32, against
-   its plain version and ``route`` (capacity 65,536 takes its
+   instrumented route ``route_load`` over the fleets and capacities 4,096
+   and 4,097 (either side of its shared histogram) at sample shifts 0, 3
+   and 6 and ragged sizes up to a pass of its resident grid (one tile,
+   seven and fourteen tiles among them), from accumulators near 2^32,
+   against its plain version and ``route`` (capacity 65,536 takes its
    global-atomic instance); the chain-mode remap ``chain_remap`` over the
    seven fleets and 1000/1024 at 6, 50 and 90 % failed (chain-mode control
    planes), ``max_chain`` 0, 1, 2, 8 and 4096, at the ragged sizes, 2^20
@@ -107,9 +109,11 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    migration diff (``plan_migration``) at 2^24 keys, r = 3, on the fleet of
    1000 with 250 failed, each launch's share and its bound;
    ``BatchRouter.route_keys`` at 2^24 keys on the healthy fleet and with
-   250 failed (the storm/steady ratio); ``route_load`` at 2^24 keys, shifts
-   6 and 0, against ``route`` in turns (instrumented/bare), beside its
-   bound, its plain version and ``route`` + ``torch.bincount``;
+   250 failed (the storm/steady ratio); ``route_load`` at 2^24 and 2^20
+   keys, shifts 6 and 0, on that fleet and on 40000/65536 (its
+   global-atomic instance), against ``route`` in turns (instrumented/bare
+   and the extra us), beside its bound, its plain version and ``route`` +
+   ``torch.bincount`` at 2^24;
    ``place_keys`` at 2^20 keys, r = 16; and the storm cliff: the
    chain-mode two-pass path against ``route`` (table) at 2^24 keys in
    turns at 0, 6, 25 and 50 % failed, ``chain_remap`` alone beside its
@@ -120,9 +124,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
 build of the kernels with the same C interface: the parent commit's, or a
 variant of this one) and times it against this one in turns (baseline,
 this, this, baseline), three rounds: every instance at 2^24 keys,
-``chain_remap`` at each failed share of the storm sweep, and the router
-call at the serve path's sizes (a baseline without
-``routing_lookup_router`` builds its keys with torch).
+``chain_remap`` at each failed share of the storm sweep, ``route_load`` in
+each of phase 4's cells and the host time of a monitored 64-key
+``route_keys``, and the router call at the serve path's sizes (a baseline
+without ``routing_lookup_router`` builds its keys with torch).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -240,7 +245,7 @@ SASS_STATIC = {
     # resolve's row path (r > MAX_R), and the instrumented route with its
     # histogram in shared memory (capacity <= 4,096) and with global atomics
     ("binomial", "resolve_rows"): 800, ("jump", "resolve_rows"): 800,
-    ("binomial", "route_load"): 1480, ("jump", "route_load"): 1176,
+    ("binomial", "route_load"): 1848, ("jump", "route_load"): 1464,
     ("binomial", "route_load_global"): 1816, ("jump", "route_load_global"): 1072,
     # the chain-mode remap, one function for both engines
     ("binomial", "chain_remap"): 768, ("jump", "chain_remap"): 768,
@@ -694,8 +699,47 @@ def phase_placement_kernels(max_err: dict) -> None:
 #: sample shifts checked: every key, and the two strides
 LOAD_SHIFTS = (0, 3, 6)
 #: key counts of the route_load checks: ragged around a warp and a block's
-#: pass, and the acceptance batch
-LOAD_SIZES = (1, 31, 33, 4097, N_CHECK)
+#: pass, the acceptance batch, and the launch's edges at a small batch (one
+#: key a lane, so a tile is 256 keys): one tile, seven tiles and fourteen
+#: (the last ragged); ``load_sizes`` adds a full pass of the resident grid
+#: and one key past it
+LOAD_SIZES = (1, 31, 33, 256, 7 * 256, 13 * 256 + 5, 4097, N_CHECK)
+#: the shared-histogram threshold (routing.cu's SHARED_BINS), and the grids
+#: the small edges must launch (one block a tile)
+SHARED_BINS = 4096
+LOAD_EDGE_GRIDS = {256: 1, 7 * 256: 7, 13 * 256 + 5: 14}
+
+
+def load_grid(engine: str, n: int, capacity: int) -> int:
+    """route_load's grid for ``n`` keys at ``capacity``, from the library's
+    own launch shape."""
+    from repro_torch.kernels import build
+
+    grid = build.library().routing_route_load_grid(ENGINES.index(engine), n, capacity)
+    if grid < 1:
+        fail(f"route_load[{engine}]'s grid query failed ({grid})")
+    return grid
+
+
+def load_sizes(engine: str, capacity: int) -> tuple:
+    """``LOAD_SIZES``, then one full pass of the resident grid (every warp
+    one chunk of 256 keys) and one key past it (a warp takes a second
+    chunk)."""
+    keys = load_grid(engine, 1 << 40, capacity) * 256 * 8
+    return (*LOAD_SIZES, keys, keys + 1)
+
+
+def load_fleets(engine: str) -> dict:
+    """``fleets`` and the two sides of the shared-histogram threshold:
+    capacity 4,096, and 4,097 (no fleet has it, as a capacity is a power of
+    two: 4,097 bins of the 8,192-slot fleet's table and its mask words for
+    them, which route as the whole do, since n = 3000)."""
+    cases = fleets(engine)
+    cases["3000/4096 750 failed"] = make_fleet(engine, 3000, 4096, 750, 8)
+    plane, fleet = make_fleet(engine, 3000, 8192, 750, 8)
+    cases["3000/4097 750 failed"] = (plane, dataclasses.replace(
+        fleet, packed=fleet.packed[:(SHARED_BINS + 32) // 32], table=fleet.table[:SHARED_BINS + 1]))
+    return cases
 
 
 def near_wrap(rng, capacity: int) -> torch.Tensor:
@@ -713,26 +757,38 @@ def u32_err(got, want) -> int:
 
 
 def phase_route_load(max_err: dict) -> None:
-    """``route_load`` over the fleets of ``fleets`` (capacity 64 to 2,048,
-    and 65,536: above the shared-histogram threshold) at every shift of
-    ``LOAD_SHIFTS`` and size of ``LOAD_SIZES``, from an accumulator near
+    """``route_load`` over ``load_fleets`` (capacity 64 to 65,536, either
+    side of the shared-histogram threshold) at every shift of
+    ``LOAD_SHIFTS`` and size of ``load_sizes``, from an accumulator near
     2^32: its replica ids bit-exact with ``route`` and its plain version,
     its counts with the plain version's, one launch per call; a 4,096-key
-    sample against the scalar oracle."""
+    sample against the scalar oracle.  The small edge sizes must launch the
+    grids of ``LOAD_EDGE_GRIDS``."""
     from repro_torch.core.registry import make_bulk
 
     rng = np.random.default_rng(7)
-    keys = u32_tensor(rng, N_CHECK).cuda()
+    keys = u32_tensor(rng, 4 * N_CHECK).cuda()  # past the largest resident pass
     for engine in ENGINES:
         kernels = make_bulk(engine).kernels
+        grids = {n: load_grid(engine, n, 1024) for n in LOAD_EDGE_GRIDS}
+        if grids != LOAD_EDGE_GRIDS:
+            fail(f"route_load[{engine}]'s grids {grids} are not the edges checked: {LOAD_EDGE_GRIDS}")
+        print(f"phase 2 route_load[{engine}] grids at capacity 1024: " + ", ".join(
+            f"{n} keys {g} blocks" for n, g in grids.items()) + f"; a resident pass "
+              f"{load_sizes(engine, 1024)[-2]} keys ({load_grid(engine, 1 << 40, 1024)} blocks); "
+              f"capacity 65,536: {load_sizes(engine, 65536)[-2]} keys "
+              f"({load_grid(engine, 1 << 40, 65536)} blocks)")
         worst, calls, wrapped, oracle_ok = 0, 0, 0, 0
-        cases = fleets(engine)
+        cases = load_fleets(engine)
         for label, (plane, fleet) in cases.items():
             args = (fleet.packed, fleet.table, fleet.state)
-            bare = kernels.route(keys, *args)
+            sizes = load_sizes(engine, fleet.table.numel())
+            if max(sizes) > keys.numel():
+                fail(f"route_load[{engine}]'s resident pass ({max(sizes)} keys) outgrew the checks' keys")
+            bare = kernels.route(keys[:max(sizes)], *args)
             expect = np.asarray(oracle(engine, "route", plane, keys[:N_ORACLE], None))
             for shift in LOAD_SHIFTS:
-                for size in LOAD_SIZES:
+                for size in sizes:
                     k = keys[:size]
                     start = near_wrap(rng, fleet.table.numel())
                     want_reps, want = kernels.route_load_plain(k, *args, start, 16, shift)
@@ -752,11 +808,13 @@ def phase_route_load(max_err: dict) -> None:
                     if size == N_CHECK:
                         oracle_ok += int((reps[:N_ORACLE].cpu().numpy() == expect).all())
         max_err[engine, "route_load"] = worst
-        print(f"phase 2 route_load[{engine}]: {len(cases)} fleets (capacity 64 to 65,536) "
-              f"x shifts {LOAD_SHIFTS} x {', '.join(map(str, LOAD_SIZES))} keys from accumulators "
-              f"within 2^10 of 2^32: {calls} calls of one launch each, max |kernel - plain| = {worst} "
-              f"(replicas against route and the plain version, counts against the plain version), "
-              f"{wrapped} bins wrapped, scalar oracle agrees on {oracle_ok}/{len(cases) * len(LOAD_SHIFTS)}")
+        print(f"phase 2 route_load[{engine}]: {len(cases)} fleets (capacity 64 to 65,536, and 4,096 / "
+              f"4,097 either side of the shared histogram's {SHARED_BINS} bins) x shifts {LOAD_SHIFTS} x "
+              f"{', '.join(map(str, LOAD_SIZES))} keys and a resident pass (and one key more) from "
+              f"accumulators within 2^10 of 2^32: {calls} calls of one launch each, max |kernel - plain| "
+              f"= {worst} (replicas against route and the plain version, counts against the plain "
+              f"version), {wrapped} bins wrapped, scalar oracle agrees on "
+              f"{oracle_ok}/{len(cases) * len(LOAD_SHIFTS)}")
         if oracle_ok != len(cases) * len(LOAD_SHIFTS) or not wrapped:
             fail(f"route_load[{engine}] disagrees with the scalar oracle or never wrapped")
 
@@ -2234,13 +2292,50 @@ def phase_placement_times(rows: dict, card: str) -> None:
 WIDE_R_TIME = 16
 
 
+#: the route_load timings' fleets (n, capacity, failed, seed): phase 4's
+#: fleet (the shared-histogram instance) and the global-atomic one
+LOAD_TIME_FLEETS = {"1000/1024 250 failed": (1000, 1024, 250, 2),
+                    "40000/65536 10000 failed": (40000, 65536, 10000, 3)}
+#: the route_load timings' batches: phase 4's and the reference's gated one
+#: (DESIGN.md §15.4 gates instrumented/bare at 2^20 keys)
+LOAD_TIME_SIZES = (N_TIME, N_CHECK)
+
+
+def load_time(fn, size: int) -> float:
+    """Device ms per launch of a route or route_load call of ``size`` keys:
+    back-to-back launches at 2^24 keys; at smaller sizes, where a launch is
+    shorter than its host enqueue, launches queued behind a sleeping kernel."""
+    if size >= N_TIME:
+        return time_ms(fn)
+    ms, held = small_call_ms(fn)
+    if not held:
+        fail(f"route_load timing at {size} keys: the launches outlasted the sleep")
+    return ms
+
+
+def load_bound(engine, keys, fleet, shift: int) -> dict:
+    """route_load's bound: route's plus the count's own work, per counted key
+    its index test and its add (a block histogram's flush or reduction is a
+    design's, not the function's); bytes: the accumulator read and written
+    once beside route's keys and ids."""
+    route_b = bound(engine, "route", keys, fleet)
+    counted = (keys.numel() + (1 << shift) - 1) >> shift
+    t_ops = route_b["t_ops"] + 2 * counted / LANE_INSTR_S * 1e3
+    t_bytes = route_b["t_bytes"] + 8 * fleet.table.numel() / HBM_BYTES_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                counted=counted)
+
+
 def phase_route_load_times(rows: dict, card: str) -> None:
-    """At 2^24 keys on the fleet of 1000 in capacity 1024 with 250 failed:
-    ``route_load`` at shift 6 (the default above ``exact_cutoff``) and 0
-    beside ``route`` in turns, its bound, its plain version and the two-call
+    """``route_load`` against ``route`` in turns (route, route_load,
+    route_load, route) on each fleet of ``LOAD_TIME_FLEETS`` at each size of
+    ``LOAD_TIME_SIZES`` and shifts 6 (the default above ``exact_cutoff``)
+    and 0: instrumented/bare and the fixed cost (route_load - route, us);
+    at 2^24 keys also its bound, its plain version and the two-call
     composition ``route`` + ``torch.bincount`` (the library yardstick);
     ``place_keys`` at 2^20 keys, r = ``WIDE_R_TIME``.  Adds the
-    ``route_load`` rows."""
+    ``route_load`` rows: phase 4's fleet at 2^24 keys and shift 6, the other
+    cells under ``cells``."""
     from repro_torch.core.bulk import PlacementSpec
     from repro_torch.core.registry import make_bulk
     from repro_torch.kernels import ops
@@ -2249,41 +2344,43 @@ def phase_route_load_times(rows: dict, card: str) -> None:
     keys = u32_tensor(np.random.default_rng(2), N_TIME).cuda()
     for engine in ENGINES:
         kernels = make_bulk(engine).kernels
-        _, fleet = make_fleet(engine, 1000, 1024, 250, 2)
-        args = (fleet.packed, fleet.table, fleet.state)
-        cap = fleet.table.numel()
-        counts = torch.zeros(cap, dtype=torch.int32, device="cuda")
-        route_b = bound(engine, "route", keys, fleet)
-        row = {}
-        for shift in (6, 0):
-            # in turns: route, route_load, route_load, route
-            readings = {"route": [], "route_load": []}
-            for which in ("route", "route_load", "route_load", "route"):
-                fn = ((lambda: kernels.route(keys, *args)) if which == "route" else
-                      (lambda: kernels.route_load(keys, *args, counts, 16, shift)))
-                readings[which].append(time_ms(fn))
-            ms, bare = (statistics.median(readings[w]) for w in ("route_load", "route"))
-            plain_ms = time_ms(lambda: kernels.route_load_plain(keys, *args, counts, 16, shift), 1, 3)
-            lib_ms = time_ms(lambda: torch.bincount(
-                kernels.route(keys, *args)[:: 1 << shift], minlength=cap), 3, 5)
-            # route's bound plus the count's own work: per counted key its
-            # index test and its add (the block histogram's flush is this
-            # design's, not the function's); bytes: the accumulator read and
-            # written once beside route's keys and ids
-            counted = (N_TIME + (1 << shift) - 1) >> shift
-            t_ops = route_b["t_ops"] + 2 * counted / LANE_INSTR_S * 1e3
-            t_bytes = route_b["t_bytes"] + 8 * cap / HBM_BYTES_S * 1e3
-            b = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
-            row[shift] = dict(ms=ms, route_ms=bare, ratio=ms / bare, plain_ms=plain_ms,
-                              library_ms=lib_ms, **b)
-            print(f"phase 4 route_load[{engine}] {N_TIME} keys, shift {shift} ({counted} counted), 1000/1024 "
-                  f"with 250 failed: {ms:.4f} ms against route {bare:.4f} ms in turns, instrumented/bare "
-                  f"{ms / bare:.4f} (route_load {', '.join(f'{t:.4f}' for t in readings['route_load'])}; "
-                  f"route {', '.join(f'{t:.4f}' for t in readings['route'])}); bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']}), bound/time {share(b['bound_ms'], ms)}; route + torch.bincount "
-                  f"{lib_ms:.4f} ms; plain version {plain_ms:.3f} ms; on {card}")
-        rows[engine, "route_load"] = dict(row[6], library_call="route kernel + torch.bincount",
-                                          shift0=row[0], shift=6)
+        cells = {}
+        for label, (n, cap, n_fail, seed) in LOAD_TIME_FLEETS.items():
+            _, fleet = make_fleet(engine, n, cap, n_fail, seed)
+            args = (fleet.packed, fleet.table, fleet.state)
+            counts = torch.zeros(cap, dtype=torch.int32, device="cuda")
+            for size in LOAD_TIME_SIZES:
+                k = keys[:size]
+                for shift in (6, 0):
+                    readings = {"route": [], "route_load": []}
+                    for which in ("route", "route_load", "route_load", "route"):
+                        fn = ((lambda: kernels.route(k, *args)) if which == "route" else
+                              (lambda: kernels.route_load(k, *args, counts, 16, shift)))
+                        readings[which].append(load_time(fn, size))
+                    ms, bare = (statistics.median(readings[w]) for w in ("route_load", "route"))
+                    cell = dict(ms=ms, route_ms=bare, ratio=ms / bare, fixed_us=(ms - bare) * 1e3)
+                    extra = ""
+                    if size == N_TIME:
+                        b = load_bound(engine, k, fleet, shift)
+                        plain_ms = time_ms(lambda: kernels.route_load_plain(k, *args, counts, 16, shift),
+                                           1, 3)
+                        lib_ms = time_ms(lambda: torch.bincount(
+                            kernels.route(k, *args)[:: 1 << shift], minlength=cap), 3, 5)
+                        cell.update(plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b["bound_ms"],
+                                    bound_by=b["bound_by"])
+                        extra = (f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {b['counted']} "
+                                 f"counted), bound/time {share(b['bound_ms'], ms)}; route + "
+                                 f"torch.bincount {lib_ms:.4f} ms; plain version {plain_ms:.3f} ms")
+                    cells[f"{cap}_{size}_s{shift}"] = cell
+                    print(f"phase 4 route_load[{engine}] {size} keys, shift {shift}, {label} "
+                          f"({'shared histogram' if cap <= SHARED_BINS else 'global atomics'}): {ms:.4f} ms "
+                          f"against route {bare:.4f} ms in turns, instrumented/bare {ms / bare:.4f}, "
+                          f"fixed cost {(ms - bare) * 1e3:.2f} us (route_load "
+                          f"{', '.join(f'{t:.4f}' for t in readings['route_load'])}; route "
+                          f"{', '.join(f'{t:.4f}' for t in readings['route'])}){extra}; on {card}")
+        main, shift0 = cells[f"1024_{N_TIME}_s6"], cells[f"1024_{N_TIME}_s0"]
+        rows[engine, "route_load"] = dict(main, library_call="route kernel + torch.bincount",
+                                          shift0=shift0, shift=6, cells=cells)
         router = BatchRouter(1000, engine=engine, capacity=1024)
         for b in np.random.default_rng(2).choice(999, size=250, replace=False):
             router.fail(int(b))
@@ -2484,12 +2581,71 @@ def in_turns(libs: dict, cases: dict, measure, rounds: int) -> dict:
     return times
 
 
+def baseline_route_load(libs: dict, name: str, engine: str, keys, rows: dict, rounds: int) -> None:
+    """``route_load`` of this build against ``name``'s in turns on each cell of
+    phase 4's (``LOAD_TIME_FLEETS`` x ``LOAD_TIME_SIZES`` x shifts 6 and 0),
+    both builds' replica ids equal (and their counts, where they differ the
+    line says so: a design fork may drop a count); then the host time of a
+    64-key ``route_keys`` on a monitored ``BatchRouter`` (the streaming
+    path's dispatch, counted exactly: shift 0) under each build."""
+    from repro_torch.core.registry import make_bulk
+    from repro_torch.observability import LoadConfig, LoadMonitor
+    from repro_torch.serving.batch_router import BatchRouter
+
+    kernels = make_bulk(engine).kernels
+    turns = rows[engine, "route_load"].setdefault("in_turns", {}).setdefault(name, {})
+    for label, (n, cap, n_fail, seed) in LOAD_TIME_FLEETS.items():
+        _, fleet = make_fleet(engine, n, cap, n_fail, seed)
+        args = (fleet.packed, fleet.table, fleet.state)
+        counts = torch.zeros(cap, dtype=torch.int32, device="cuda")
+        for size in LOAD_TIME_SIZES:
+            k = keys[:size]
+            for shift in (6, 0):
+                def call(k=k, shift=shift):
+                    return kernels.route_load(k, *args, counts, 16, shift)
+
+                def fresh(k=k, shift=shift):
+                    return kernels.route_load(k, *args, torch.zeros_like(counts), 16, shift)
+
+                outs = in_turns(libs, {"baseline": fresh, "this": fresh}, lambda f: f(), 1)
+                (ids_b, counts_b), (ids_t, counts_t) = outs["baseline"][0], outs["this"][0]
+                if not torch.equal(ids_b, ids_t):
+                    fail(f"route_load[{engine}] of {name} and of this build route differently "
+                         f"({label}, {size} keys, shift {shift})")
+                times = in_turns(libs, {"baseline": call, "this": call},
+                                 lambda f, size=size: load_time(f, size), rounds)
+                med = {w: statistics.median(t) for w, t in times.items()}
+                turns[f"{cap}_{size}_s{shift}_ms"] = {"baseline": med["baseline"], "this": med["this"]}
+                print(f"phase 4 baseline {name} route_load[{engine}] {size} keys, shift {shift}, {label}, "
+                      f"in turns x{rounds}: baseline {med['baseline']:.4f} ms, this build "
+                      f"{med['this']:.4f} ms ({med['baseline'] / med['this']:.3f}x); counts "
+                      f"{'equal' if torch.equal(counts_b, counts_t) else 'DIFFER'}; baseline "
+                      f"{', '.join(f'{t:.4f}' for t in times['baseline'])}; this "
+                      f"{', '.join(f'{t:.4f}' for t in times['this'])}")
+    router = BatchRouter(1000, engine=engine, capacity=1024)
+    for b in np.random.default_rng(2).choice(999, size=250, replace=False):
+        router.fail(int(b))
+    LoadMonitor(router, config=LoadConfig(drain_every=1 << 30))
+    batch = keys[:64]
+    host = in_turns(libs, {"baseline": lambda: router.route_keys(batch),
+                           "this": lambda: router.route_keys(batch)},
+                    lambda f: host_ms(f, 2000), rounds)
+    med = {w: statistics.median(t) * 1e3 for w, t in host.items()}
+    turns["host_us_route_keys_64"] = {"baseline": med["baseline"], "this": med["this"]}
+    print(f"phase 4 baseline {name} route_load[{engine}] host per 64-key route_keys on a monitored "
+          f"BatchRouter(1000, capacity=1024), in turns x{rounds}: baseline {med['baseline']:.2f} us, "
+          f"this build {med['this']:.2f} us ({med['this'] / med['baseline']:.3f}x); baseline "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in host['baseline'])}; this "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in host['this'])}")
+
+
 def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
                    rounds: int = 3) -> None:
     """This build against ``src_dir``'s, in turns (baseline, this, this,
     baseline) for ``rounds`` rounds, medians: every instance at 2^24 keys,
     ``chain_remap`` at each failed share of ``CHAIN_SHARES`` (both builds'
-    answers equal), and the router call at the serve path's sizes, where a baseline without
+    answers equal), ``route_load`` as ``baseline_route_load`` says, and the
+    router call at the serve path's sizes, where a baseline without
     ``routing_lookup_router`` builds the keys with torch (``router_keys``)
     before its lookup_vec.  Rows gain ``in_turns[<directory name>]``."""
     from repro_torch.configs import get_config
@@ -2543,6 +2699,8 @@ def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
                   f"({med['baseline'] / med['this']:.3f}x); baseline "
                   f"{', '.join(f'{t:.4f}' for t in times['baseline'])}; this "
                   f"{', '.join(f'{t:.4f}' for t in times['this'])}")
+        if hasattr(libs["baseline"], "routing_route_load"):
+            baseline_route_load(libs, name, engine, keys, rows, rounds)
         for phase, by_engine in serve_calls.items():
             tokens, salt = by_engine[engine]
             k, n, omega = moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.router_hash_omega

@@ -28,7 +28,7 @@
 //   route_load_kernel<Engine, kShared> the instrumented route of
 //       src/repro/observability/load.py:71-118 (route_with_load_impl, jnp in
 //       the reference, one jitted dispatch): route_kernel's chunk loop with
-//       every settled replica also counted into a (capacity,) u32
+//       the sampled replicas also counted into a (capacity,) u32
 //       accumulator, in the same launch;
 //   chain_remap_kernel                the Memento rejection chain of
 //       src/repro/core/memento_jax.py:101-145 (memento_remap: a jnp
@@ -146,29 +146,37 @@ struct Keep {
 
 // What else happens to a settled replica b of flat index i, beside its store:
 // nothing (every kernel but route_load), or the load count's sample (i a
-// multiple of 2^shift, weight 2^shift, wrapping as u32): into the block's
-// histogram in shared memory, or straight into the (capacity,) accumulator.
-// b < n_total <= capacity; an id past the accumulator is not counted.
+// multiple of 2^shift, weight 2^shift, wrapping as u32), in one of two ways.
+// GlobalCount adds each sampled key to the (capacity,) accumulator from
+// inside the lookup loop (kPerKey).  SharedCount keeps every key's replica
+// in the warp's w.out (kKeeps), and the warp adds the chunk's sampled keys
+// to the block's histogram in shared memory after the chunk (count_chunk):
+// counted inside the loop, a key paid an index test and a branch, and
+// binomial 61 registers against route's 48, ~15 us at 2^24 keys on the H100
+// (PERF.md §5).  b < n_total <= capacity; an id past the accumulator is not
+// counted.
 struct NoCount {
-  static constexpr bool kCounts = false;
-  __device__ __forceinline__ void add(int64_t, uint32_t) const {}
+  static constexpr bool kPerKey = false;
+  static constexpr bool kKeeps = false;
 };
 
 struct SharedCount {
-  static constexpr bool kCounts = true;
-  uint32_t hist;   // the block's bins: their shared-memory address
+  static constexpr bool kPerKey = false;
+  static constexpr bool kKeeps = true;
+  uint32_t hist;  // the block's bins: their shared-memory address
   uint32_t cap;
-  uint32_t smask;  // 2^shift - 1 (shift <= 31, so the index's low word decides)
-  uint32_t weight;
-  __device__ __forceinline__ void add(int64_t i, uint32_t b) const {
-    if ((static_cast<uint32_t>(i) & smask) == 0 && b < cap) {
-      asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(hist + 4u * b), "r"(weight) : "memory");
+  int shift;
+  __device__ __forceinline__ void add(uint32_t b) const {
+    if (b < cap) {
+      asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(hist + 4u * b), "r"(1u << shift)
+                   : "memory");
     }
   }
 };
 
 struct GlobalCount {
-  static constexpr bool kCounts = true;
+  static constexpr bool kPerKey = true;
+  static constexpr bool kKeeps = false;
   uint32_t* counts;
   uint32_t cap;
   uint32_t smask;
@@ -181,7 +189,8 @@ struct GlobalCount {
 // Binomial over one warp's chunk of `count` keys (base .. base + count - 1):
 // every key whose first-trip candidate settles it is written at once; the
 // keys whose loop goes on (front) and the removed buckets (back) are queued
-// with one ballot each and finished densely by the warp afterwards.
+// with one ballot each and finished densely by the warp afterwards.  A
+// count that keeps (C::kKeeps) also leaves each key's replica in w.out.
 template <class Source, class D, class C = NoCount>
 __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const Lookup& p,
                                int32_t* __restrict__ out, int64_t base, int count,
@@ -219,8 +228,11 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     }
     const bool hit = in && !more && d.removed(c);
     if (in && !more && !hit) out[base + e] = static_cast<int32_t>(c);
-    if constexpr (C::kCounts) {
+    if constexpr (C::kPerKey) {
       if (in && !more && !hit) cnt.add(base + e, c);
+    }
+    if constexpr (C::kKeeps) {
+      if (in) w.out[e] = c;  // the queue loop below rewrites the keys it settles
     }
     const unsigned mf = __ballot_sync(FULL, more);
     if (more) {
@@ -246,7 +258,8 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     uint32_t b = goes_on ? Binomial::rest(key, p.n, p.E, p.M, p.omega) : w.out[e];
     if (!goes_on || d.removed(b)) b = d.redirect(key, b);
     out[base + e] = static_cast<int32_t>(b);
-    if constexpr (C::kCounts) cnt.add(base + e, b);
+    if constexpr (C::kPerKey) cnt.add(base + e, b);
+    if constexpr (C::kKeeps) w.out[e] = b;
   }
   __syncwarp();
 }
@@ -312,7 +325,8 @@ __device__ void jump_chains(WarpArea& w, int count, uint32_t n, int omega) {
 
 // Jump over one warp's chunk: stage the keys (coalesced), run the chains,
 // write the buckets back (coalesced), removed ones queued and diverted
-// densely.
+// densely.  A count that keeps (C::kKeeps) also leaves each key's replica in
+// w.out.
 template <class Source, class D, class C = NoCount>
 __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Lookup& p,
                            int32_t* __restrict__ out, int64_t base, int count,
@@ -337,7 +351,7 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       const uint32_t b = in ? w.out[e] : 0u;
       const bool hit = in && d.removed(b);
       if (in && !hit) out[base + e] = static_cast<int32_t>(b);
-      if constexpr (C::kCounts) {
+      if constexpr (C::kPerKey) {
         if (in && !hit) cnt.add(base + e, b);
       }
       const unsigned m = __ballot_sync(FULL, hit);
@@ -347,16 +361,34 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
     __syncwarp();
     for (int q = lane; q < hits; q += 32) {
       const int e = w.queue[q];
-      if constexpr (C::kCounts) {
+      if constexpr (C::kPerKey || C::kKeeps) {
         const uint32_t b = d.redirect(w.key[e], w.out[e]);
         out[base + e] = static_cast<int32_t>(b);
-        cnt.add(base + e, b);
+        if constexpr (C::kPerKey) cnt.add(base + e, b);
+        if constexpr (C::kKeeps) w.out[e] = b;
       } else {
         out[base + e] = static_cast<int32_t>(d.redirect(w.key[e], w.out[e]));
       }
     }
   } else {
     for (int e = lane; e < count; e += 32) out[base + e] = static_cast<int32_t>(w.out[e]);
+  }
+  __syncwarp();
+}
+
+// The count of a routed chunk (C::kKeeps): its sampled indices base + e
+// (multiples of 2^shift, e < count: at shift 6 at most 4 of a chunk's 256)
+// are known from base, so the warp's lanes add just those replicas, read
+// from w.out.  The __syncwarp() keeps w.out until every lane has read it.
+template <class C>
+__device__ __forceinline__ void count_chunk(const WarpArea& w, const C& cnt, int64_t base,
+                                            int count) {
+  const uint32_t first = (0u - static_cast<uint32_t>(base)) & ((1u << cnt.shift) - 1u);
+  const int sampled = first < static_cast<uint32_t>(count)
+                          ? static_cast<int>(((count - 1 - first) >> cnt.shift) + 1)
+                          : 0;
+  for (int k = threadIdx.x & 31; k < sampled; k += 32) {
+    cnt.add(w.out[first + (static_cast<uint32_t>(k) << cnt.shift)]);
   }
   __syncwarp();
 }
@@ -376,6 +408,7 @@ __device__ __forceinline__ void chunks(WarpArea& w, const Source& src, const D& 
     } else {
       jump_chunk(w, src, d, p, out, base, count, cnt);
     }
+    if constexpr (C::kKeeps) count_chunk(w, cnt, base, count);
   }
 }
 
@@ -390,14 +423,16 @@ route_kernel(Source src, Fleet fleet, const int32_t* __restrict__ state, int ome
                  fold(n_total, omega), out, n, items);
 }
 
-// The instrumented route: route_kernel's loop over u32 keys, each settled
-// replica also counted (SharedCount / GlobalCount say which).  With kShared
+// The instrumented route: route_kernel's loop over u32 keys, the sampled
+// replicas also counted (SharedCount / GlobalCount say how).  With kShared
 // (capacity <= SHARED_BINS) a block counts into its own histogram in shared
 // memory and, once every warp has left the chunk loop (a warp with no chunk
 // reaches the barrier at once), adds its nonzero bins to `counts` with one
 // global atomic each; above SHARED_BINS the histogram would cost occupancy
 // (the WarpAreas already take 18 KB a block), so every counted key is one
-// global atomic.  Unsigned adds wrap as the reference's u32 sums do.
+// global atomic, added from inside the loop (GlobalCount): counted after
+// each chunk instead, it ran slower in 7 of chip_smoke.py's 8 timed cells
+// (PERF.md §6).  Unsigned adds wrap as the reference's u32 sums do.
 constexpr int SHARED_BINS = 4096;  // 16 KB of u32 bins
 
 template <class Engine, bool kShared>
@@ -416,8 +451,8 @@ route_load_kernel(KeySource src, Fleet fleet, const int32_t* __restrict__ state,
     for (uint32_t b = threadIdx.x; b < cap; b += THREADS) hist[b] = 0u;
     __syncthreads();
     chunks<Engine>(area[threadIdx.x >> 5], src, d, fold(n_total, omega), out, n, items,
-                   SharedCount{static_cast<uint32_t>(__cvta_generic_to_shared(hist)), cap, smask,
-                               weight});
+                   SharedCount{static_cast<uint32_t>(__cvta_generic_to_shared(hist)), cap,
+                               shift});
     __syncthreads();
     for (uint32_t b = threadIdx.x; b < cap; b += THREADS) {
       const uint32_t v = hist[b];
@@ -808,11 +843,16 @@ int launch_route(Source src, const void* mask, int n_words, const void* slots, i
 }
 
 template <class Engine, bool kShared>
+Shape route_load_shape(int64_t n) {
+  static int resident[64] = {};
+  return shape_for(route_load_kernel<Engine, kShared>, n, resident);
+}
+
+template <class Engine, bool kShared>
 int launch_route_load_as(KeySource src, const Fleet& fleet, const void* state, int omega,
                          void* out, int64_t n, void* counts, uint32_t cap, int shift,
                          cudaStream_t stream) {
-  static int resident[64] = {};
-  const Shape shape = shape_for(route_load_kernel<Engine, kShared>, n, resident);
+  const Shape shape = route_load_shape<Engine, kShared>(n);
   route_load_kernel<Engine, kShared><<<shape.grid, THREADS, 0, stream>>>(
       src, fleet, static_cast<const int32_t*>(state), omega, static_cast<int32_t*>(out), n,
       shape.items, static_cast<uint32_t*>(counts), cap, shift);
@@ -961,6 +1001,22 @@ extern "C" int routing_route_load(int engine, const void* keys, const void* mask
                                                out, n, counts, capacity, shift, s);
     case 1: return launch_route_load<Jump>(src, mask, n_words, slots, n_slots, state, omega, out,
                                            n, counts, capacity, shift, s);
+    default: return -1;
+  }
+}
+
+// route_load's grid for n keys at this capacity (the resident blocks, or
+// fewer for a small n), so a caller can size a pass of the resident grid;
+// -1 for an unknown engine.
+extern "C" int routing_route_load_grid(int engine, long long n, int capacity) {
+  using namespace routing;
+  const bool shared = capacity <= SHARED_BINS;
+  switch (engine) {
+    case 0:
+      return (shared ? route_load_shape<Binomial, true>(n) : route_load_shape<Binomial, false>(n))
+          .grid;
+    case 1:
+      return (shared ? route_load_shape<Jump, true>(n) : route_load_shape<Jump, false>(n)).grid;
     default: return -1;
   }
 }

@@ -7,13 +7,13 @@ traffic (DESIGN.md §15).  Three pieces:
 * ``route_with_load_impl`` — the instrumented route's plain version: the
   engine's fused route PLUS a per-shard bincount of the replica vector into
   a capacity-length u32 accumulator.  On the card the two are one launch
-  (``RoutingKernels.route_load``: the route kernel's chunk loop counting
-  every settled replica into a block histogram in shared memory, or with
-  global atomics above 4,096 bins), as the reference folds them into one
-  jitted dispatch.  At serving batch sizes every key is counted; at bulk
-  sizes the pass counts a deterministic 1/2^``sample_shift`` stride sample
-  at weight ``2^sample_shift``, so exact and sampled batches mix coherently
-  in one accumulator (``LoadConfig.exact_cutoff``).
+  (``RoutingKernels.route_load``: the route kernel's chunk loop, each
+  routed chunk's sampled replicas then counted into a block histogram in
+  shared memory, or with global atomics above 4,096 bins), as the
+  reference folds them into one jitted dispatch.  At serving batch sizes every key is
+  counted; at bulk sizes the pass counts a deterministic 1/2^``sample_shift``
+  stride sample at weight ``2^sample_shift``, so exact and sampled batches
+  mix coherently in one accumulator (``LoadConfig.exact_cutoff``).
 
 * ``LoadMonitor`` — the host control plane: attaches to a ``BatchRouter``
   (``router.attach_load_monitor``), holds one ``(capacity,)`` int32 device

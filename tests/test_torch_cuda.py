@@ -364,8 +364,33 @@ def test_placement_tier_on_card_matches_cpu(cuda, engine, r):
 
 
 #: (n, capacity, failed) of the route_load cases: below the shared-histogram
-#: threshold (4,096 bins) and above it
-LOAD_FLEETS = ((1000, 1024, 250), (3, 64, 0), (6000, 8192, 1500), (40000, 65536, 10000))
+#: threshold (4,096 bins), at it, one bin past it, and above it
+LOAD_FLEETS = ((1000, 1024, 250), (3, 64, 0), (3000, 4096, 750), (3000, 4097, 750),
+               (6000, 8192, 1500), (40000, 65536, 10000))
+
+
+def _load_fleet(engine, n, capacity, n_fail, seed):
+    """The fleet's (packed, table, state) for route_load.  A capacity that is
+    not a power of two (no fleet has one) takes the first ``capacity``
+    bins of the next power of two's table and the mask words for them; with
+    ``n`` below it they route as the whole table does."""
+    size = 1 << (capacity - 1).bit_length()
+    f = _fleet(engine, n, size, n_fail, seed)
+    return f.packed[:(capacity + 31) // 32], f.table[:capacity], f.state
+
+
+def _check_route_load(k, keys, fl, capacity, shift, rng):
+    """One route_load call against its plain version and route, from an
+    accumulator near 2^32: ids and counts bit-exact, one launch, in place."""
+    start = (2**32 - rng.integers(1, 1024, capacity)).astype(np.uint32)
+    counts = torch.from_numpy(start.view(np.int32)).to(keys.device)
+    want_reps, want = k.route_load_plain(keys, *fl, counts, sample_shift=shift)
+    before = k.launches["route_load"]
+    reps, got = k.route_load(keys, *fl, counts, sample_shift=shift)
+    assert got is counts and k.launches["route_load"] == before + 1
+    assert torch.equal(reps, k.route(keys, *fl))
+    assert torch.equal(reps, want_reps.to(torch.int32))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shift", [0, 6])
@@ -377,19 +402,48 @@ def test_route_load_matches_plain(cuda, engine, shift):
     k = BULK_ENGINES[engine].kernels
     rng = np.random.default_rng(shift)
     for fleet in LOAD_FLEETS:
-        f = _fleet(engine, *fleet, seed=fleet[2] + 3)
-        fl = (f.packed, f.table, f.state)
+        fl = _load_fleet(engine, *fleet, seed=fleet[2] + 3)
         for size in (1, 33, 4097, 1 << 18):
-            keys = _u32(size, size, cuda)
-            start = (2**32 - rng.integers(1, 1024, fleet[1])).astype(np.uint32)
-            counts = torch.from_numpy(start.view(np.int32)).to(cuda)
-            want_reps, want = k.route_load_plain(keys, *fl, counts, sample_shift=shift)
-            before = k.launches["route_load"]
-            reps, got = k.route_load(keys, *fl, counts, sample_shift=shift)
-            assert got is counts and k.launches["route_load"] == before + 1
-            assert torch.equal(reps, k.route(keys, *fl))
-            assert torch.equal(reps, want_reps.to(torch.int32))
-            assert torch.equal(got, want)
+            _check_route_load(k, _u32(size, size, cuda), fl, fleet[1], shift, rng)
+
+
+def _load_grid(engine, n, capacity):
+    """route_load's grid (blocks) for n keys at this capacity."""
+    from repro_torch.kernels import build
+
+    return build.library().routing_route_load_grid(BULK_ENGINES[engine].kernels.engine_id, n,
+                                                   capacity)
+
+
+#: the shared-histogram launch's edges: (keys, the grid it must launch); a
+#: tile is 256 keys at one key a lane, and "pass" is a full pass of the
+#: resident grid (every warp one chunk of 256 keys)
+LOAD_EDGES = {
+    "one_tile": (256, 1),
+    "seven_tiles": (7 * 256, 7),
+    "fourteen_tiles_ragged": (13 * 256 + 5, 14),
+    "resident_pass": ("pass", None),
+    "resident_pass_and_one": ("pass+1", None),
+}
+
+
+@pytest.mark.parametrize("edge", sorted(LOAD_EDGES))
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_route_load_launch_edges(cuda, engine, shift, edge):
+    """The shared-histogram instance at its launch's edges, on the fleet of
+    1000 in capacity 1024 with 250 failed: one tile (one block), seven
+    tiles, fourteen with a ragged last one, a full pass of the resident grid
+    (every warp one chunk) and one key past it (a warp takes a second
+    chunk); bit-exact with the plain version and route."""
+    k = BULK_ENGINES[engine].kernels
+    size, grid = LOAD_EDGES[edge]
+    if isinstance(size, str):
+        grid = _load_grid(engine, 1 << 40, 1024)
+        size = grid * 256 * 8 + (size == "pass+1")
+    assert _load_grid(engine, size, 1024) == grid
+    fl = _load_fleet(engine, 1000, 1024, 250, seed=253)
+    _check_route_load(k, _u32(size, size, cuda), fl, 1024, shift, np.random.default_rng(size))
 
 
 @pytest.mark.parametrize("engine", sorted(BULK_ENGINES))

@@ -187,11 +187,15 @@ def _near_wrap(rng, capacity):
     return (np.uint64(1 << 32) - rng.integers(1, 1 << 10, capacity).astype(np.uint64)).astype(np.uint32)
 
 
-#: (capacity, sample shift): every shift at 64 and 1024 slots; at 65,536
-#: slots the reference's route takes ~30 s to compile per shift, so the
-#: default sampled shift only (``test_count_on_both_sides_of_the_onehot_switch``
+#: (capacity, sample shift): every shift at 64 and 1024 slots; at 4,096 and
+#: 8,192 slots (the last capacity under the card kernel's shared-histogram
+#: threshold of 4,096 bins and the first power of two above it: a fleet's
+#: capacity is a power of two) and at 65,536 the default sampled shift
+#: only, as the reference's route compile grows with the capacity (~30 s
+#: per shift at 65,536; ``test_count_on_both_sides_of_the_onehot_switch``
 #: covers the count at that capacity)
-LOAD_CASES = [(64, 0), (64, 3), (64, 6), (1024, 0), (1024, 3), (1024, 6), (65536, 6)]
+LOAD_CASES = [(64, 0), (64, 3), (64, 6), (1024, 0), (1024, 3), (1024, 6), (4096, 6), (8192, 6),
+              (65536, 6)]
 
 
 @pytest.mark.parametrize("capacity,shift", LOAD_CASES)
