@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card: the routing
 datapath and its chain-mode two-pass path, the hash-routed MoE serving
-path (Qwen3-235B-A22B and DeepSeek-V3), the R-way replicated placement
-tier with its fleet lifecycle, and the streaming front end with its live
-load telemetry.
+path (Qwen3-235B-A22B and DeepSeek-V3), the other LM families at full
+width and depth (RecurrentGemma-9B, Mamba2-1.3B, Starcoder2-7B,
+MusicGen-medium, Qwen2-VL-7B), the R-way replicated placement tier with
+its fleet lifecycle, and the streaming front end with its live load
+telemetry.
 
     python3 chip_smoke.py
 
@@ -41,8 +43,8 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    two and three passes of the resident grid), against its plain version
    (one launch per call), and with its ``lookup_dyn`` first pass against
    the scalar chain oracle;
-3. the six main paths, each with the kernels' launch counts set to 0
-   just before it and read just after:
+3. the main paths, each with the kernels' launch counts set to 0 just
+   before it and read just after:
    - the routing datapath: ``BatchRouter`` on the card, both engines, fused
      and two-pass: ``route_keys`` (CUDA tensor and numpy), ``route_ids``,
      ``route_batch`` and fleet events, bit-exact with a router running the
@@ -77,6 +79,27 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      (lookup_router = 2 MoE layers x (1 + new tokens) x groups), and one
      profiled call; before it a reduced DeepSeek-V3 on the card against
      the CPU;
+   - "serve families", one model at a time, each one's weights released
+     before the next: the reduced model on the card against the CPU
+     (token families through ``ServingTier`` with prompts of 24, past the
+     reduced window of 16 and over three SSD chunks of 8; the embeds
+     backbones through prefill and three decode steps); then the
+     published config at full width and depth in bf16, random weights:
+     RecurrentGemma-9B (RG-LRU, sliding-window attention; 38 layers,
+     20.9 GB), Mamba2-1.3B (SSD, tied embeddings) and Starcoder2-7B
+     (sliding window) through ``ServingTier`` with the serve traffic per
+     engine (every request answered, only replica 1's sessions moved,
+     route launched twice, lookup_router never; RecurrentGemma's first
+     engine also profiled), then MusicGen-medium (sinusoidal positions)
+     and Qwen2-VL-7B (M-RoPE) from seeded embeddings; for each, 2
+     sequences of a long prompt (2,560 for RecurrentGemma and Mamba2,
+     4,608 for Starcoder2: past their windows into the ring caches; 512
+     for the embeds backbones) then 8 decode steps, each step's logits
+     against a forward pass over the longer sequence (the reference's
+     decode-matches-forward check): in bf16 within ``FAMILY_BF16_TOL``
+     (relative L2), then with the weights cast to float32 within the
+     reference's 2e-3; the decode steps timed beside the floor of the
+     bytes each reads;
    - placement, per engine: ``BatchRouter(1000, capacity=1024)``, a
      ``LifecycleManager`` on a ``ManualClock``, ``StorePlacement(r=3)`` with
      2^20 registered keys and a ``PlacementRepairer``; 2 replicas fall
@@ -1146,15 +1169,19 @@ class RouteLog:
 
 
 def hash_routed(cfg, engine: str):
+    """``cfg`` with its MoE layers on the hash router of ``engine`` (a dense
+    model is returned as it is)."""
+    if cfg.moe is None:
+        return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, router="hash", router_hash_engine=engine, router_hash_omega=16))
 
 
-def make_requests(vocab: int, seed: int):
+def make_requests(vocab: int, seed: int, prompt: int = SERVE_PROMPT):
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(seed)
-    return [Request(f"session-{i}", rng.integers(0, vocab, size=SERVE_PROMPT).astype(np.int32),
+    return [Request(f"session-{i}", rng.integers(0, vocab, size=prompt).astype(np.int32),
                     SERVE_NEW) for i in range(SERVE_REQUESTS)]
 
 
@@ -1167,11 +1194,11 @@ def check_answers(tag, out, reqs, vocab: int) -> None:
             fail(f"{tag}: {r.session_id} got {row!r}")
 
 
-def check_small_model(arch: str) -> None:
-    """The reduced hash-routed model of ``arch`` served on the card
-    (float32) against the same tier on the CPU, which runs the plain
-    versions: the same tokens, and prefill logits within
-    ``SMALL_LOGIT_TOL``."""
+def check_small_model(arch: str, prompt: int = SERVE_PROMPT) -> None:
+    """The reduced (hash-routed, where it has MoE layers) model of ``arch``
+    served on the card (float32) against the same tier on the CPU, which
+    runs the plain versions, with prompts of ``prompt`` tokens: the same
+    tokens, and prefill logits within ``SMALL_LOGIT_TOL``."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingTier
@@ -1180,19 +1207,20 @@ def check_small_model(arch: str) -> None:
     for engine in ENGINES:
         cfg = hash_routed(reduced_config(arch), engine)
         params = M.init_params(torch.Generator().manual_seed(0), cfg)
-        reqs = make_requests(cfg.vocab_size, 7)
-        tiers = [ServingTier(cfg, p, SERVE_REPLICAS, max_len=SERVE_PROMPT + SERVE_NEW + 2,
-                             engine=engine, device=d)
+        reqs = make_requests(cfg.vocab_size, 7, prompt)
+        max_len = prompt + SERVE_NEW + 2
+        tiers = [ServingTier(cfg, p, SERVE_REPLICAS, max_len=max_len, engine=engine, device=d)
                  for p, d in ((M.params_to(params, "cuda"), "cuda"), (params, "cpu"))]
         outs = [t.serve(reqs) for t in tiers]
         check_answers(f"reduced serve[{engine}]", outs[0], reqs, cfg.padded_vocab)
         same = all(np.array_equal(outs[0][r.session_id], outs[1][r.session_id]) for r in reqs)
         prompts = torch.from_numpy(np.stack([r.prompt for r in reqs]))
-        logits = [M.prefill(t.replicas[0].params, {"tokens": prompts.to(t.device)}, cfg, 18)[1].cpu()
-                  for t in tiers]
+        logits = [M.prefill(t.replicas[0].params, {"tokens": prompts.to(t.device)}, cfg,
+                            max_len)[1].cpu() for t in tiers]
         err = float((logits[0] - logits[1]).abs().max())
-        print(f"phase 3 reduced serve {arch}[{engine}] ({cfg.num_layers} layers, d_model "
-              f"{cfg.d_model}, {cfg.attention}, float32): card vs CPU tokens "
+        print(f"phase 3 reduced serve {arch}[{engine}] ({cfg.num_layers} layers "
+              f"{'/'.join(sorted(set(cfg.layer_kinds())))}, d_model {cfg.d_model}, "
+              f"{cfg.attention}, window {cfg.window}, prompts of {prompt}, float32): card vs CPU tokens "
               f"{'identical' if same else 'DIFFER'}, max |logit diff| {err:.3g} (tolerance "
               f"{SMALL_LOGIT_TOL})")
         if not same or not err <= SMALL_LOGIT_TOL:
@@ -1321,23 +1349,22 @@ def init_full_width(base, card: str, what: str, reckoned: str):
     torch.cuda.synchronize()
     init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     held = tree_bytes(params)
-    # a step (prefill or decode) reads each layer's weights, the final norm
-    # and the unembedding once; the expert products run over all experts
-    step_floor_ms = (held - tree_bytes(params["embed"]["embedding"])) / HBM_BYTES_S * 1e3
+    step_floor_ms = floor_bytes(base, params) / HBM_BYTES_S * 1e3
     print(f"phase 3 {what}: random weights in {init_s:.2f} s; parameters {held / 1e9:.3f} GB "
           f"(reckoned: {reckoned}); init peak {init_peak / 1e9:.3f} GB on {card}")
     return params, held, step_floor_ms
 
 
 def serve_engines(tag: str, base, params, held: int, step_floor_ms: float, card: str,
-                  extra=None) -> tuple[dict, dict]:
+                  extra=None, profiled=ENGINES) -> tuple[dict, dict]:
     """``ServingTier`` over ``params`` with the hash router, per engine:
     ``SERVE_REQUESTS`` requests before and after replica ``SERVE_FAIL``
     fails, the launch counts set to 0 just before and read just after;
     every request answered, only the failed replica's sessions moved,
     ``lookup_router`` launched MoE layers x (1 + new tokens) x groups times
     with every expert id equal to the plain lookup's, route twice; then
-    ``extra(cfg, engine)`` and one profiled call.  -> (launches, the
+    ``extra(cfg, engine)`` and, for the engines in ``profiled``, one
+    profiled call.  -> (launches, the
     largest router call's token ids and layer salt, by phase and engine)."""
     from repro_torch.core.registry import BULK_ENGINES
     from repro_torch.serving.engine import ServingTier
@@ -1408,11 +1435,13 @@ def serve_engines(tag: str, base, params, held: int, step_floor_ms: float, card:
               + ", ".join(f"{w * 1e3:.1f} ms ({tokens_out / w:.1f} new tokens/s; {n} model steps, "
                           f"{w * 1e3 / n:.2f} ms per step)" for w, n in zip(walls, steps))
               + f" [first call, then after the failure]; floor per step {step_floor_ms:.2f} ms "
-              f"(every weight but the embedding table read once at {HBM_BYTES_S / 1e12} TB/s); "
+              f"(every weight read once, the input embedding table only where it is the "
+              f"unembedding, at {HBM_BYTES_S / 1e12} TB/s); "
               f"peak memory {peak / 1e9:.3f} GB (parameters {held / 1e9:.3f} GB) on {card}")
         if extra is not None:
             extra(cfg, engine)
-        profile_serve(f"{tag}[{engine}]", tier, reqs, steps[-1], step_floor_ms, card)
+        if engine in profiled:
+            profile_serve(f"{tag}[{engine}]", tier, reqs, steps[-1], step_floor_ms, card)
     return launches, calls_seen
 
 
@@ -1495,6 +1524,242 @@ def phase_serve_dsv3(card: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# --- the rest of the LM families ---------------------------------------------
+
+#: the families the serve phases had not run: the token-input ones served
+#: through ServingTier (RecurrentGemma-9B first: the slice's headline
+#: model), then the embeds-input backbones driven through prefill and
+#: decode_step, each at its published widths and depth, bf16, random
+#: weights from a seeded generator
+FAMILY_SERVED = ("recurrentgemma-9b", "mamba2-1.3b", "starcoder2-7b")
+FAMILY_EMBEDS = ("musicgen-medium", "qwen2-vl-7b")
+#: parameter bytes reckoned from the JAX package's published configs
+#: (``jax.eval_shape`` over its ``init_params``)
+FAMILY_RECKONED_GB = {"recurrentgemma-9b": 20.891, "mamba2-1.3b": 2.689,
+                      "starcoder2-7b": 14.802, "musicgen-medium": 2.732, "qwen2-vl-7b": 15.232}
+#: the long prompt of each family: past RecurrentGemma's window of 2,048 and
+#: Starcoder2's of 4,096 (the ring caches), ten SSD chunks of 256 for Mamba2;
+#: the embeds backbones (full causal attention) at 512
+FAMILY_PROMPT = {"recurrentgemma-9b": 2560, "starcoder2-7b": 4608, "mamba2-1.3b": 2560,
+                 "musicgen-medium": 512, "qwen2-vl-7b": 512}
+FAMILY_SEQS, FAMILY_DECODE = 2, 8
+#: decode against the forward pass, two gates.  In float32 (the weights
+#: cast, tensor by tensor, after the bf16 serve) the reference's own: every
+#: logit within 2e-3 (``tests/test_models_smoke.py``).  In bf16, as served:
+#: the largest relative L2 error of a step's logits, ||decode - forward|| /
+#: ||forward||, within 0.1.  The floor of bf16 is what two prefills of the
+#: same positions give, one over 8 positions more (and, for the SSD, other
+#: chunks): this check's step 0 reads 0.041 (RecurrentGemma) and 0.052
+#: (Mamba2) on an H100 at 700 W; 0.1 is twice that, and a wrong cache
+#: slot, window edge or carried state moves the logits by O(1)
+FAMILY_F32_TOL = 2e-3
+FAMILY_BF16_TOL = 0.1
+#: the reduced token-input families are served with prompts past the
+#: reduced window of 16 (the ring) and three SSD chunks of 8
+FAMILY_SMALL_PROMPT = 24
+
+
+def forward_logits(params, batch, cfg, last: int) -> torch.Tensor:
+    """One pass over the whole batch (prefill's layer loop, its caches
+    dropped) -> logits (B, last, V) at the last ``last`` positions: the
+    reference's decode-matches-forward check reads the forward pass so."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.models.layers.common import apply_norm, unembed
+
+    x, positions, token_ids = M._embed_inputs(params, batch, cfg)
+    S = x.shape[1]
+    for salt, (kind, p) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+        x, _, _ = B.block_prefill(p, kind, x, positions, token_ids, salt, cfg, S)
+    return unembed(params["embed"], apply_norm(params["final_norm"], x[:, -last:], cfg), cfg)
+
+
+def family_inputs(cfg, n: int, seed: int) -> dict:
+    """Seeded inputs of ``n`` positions on the card: token ids, or
+    embeddings of the token embeddings' scale (and, for M-RoPE, a
+    vision-like prefix of height/width streams, then text positions)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    if cfg.input_mode == "tokens":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (FAMILY_SEQS, n), generator=gen,
+                                        device="cuda")}
+    batch = {"embeds": (0.02 * torch.randn(FAMILY_SEQS, n, cfg.d_model, generator=gen,
+                                           device="cuda")).to(torch.bfloat16)}
+    if cfg.input_mode == "embeds_mrope":
+        t = torch.arange(n, dtype=torch.int32, device="cuda")
+        img = t < n // 2  # a 16-wide patch grid over the first half, then text
+        pos = torch.stack([torch.where(img, t // 64, t), torch.where(img, t // 16, t),
+                           torch.where(img, t % 16, t)])
+        batch["positions"] = pos[:, None].expand(3, FAMILY_SEQS, n).contiguous()
+    return batch
+
+
+def floor_bytes(cfg, params) -> int:
+    """The bytes one model step reads: each layer's weights, the final norm
+    and the unembedding once (the expert products run over all experts).
+    The input table is read a row per token, unless it is tied to the
+    unembedding, which reads it whole."""
+    table = 0 if cfg.tie_embeddings else tree_bytes(params["embed"]["embedding"])
+    return tree_bytes(params) - table
+
+
+def to_float32(tree):
+    """Cast every tensor of ``tree`` to float32 in place, one at a time, so
+    that each one's bf16 copy is released as its float32 copy is made."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            to_float32(v)
+        else:
+            tree[k] = v.float()
+
+
+def decode_against_forward(arch: str, cfg, params, card: str) -> dict:
+    """``FAMILY_SEQS`` sequences of ``FAMILY_PROMPT[arch]`` positions
+    prefilled, then ``FAMILY_DECODE`` decode steps fed the next positions'
+    inputs; prefill's and each step's logits against a forward pass over
+    all the positions; the decode steps timed beside the floor of the
+    bytes each reads (the weights and the caches). -> the relative L2 error
+    per step and the largest absolute one."""
+    from repro_torch.models import model as M
+
+    L, n = FAMILY_PROMPT[arch], FAMILY_DECODE
+    data = family_inputs(cfg, L + n, seed=31)
+    pre = {k: (v[:, :, :L] if k == "positions" else v[:, :L]) for k, v in data.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = M.prefill(params, pre, cfg, L + n + 1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache_bytes = tree_bytes(cache["layers"])
+    steps = [logits]
+    key = "tokens" if cfg.input_mode == "tokens" else "embeds"
+    t0 = time.perf_counter()
+    for t in range(L, L + n):
+        cache, logits = M.decode_step(params, cache, {key: data[key][:, t:t + 1]}, cfg)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n
+    fwd_cfg = cfg
+    if cfg.ssm is not None and (L + n) % min(cfg.ssm.chunk, L + n):
+        # the SSD pass needs whole chunks: the forward pass takes the largest
+        # chunk that divides its length (the SSD's result does not depend on
+        # the chunk; its rounding does)
+        chunk = max(d for d in range(1, cfg.ssm.chunk + 1) if (L + n) % d == 0)
+        fwd_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+    want = forward_logits(params, data, fwd_cfg, n + 1).float()
+    got = torch.stack(steps, dim=1).float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{arch} long prompt: logits {tuple(got.shape)} against {tuple(want.shape)}, finite "
+             f"{bool(torch.isfinite(got).all())}")
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).amax(0).tolist()  # per step
+    max_abs = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    windowed = [c for c in cache["layers"] if "pos" in c and c["pos"].shape[1] < L]
+    ring = (f"ring caches of {windowed[0]['pos'].shape[1]} slots in {len(windowed)} layers"
+            if windowed else "no ring cache")
+    floor_ms = (floor_bytes(cfg, params) + cache_bytes) / HBM_BYTES_S * 1e3
+    print(f"phase 3 {arch} long prompt, {cfg.dtype}: {FAMILY_SEQS} x {L} positions"
+          + (f" (forward pass SSD chunk {fwd_cfg.ssm.chunk})" if fwd_cfg is not cfg else "")
+          + f", {ring}; prefill {prefill_ms:.1f} ms; {n} decode steps {decode_ms:.2f} ms each "
+          f"({FAMILY_SEQS / decode_ms * 1e3:.1f} new tokens/s; floor {floor_ms:.2f} ms: the "
+          f"weights and {cache_bytes / 1e6:.1f} MB of caches at {HBM_BYTES_S / 1e12} TB/s); "
+          f"against the forward pass, prefill then each step, relative L2 "
+          + ", ".join(f"{r:.3g}" for r in rel)
+          + f"; max |diff| {max_abs:.3g} of max |logit| {float(want.abs().max()):.3f}; greedy "
+          f"agreement {agree:.3f} on {card}")
+    return {"rel": rel, "max_abs": max_abs}
+
+
+def check_small_embeds(arch: str) -> None:
+    """The reduced embeds-input model of ``arch`` on the card (float32)
+    against the CPU: prefill of 24 positions and three decode steps,
+    logits within ``SMALL_LOGIT_TOL``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(8)
+    embeds = torch.from_numpy(rng.standard_normal((3, 27, cfg.d_model)).astype(np.float32))
+    batch = {"embeds": embeds[:, :24]}
+    if cfg.input_mode == "embeds_mrope":
+        t = torch.arange(24, dtype=torch.int32)
+        batch["positions"] = torch.stack([t, t // 2, t % 3])[:, None].expand(3, 3, 24).contiguous()
+    runs = []
+    for p, dev in ((M.params_to(params, "cuda"), "cuda"), (params, "cpu")):
+        cache, logits = M.prefill(p, {k: v.to(dev) for k, v in batch.items()}, cfg, 28)
+        steps = [logits.cpu()]
+        for t in range(24, 27):
+            cache, logits = M.decode_step(p, cache, {"embeds": embeds[:, t:t + 1].to(dev)}, cfg)
+            steps.append(logits.cpu())
+        runs.append(torch.stack(steps))
+    err = float((runs[0] - runs[1]).abs().max())
+    print(f"phase 3 reduced {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.input_mode}, {cfg.pos_emb}, float32): prefill and 3 decode steps, card vs CPU "
+          f"max |logit diff| {err:.3g} (tolerance {SMALL_LOGIT_TOL})")
+    if not err <= SMALL_LOGIT_TOL:
+        fail(f"the reduced {arch} on the card disagrees with the CPU")
+
+
+def phase_serve_families(card: str) -> dict:
+    """The families the earlier serve phases left out, one model at a
+    time, each one's weights released before the next: the reduced model
+    on the card against the CPU; then at full width and depth ServingTier
+    with the serve traffic
+    per engine (token-input families; RecurrentGemma profiled once), and
+    the long-prompt decode against the forward pass in bf16 and, the
+    weights cast, in float32.  -> launches by family and engine."""
+    from repro_torch.configs import get_config
+
+    launches = {}
+    for arch in FAMILY_SERVED + FAMILY_EMBEDS:
+        clock = [time.perf_counter()]
+
+        def lap():
+            clock.append(time.perf_counter())
+            return f"{clock[-1] - clock[-2]:.1f}"
+
+        if arch in FAMILY_SERVED:
+            check_small_model(arch, FAMILY_SMALL_PROMPT)
+        else:
+            check_small_embeds(arch)
+        laps = {"reduced": lap()}
+        base = get_config(arch)
+        kinds = {k: base.layer_kinds().count(k) for k in sorted(set(base.layer_kinds()))}
+        params, held, step_floor_ms = init_full_width(
+            base, card,
+            f"{arch} at its published widths (d_model {base.d_model}, layers {json.dumps(kinds)}, "
+            f"window {base.window}, {base.input_mode} inputs, {base.pos_emb} positions, vocab "
+            f"{base.vocab_size} padded to {base.padded_vocab}), {base.dtype}, all "
+            f"{base.num_layers} layers",
+            f"{FAMILY_RECKONED_GB[arch]} GB")
+        laps["init"] = lap()
+        if arch in FAMILY_SERVED:
+            launches[arch], _ = serve_engines(
+                f"serve {arch}", base, params, held, step_floor_ms, card,
+                profiled=ENGINES[:1] if arch == FAMILY_SERVED[0] else ())
+            check_full_width_logits(base, params)
+            laps["serve"] = lap()
+        bf16 = decode_against_forward(arch, base, params, card)
+        laps["long bf16"] = lap()
+        to_float32(params)
+        f32 = decode_against_forward(
+            arch, dataclasses.replace(base, dtype="float32", param_dtype="float32"), params, card)
+        laps["long float32"] = lap()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 3 {arch}: decode against the forward pass, bf16 largest relative L2 "
+              f"{max(bf16['rel']):.4f} (tolerance {FAMILY_BF16_TOL}), float32 largest |diff| "
+              f"{f32['max_abs']:.3g} (tolerance {FAMILY_F32_TOL}); seconds "
+              + json.dumps(laps) + f", {clock[-1] - clock[0]:.1f} in all")
+        if not max(bf16["rel"]) <= FAMILY_BF16_TOL or not f32["max_abs"] <= FAMILY_F32_TOL:
+            fail(f"{arch}: decode departs from the forward pass (bf16 relative L2 "
+                 f"{max(bf16['rel']):.4f}, float32 |diff| {f32['max_abs']:.3g})")
     return launches
 
 
@@ -2778,6 +3043,8 @@ def main() -> int:
     dsv3_launches = phase_serve_dsv3(card)
     by_path["serve_dsv3"] = {(e, k): n for e, counts in dsv3_launches.items()
                              for k, n in counts.items()}
+    for arch, counts in phase_serve_families(card).items():
+        by_path[f"serve_{arch}"] = {(e, k): n for e, c in counts.items() for k, n in c.items()}
     place_launches, place_host = phase_placement()
     by_path["placement"] = {(e, k): n for e, counts in place_launches.items() for k, n in counts.items()}
     stream_launches, stream_numbers = phase_streaming()

@@ -1,7 +1,8 @@
 """Config registry: the 10 assigned architectures + the paper benchmark
 config, copied from the JAX package's ``repro.configs``.  The port's model
-runs the ``attn`` and ``attn_moe`` blocks of the GQA architectures; the
-others stay as data (``repro_torch.models`` raises on what it lacks)."""
+builds, prefills and decodes all ten (GQA and MLA attention, full or
+sliding-window; RG-LRU and SSD mixers; token, embeds and M-RoPE inputs);
+``ServingTier`` serves the eight token-input ones."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (  # noqa: F401

@@ -5,7 +5,12 @@ on the CUDA device unless ``--device`` names another.
         --replicas 3 --requests 24 --fail-replica 1 [--device cpu]
 
 The model is the architecture's ``reduced_config``, with random parameters
-drawn from a generator seeded with 0.
+drawn from a generator seeded with 0.  Every token-input architecture
+serves: the GQA and MLA transformers (full or sliding-window attention,
+dense or MoE), RecurrentGemma (RG-LRU) and Mamba2 (SSD).  The embeds-input
+backbones (musicgen-medium, qwen2-vl-7b) take embeddings, not prompts of
+token ids; they run through ``repro_torch.models.model``'s ``prefill`` and
+``decode_step`` with an ``embeds`` batch.
 """
 from __future__ import annotations
 
@@ -32,8 +37,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = reduced_config(args.arch)
+    if cfg.input_mode != "tokens":
+        ap.error(f"{args.arch} takes {cfg.input_mode} inputs; the serving tier serves token prompts")
+    device = resolve_device(args.device)
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg)
     tier = ServingTier(
         cfg, params, args.replicas, max_len=args.prompt_len + args.new_tokens + 2, device=device

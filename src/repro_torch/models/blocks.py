@@ -1,9 +1,13 @@
-"""Decoder blocks — the counterparts of ``repro.models.blocks`` for the
-kinds ``attn`` (pre-norm attention + pre-norm MLP) and ``attn_moe``
-(pre-norm attention + pre-norm MoE); the attention is GQA or, with
+"""Decoder blocks — the counterparts of ``repro.models.blocks``:
+
+    attn      — pre-norm attention + pre-norm MLP
+    attn_moe  — pre-norm attention + pre-norm MoE
+    rec       — pre-norm RG-LRU + pre-norm MLP (RecurrentGemma)
+    ssd       — pre-norm Mamba-2 SSD mixer only
+
+The attention is GQA (full causal or sliding-window) or, with
 ``cfg.attention == "mla"``, Multi-head Latent Attention with its latent
-cache.  ``rec`` (RG-LRU) and ``ssd`` (Mamba-2) are not ported yet and
-raise.
+cache.  Every decode updates its layer's cache in place.
 
 ``build_segments`` is the reference's grouping of layers into scanned
 segments; the port runs its layers in a Python loop and uses the segments
@@ -22,16 +26,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
+from repro_torch.models.layers import rglru as rglru_mod
+from repro_torch.models.layers import ssd as ssd_mod
 from repro_torch.models.layers.common import (
     apply_mlp,
     apply_norm,
     init_mlp,
     init_norm,
-    not_ported,
     torch_dtype,
 )
-
-KINDS = ("attn", "attn_moe")
 
 
 @dataclass(frozen=True)
@@ -70,24 +73,30 @@ def build_segments(cfg: ArchConfig) -> list[Segment]:
     return segs
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in KINDS:
-        raise not_ported(f"the {kind!r} block (RG-LRU, SSD)")
+ATTN_KINDS = ("attn", "attn_moe")
+KINDS = (*ATTN_KINDS, "rec", "ssd")
 
 
 def init_block(gen, kind: str, cfg: ArchConfig) -> dict:
-    _check_kind(kind)
-    attn_mod.check_supported(cfg)
     p = {"norm1": init_norm(cfg, cfg.d_model, gen.device)}
-    if cfg.attention == "mla":
-        p["mixer"] = mla_mod.init_mla(gen, cfg)
-    else:
-        p["mixer"] = attn_mod.init_attention(gen, cfg)
-    p["norm2"] = init_norm(cfg, cfg.d_model, gen.device)
-    if kind == "attn_moe":
-        p["moe"] = moe_mod.init_moe(gen, cfg)
-    else:
+    if kind in ATTN_KINDS:
+        if cfg.attention == "mla":
+            p["mixer"] = mla_mod.init_mla(gen, cfg)
+        else:
+            p["mixer"] = attn_mod.init_attention(gen, cfg)
+        p["norm2"] = init_norm(cfg, cfg.d_model, gen.device)
+        if kind == "attn_moe":
+            p["moe"] = moe_mod.init_moe(gen, cfg)
+        else:
+            p["mlp"] = init_mlp(gen, cfg)
+    elif kind == "rec":
+        p["mixer"] = rglru_mod.init_rglru(gen, cfg)
+        p["norm2"] = init_norm(cfg, cfg.d_model, gen.device)
         p["mlp"] = init_mlp(gen, cfg)
+    elif kind == "ssd":
+        p["mixer"] = ssd_mod.init_ssd(gen, cfg)
+    else:
+        raise ValueError(kind)
     return p
 
 
@@ -100,33 +109,60 @@ def _ffn(p, kind, x, token_ids, salt, cfg: ArchConfig):
 
 def block_prefill(p, kind, x, positions, token_ids, salt: int, cfg: ArchConfig, cache_len: int):
     """-> (x, cache, aux)"""
-    _check_kind(kind)
-    prefill = mla_mod.mla_prefill if cfg.attention == "mla" else attn_mod.attention_prefill
-    mix, cache = prefill(p["mixer"], apply_norm(p["norm1"], x, cfg), positions, cfg, cache_len)
+    h = apply_norm(p["norm1"], x, cfg)
+    if kind in ATTN_KINDS:
+        prefill = mla_mod.mla_prefill if cfg.attention == "mla" else attn_mod.attention_prefill
+        mix, cache = prefill(p["mixer"], h, positions, cfg, cache_len)
+    elif kind == "rec":
+        mix, cache = rglru_mod.rglru_scan(p["mixer"], h, cfg)
+    else:
+        mix, cache = ssd_mod.ssd_scan(p["mixer"], h, cfg)
     x = x + mix
+    if kind == "ssd":
+        return x, cache, torch.zeros((), device=x.device)
     y, aux = _ffn(p, kind, x, token_ids, salt, cfg)
     return x + y, cache, aux
 
 
 def block_decode(p, kind, x, pos: int, cache, token_ids, salt: int, cfg: ArchConfig):
     """x (B,1,D) -> (x, cache), the cache updated in place."""
-    _check_kind(kind)
-    decode = mla_mod.mla_decode if cfg.attention == "mla" else attn_mod.attention_decode
-    mix, cache = decode(p["mixer"], apply_norm(p["norm1"], x, cfg), pos, cache, cfg)
+    h = apply_norm(p["norm1"], x, cfg)
+    if kind in ATTN_KINDS:
+        decode = mla_mod.mla_decode if cfg.attention == "mla" else attn_mod.attention_decode
+        mix, cache = decode(p["mixer"], h, pos, cache, cfg)
+    elif kind == "rec":
+        mix, cache = rglru_mod.rglru_decode(p["mixer"], h, cache, cfg)
+    else:
+        mix, cache = ssd_mod.ssd_decode(p["mixer"], h, cache, cfg)
     x = x + mix
+    if kind == "ssd":
+        return x, cache
     y, _ = _ffn(p, kind, x, token_ids, salt, cfg)
     return x + y, cache
 
 
 def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
     """Empty cache for one block: k/v (B,T,G,hd) zeros, pos (B,T) -1; MLA:
-    ckv (B,T,r) and kr (B,T,dr) zeros, pos (B,T) -1."""
-    _check_kind(kind)
-    attn_mod.check_supported(cfg)
+    ckv (B,T,r) and kr (B,T,dr) zeros, pos (B,T) -1; rec: h (B,W) f32 and
+    conv (B,cw-1,W) zeros; ssd: state (B,H,hd,N) f32 and conv
+    (B,cw-1,conv_dim) zeros."""
+    dt = torch_dtype(cfg.dtype)
+    if kind == "rec":
+        W, cw = cfg.rglru.lru_width or cfg.d_model, cfg.rglru.conv_width
+        return {
+            "h": torch.zeros(batch, W, dtype=torch.float32, device=device),
+            "conv": torch.zeros(batch, cw - 1, W, dtype=dt, device=device),
+        }
+    if kind == "ssd":
+        d_inner, H, G, N, hd = ssd_mod.dims(cfg)
+        return {
+            "state": torch.zeros(batch, H, hd, N, dtype=torch.float32, device=device),
+            "conv": torch.zeros(batch, cfg.ssm.conv_width - 1, d_inner + 2 * G * N, dtype=dt,
+                                device=device),
+        }
     if cfg.attention == "mla":
         return mla_mod.init_mla_cache(cfg, batch, cache_len, device)
     G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    dt = torch_dtype(cfg.dtype)
     return {
         "k": torch.zeros(batch, cache_len, G, hd, dtype=dt, device=device),
         "v": torch.zeros(batch, cache_len, G, hd, dtype=dt, device=device),
@@ -135,6 +171,6 @@ def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int, dev
 
 
 def block_cache_len(kind: str, cfg: ArchConfig, max_len: int) -> int:
-    if kind in KINDS and cfg.window is not None:
+    if kind in ATTN_KINDS and cfg.window is not None:
         return min(cfg.window, max_len)
     return max_len

@@ -1,47 +1,47 @@
-"""GQA attention for serving: full-causal prefill and cached one-token
-decode — the counterparts of ``repro.models.layers.attention``.
+"""GQA attention for serving: causal prefill, full or sliding-window, and
+cached one-token decode — the counterparts of
+``repro.models.layers.attention``.
 
 The reference computes attention with jnp ops and no Pallas kernel, so
 plain torch products and a softmax are its honest counterpart here.  Its
 prefill scans KV chunks of 512 with an online softmax; up to 512 cached
-positions that is one chunk, which is what ``attention_prefill`` computes
+positions that is one chunk, which is what ``causal_attention`` computes
 directly (unnormalised ``exp(s - max)`` weights in the values' dtype,
 divided by their f32 sum afterwards).  Scores are f32, as the reference's
-``preferred_element_type=float32`` makes them.  Weights are stored fused,
-``(D, H*hd)``, and the cache is the reference's dict ``{k, v, pos}``:
-k/v ``(B, T, G, hd)``, pos ``(B, T)`` with -1 for empty slots.
+``preferred_element_type=float32`` makes them.  With a sliding window the
+reference scans query chunks of 512 against only their band of KV chunks;
+here each query chunk takes one direct softmax over its band of keys, so
+no score outside ``window + chunk`` keys is ever built.  Weights are
+stored fused, ``(D, H*hd)``, and the cache is the reference's dict
+``{k, v, pos}``: k/v ``(B, T, G, hd)``, pos ``(B, T)`` with -1 for empty
+slots; a windowed layer's cache of ``window`` slots is a ring, slot
+``pos % window`` holding position ``pos``.
 
-Sliding windows are not ported yet and raise; MLA is
-``repro_torch.models.layers.mla``.
+Positions are rope (``rope_fraction`` of the head dim), M-RoPE (three
+position streams ``(3, B, S)``; the mask and the cache read the last one,
+``positions[-1]``, as the reference's do) or none (sinusoidal, added to
+the embeddings by the model).  MLA is ``repro_torch.models.layers.mla``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.common import (
     apply_rope,
     dense_init,
-    not_ported,
+    mrope_cos_sin,
     rms_head_norm,
     rope_cos_sin,
     torch_dtype,
 )
 
 NEG_INF = -1e30
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the attention flavours the port does not have yet (GQA
-    runs here, MLA in ``repro_torch.models.layers.mla``)."""
-    if cfg.attention not in ("gqa", "mla"):
-        raise not_ported(f"attention={cfg.attention!r}")
-    if cfg.window is not None:
-        raise not_ported("sliding-window attention and its ring-buffer cache")
-    if cfg.pos_emb != "rope":
-        raise not_ported(f"pos_emb={cfg.pos_emb!r} (M-RoPE, sinusoidal)")
+#: the reference's query (and KV) chunk of the banded windowed prefill
+Q_CHUNK = 512
 
 
 def init_attention(gen, cfg: ArchConfig) -> dict:
@@ -62,8 +62,15 @@ def init_attention(gen, cfg: ArchConfig) -> dict:
     return p
 
 
+def _cos_sin(cfg: ArchConfig, positions: torch.Tensor, hd: int):
+    if cfg.pos_emb == "mrope":
+        return mrope_cos_sin(positions, hd, cfg.rope_theta, cfg.mrope_sections)
+    return rope_cos_sin(positions, int(hd * cfg.rope_fraction) // 2 * 2, cfg.rope_theta)
+
+
 def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """x (B,S,D) -> q (B,S,G,R,hd), k/v (B,S,G,hd) with rope applied."""
+    """x (B,S,D) -> q (B,S,G,R,hd), k/v (B,S,G,hd) with rope or M-RoPE
+    applied (positions (B,S), or (3,B,S) for M-RoPE)."""
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B, S = x.shape[:2]
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -75,21 +82,20 @@ def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
-    cos, sin = rope_cos_sin(positions, int(hd * cfg.rope_fraction) // 2 * 2, cfg.rope_theta)
-    q = apply_rope(q, cos, sin, cfg.rope_fraction)
-    k = apply_rope(k, cos, sin, cfg.rope_fraction)
+    if cfg.pos_emb in ("rope", "mrope"):
+        cos, sin = _cos_sin(cfg, positions, hd)
+        q = apply_rope(q, cos, sin, cfg.rope_fraction)
+        k = apply_rope(k, cos, sin, cfg.rope_fraction)
     return q.reshape(B, S, KVH, H // KVH, hd), k, v
 
 
-def causal_attention(q, k, v, q_positions, kv_positions) -> torch.Tensor:
-    """q (B,S,G,R,hd); k/v (B,T,G,hd); positions (B,S)/(B,T) -> (B,S,G,R,hd).
+def _attend(q, k, v, mask, scale: float) -> torch.Tensor:
+    """q (B,S,G,R,hd); k/v (B,T,G,hd); mask (B,1,S,1,T) -> (B,S,G,R,hd).
 
     The reference's online softmax over one KV chunk: weights
     ``exp(s - max)`` cast to the values' dtype, the sum taken in f32 after
     the product."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bsgrd,bkgd->bgsrk", q.float(), k.float()) * scale
-    mask = (kv_positions[:, None, :] <= q_positions[:, :, None])[:, None, :, None, :]
     s = torch.where(mask, s, NEG_INF)
     w = torch.exp(s - s.amax(-1, keepdim=True))
     out = torch.einsum("bgsrk,bkgd->bgsrd", w.to(v.dtype), v).float()
@@ -97,17 +103,51 @@ def causal_attention(q, k, v, q_positions, kv_positions) -> torch.Tensor:
     return out.movedim(1, 2).to(q.dtype)
 
 
+def causal_attention(q, k, v, q_positions, kv_positions, window: int | None = None,
+                     q_chunk: int = Q_CHUNK) -> torch.Tensor:
+    """q (B,S,G,R,hd); k/v (B,T,G,hd); positions (B,S)/(B,T) -> (B,S,G,R,hd).
+
+    Key ``j`` is seen by query ``i`` when ``kv_pos[j] <= q_pos[i]`` and,
+    with a ``window``, ``kv_pos[j] > q_pos[i] - window``.  Windowed, the
+    queries go in chunks of ``q_chunk``, each against its band of keys
+    only: for queries ``[lo, hi)`` the keys ``[lo - window + 1, hi)`` (the
+    band is taken by index, as the reference's static band of KV chunks
+    is, so keys and queries are one sequence at positions in order)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if window is None:
+        mask = (kv_positions[:, None, :] <= q_positions[:, :, None])[:, None, :, None, :]
+        return _attend(q, k, v, mask, scale)
+    outs = []
+    for lo in range(0, q.shape[1], q_chunk):
+        hi = min(lo + q_chunk, q.shape[1])
+        k_lo = max(0, lo - window + 1)
+        qp, kp = q_positions[:, lo:hi, None], kv_positions[:, None, k_lo:hi]
+        mask = ((kp <= qp) & (kp > qp - window))[:, None, :, None, :]
+        outs.append(_attend(q[:, lo:hi], k[:, k_lo:hi], v[:, k_lo:hi], mask, scale))
+    return torch.cat(outs, dim=1)
+
+
 def attention_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, cache_len: int):
-    """Prefill: -> (out (B,S,D), cache {k, v, pos} padded to cache_len)."""
-    check_supported(cfg)
+    """Prefill: -> (out (B,S,D), cache {k, v, pos} of cache_len slots).
+
+    A windowed layer whose cache is the window (``cache_len == window``)
+    and whose prompt fills it keeps the last ``cache_len`` rows, rolled by
+    ``S % cache_len`` so that slot ``pos % window`` holds ``pos``;
+    otherwise the rows are padded with position -1."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = causal_attention(q, k, v, positions, positions)
+    qpos = positions[-1] if cfg.pos_emb == "mrope" else positions
+    out = causal_attention(q, k, v, qpos, qpos, window=cfg.window)
     B, S = x.shape[:2]
     out = out.reshape(B, S, -1) @ p["wo_attn"]
-    pad = cache_len - S
-    k_c = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-    v_c = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    p_c = torch.nn.functional.pad(positions.to(torch.int32), (0, pad), value=-1)
+    qpos = qpos.to(torch.int32)
+    if cfg.window is not None and cache_len == cfg.window and S >= cache_len:
+        roll = S % cache_len
+        k_c, v_c, p_c = (torch.roll(t[:, -cache_len:], roll, dims=1) for t in (k, v, qpos))
+    else:
+        pad = cache_len - S
+        k_c = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v_c = F.pad(v, (0, 0, 0, 0, 0, pad))
+        p_c = F.pad(qpos, (0, pad), value=-1)
     return out, {"k": k_c, "v": v_c, "pos": p_c}
 
 
@@ -115,12 +155,14 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache: dict, cfg: ArchConfig)
     """One-token decode. x (B,1,D); pos the position of this token; cache
     dict of k/v (B,T,G,hd) and pos (B,T). -> (out, cache).
 
-    Writes the new token's k/v/pos into ``cache`` in place (the reference
-    returns a new cache): a step copies no cache."""
-    check_supported(cfg)
+    Writes the new token's k/v/pos into slot ``pos % T`` of ``cache`` in
+    place (the reference returns a new cache): a step copies no cache, and
+    a windowed layer's ring overwrites the position that left the window."""
     B = x.shape[0]
     T = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.pos_emb == "mrope":
+        positions = positions.expand(3, B, 1)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     slot = pos % T
     cache["k"][:, slot] = k_new[:, 0]
@@ -130,6 +172,8 @@ def attention_decode(p, x: torch.Tensor, pos: int, cache: dict, cfg: ArchConfig)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     s = torch.einsum("bqgrd,bkgd->bgrqk", q.float(), k_c.float()) * scale
     valid = (p_c >= 0) & (p_c <= pos)
+    if cfg.window is not None:
+        valid = valid & (p_c > pos - cfg.window)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", w.to(v_c.dtype), v_c)

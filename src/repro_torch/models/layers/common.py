@@ -124,6 +124,26 @@ def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# depthwise causal conv (RG-LRU and SSD blocks)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
+    """x (B,S,C); w (cw,C) depthwise causal conv; state (B,cw-1,C) or None
+    (zeros). -> (out (B,S,C), the last cw-1 inputs as the next state).  The
+    reference's ``_causal_conv`` of ``rglru.py`` and ``ssd.py``."""
+    cw = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], cw - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, S+cw-1, C)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(cw)) + b
+    new_state = xp[:, -(cw - 1):] if cw > 1 else torch.zeros_like(pad)
+    return out, new_state
+
+
+# ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
 
@@ -137,6 +157,31 @@ def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
     freqs = torch.from_numpy(_rope_freqs(dim, theta)).to(positions.device)
     ang = positions[..., None].float() * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions3: torch.Tensor, dim: int, theta: float, sections: tuple[int, ...]):
+    """M-RoPE (Qwen2-VL): positions3 (3, ..., S); ``sections`` sum to dim/2.
+    -> cos/sin (..., S, dim/2) in fp32, each section of frequencies taken
+    from its own (temporal, height, width) position stream."""
+    freqs = torch.from_numpy(_rope_freqs(dim, theta)).to(positions3.device)
+    ang = positions3[..., None].float() * freqs  # (3, ..., S, dim/2)
+    pieces, off = [], 0
+    for stream, sec in enumerate(sections):
+        pieces.append(ang[stream, ..., off:off + sec])
+        off += sec
+    ang = torch.cat(pieces, dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def sinusoidal_pos_emb(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """The classic transformer sinusoid table at ``positions`` (..., S)
+    -> (..., S, dim) fp32: sines, then cosines."""
+    half = dim // 2
+    freqs = torch.from_numpy(
+        1.0 / (10000.0 ** (np.arange(half, dtype=np.float32) / half))
+    ).to(positions.device)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, cos, sin, fraction: float = 1.0) -> torch.Tensor:

@@ -5,7 +5,8 @@ Parameters are ``{"embed", "final_norm", "layers"}``: the reference's
 embedding and final-norm dicts, and one block dict per layer in order (the
 reference stacks each segment's layers along a scan axis; here a Python
 loop runs over the layers).  The cache is ``{"cur": int, "layers": [...]}``
-with one ``{k, v, pos}`` dict per layer.
+with one dict per layer (``{k, v, pos}`` for attention, ``{h, conv}`` for
+RG-LRU, ``{state, conv}`` for SSD).
 
 With ``mtp_depth > 0`` (DeepSeek-V3) ``init_params`` also builds the
 reference's multi-token-prediction subtree ``params["mtp"]`` (two norms,
@@ -13,9 +14,11 @@ the ``(2D, D)`` input projection, one block and a final norm), so that
 parameter trees and counts match; prefill and decode never read it, as in
 the reference, and its loss comes with training.
 
-Token inputs only; embeds inputs and sinusoidal positions are not ported
-yet and raise.  Training (the loss and its backward) waits for a later
-slice.
+Inputs are token ids (``{"tokens"}``) or, for the modality backbones,
+embeddings: ``{"embeds" (B,S,D)}`` and, for M-RoPE, ``{"positions"
+(3,B,S)}`` (a decode step takes ``{"embeds" (B,1,D)}``).  Sinusoidal
+positions are added to the embedded inputs.  Training (the loss and its
+backward) waits for a later slice.
 """
 from __future__ import annotations
 
@@ -29,15 +32,10 @@ from repro_torch.models.layers.common import (
     embed_tokens,
     init_embeddings,
     init_norm,
-    not_ported,
+    sinusoidal_pos_emb,
     torch_dtype,
     unembed,
 )
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    if cfg.input_mode != "tokens":
-        raise not_ported(f"input_mode={cfg.input_mode!r}")
 
 
 def init_mtp(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -58,7 +56,6 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random parameters on the generator's device, drawn from it in order
     (embeddings, then layer by layer, then the MTP module where
     ``mtp_depth > 0``)."""
-    check_supported(cfg)
     params = {
         "embed": init_embeddings(gen, cfg),
         "final_norm": init_norm(cfg, cfg.d_model, gen.device),
@@ -82,13 +79,29 @@ def params_to(params, device) -> dict:
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig):
-    """-> x (B,S,D), positions (B,S), token_ids (B,S)."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens, cfg)
-    Bsz, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(Bsz, S)
-    return x, positions, tokens
+    """-> x (B,S,D), positions ((B,S), or (3,B,S) for M-RoPE), token_ids
+    (B,S): the batch's tokens (or, for embeds inputs, its ``tokens`` or
+    ``targets`` where it has them, else zeros)."""
+    if cfg.input_mode == "tokens":
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens, cfg)
+        Bsz, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(Bsz, S)
+        token_ids = tokens
+    else:
+        x = batch["embeds"].to(torch_dtype(cfg.dtype))
+        Bsz, S = x.shape[:2]
+        token_ids = batch.get("tokens", batch.get("targets"))
+        if token_ids is None:
+            token_ids = torch.zeros((Bsz, S), dtype=torch.int32, device=x.device)
+        if cfg.input_mode == "embeds_mrope":
+            positions = batch["positions"]
+        else:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(Bsz, S)
+    if cfg.pos_emb == "sinusoidal":
+        pos1 = positions if positions.ndim == 2 else positions[-1]
+        x = x + sinusoidal_pos_emb(pos1, cfg.d_model).to(x.dtype)
+    return x, positions, token_ids
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
@@ -116,12 +129,19 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int):
 
 
 def decode_step(params, cache, batch, cfg: ArchConfig):
-    """One token for the whole batch: tokens (B, 1) -> (cache, logits (B, V)).
-    The layer caches are updated in place."""
-    check_supported(cfg)
+    """One token for the whole batch: ``{"tokens" (B,1)}`` or ``{"embeds"
+    (B,1,D)}`` -> (cache, logits (B, V)).  The layer caches are updated in
+    place."""
     pos = cache["cur"]
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens, cfg)
+    if cfg.input_mode == "tokens":
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens, cfg)
+    else:
+        x = batch["embeds"].to(torch_dtype(cfg.dtype))
+        tokens = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
+    if cfg.pos_emb == "sinusoidal":
+        pos1 = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+        x = x + sinusoidal_pos_emb(pos1, cfg.d_model).to(x.dtype)
     for salt, (kind, p, c) in enumerate(zip(cfg.layer_kinds(), params["layers"], cache["layers"])):
         x, _ = B.block_decode(p, kind, x, pos, c, tokens, salt, cfg)
     x = apply_norm(params["final_norm"], x, cfg)

@@ -12,8 +12,10 @@ tier on the CPU, the instrumented route (``route_load``) against its plain
 version on both sides of its shared-histogram threshold, the streaming
 front end over a monitored router on the card against the same on the CPU,
 the chain-mode remap (``chain_remap``) against its plain version and the
-scalar chain oracle, and a reduced DeepSeek-V3 ``ServingTier`` (MLA, the
-hash router, shared experts) on the card against the same tier on the CPU.
+scalar chain oracle, a reduced DeepSeek-V3 ``ServingTier`` (MLA, the
+hash router, shared experts) on the card against the same tier on the CPU,
+and the reduced Starcoder2, RecurrentGemma and Mamba2 tiers and the
+MusicGen and Qwen2-VL embeds models on the card against the CPU.
 Needs a CUDA card and ``nvcc``; skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
@@ -566,3 +568,51 @@ def test_deepseek_v3_serving_on_card(cuda, engine):
     _, on_card = M.prefill(gpu.replicas[0].params, {"tokens": prompts.to(cuda)}, cfg, 16)
     _, on_cpu = M.prefill(params, {"tokens": prompts}, cfg, 16)
     np.testing.assert_allclose(on_card.cpu().numpy(), on_cpu.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "recurrentgemma-9b", "mamba2-1.3b"])
+def test_lm_family_serving_on_card(cuda, arch):
+    """The reduced token-input families through ``ServingTier`` on the card
+    against the same tier on the CPU, with prompts of 24 tokens: past the
+    reduced window of 16 (the ring cache) and three SSD chunks of 8."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = ServingTier(cfg, M.params_to(params, cuda), 3, max_len=32)
+    cpu = ServingTier(cfg, params, 3, max_len=32, device="cpu")
+    rng = np.random.default_rng(9)
+    reqs = [Request(f"s-{i}", rng.integers(0, cfg.vocab_size, size=24).astype(np.int32), 4)
+            for i in range(12)]
+    for failed in (None, 1):
+        if failed is not None:
+            gpu.fail(failed), cpu.fail(failed)
+        got, want = gpu.serve(reqs), cpu.serve(reqs)
+        assert sorted(got) == sorted(want)
+        for sid in want:
+            np.testing.assert_array_equal(got[sid], want[sid])
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-7b"])
+def test_embeds_family_on_card(cuda, arch):
+    """The reduced embeds-input families (sinusoidal positions, M-RoPE):
+    prefill and three decode steps on the card against the CPU, logits
+    within 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    on_card = M.params_to(params, cuda)
+    rng = np.random.default_rng(10)
+    embeds = torch.from_numpy(rng.standard_normal((3, 27, cfg.d_model)).astype(np.float32))
+    batch = {"embeds": embeds[:, :24]}
+    if cfg.input_mode == "embeds_mrope":
+        t = torch.arange(24, dtype=torch.int32)
+        batch["positions"] = torch.stack([t, t // 2, t % 3])[:, None].expand(3, 3, 24).contiguous()
+    results = []
+    for p, dev in ((on_card, cuda), (params, "cpu")):
+        cache, logits = M.prefill(p, {k: v.to(dev) for k, v in batch.items()}, cfg, 28)
+        steps = [logits.cpu()]
+        for t in range(24, 27):
+            cache, logits = M.decode_step(p, cache, {"embeds": embeds[:, t:t + 1].to(dev)}, cfg)
+            steps.append(logits.cpu())
+        results.append(torch.stack(steps))
+    np.testing.assert_allclose(results[0].numpy(), results[1].numpy(), atol=1e-4, rtol=1e-4)

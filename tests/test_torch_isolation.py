@@ -46,7 +46,8 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.serving.streaming.hedge", "repro_torch.serving.streaming.batcher",
             "repro_torch.serving.streaming.frontend", "repro_torch.core.baselines",
             "repro_torch.core.analysis", "repro_torch.analysis.markers",
-            "repro_torch.models.layers.mla"} <= set(mods)
+            "repro_torch.models.layers.mla", "repro_torch.models.layers.rglru",
+            "repro_torch.models.layers.ssd"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

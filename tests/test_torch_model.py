@@ -21,7 +21,7 @@ jnp = jax.numpy
 from repro.configs import reduced_config as ref_reduced_config  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models.layers import moe as jmoe  # noqa: E402
-from repro_torch.configs import ARCHS, reduced_config  # noqa: E402
+from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models import blocks as B  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -153,16 +153,6 @@ def test_dispatch_plan_and_combine_match_reference(capacity_factor):
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
 
 
-PORTED = ("qwen3-moe-235b-a22b", "stablelm-3b", "deepseek-coder-33b", "qwen2.5-14b",
-          "deepseek-v3-671b")
-
-
-@pytest.mark.parametrize("arch", sorted(a for a in ARCHS if a not in PORTED))
-def test_unported_flavours_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.init_params(torch.Generator().manual_seed(0), reduced_config(arch))
-
-
 DSV3 = "deepseek-v3-671b"
 
 
@@ -225,10 +215,13 @@ def test_deepseek_v3_parameter_tree_matches_reference():
         np.testing.assert_array_equal(leaves(carried)[k].numpy(), v)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "stablelm-3b", DSV3])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "stablelm-3b", DSV3, "starcoder2-7b",
+                                  "recurrentgemma-9b", "mamba2-1.3b", "musicgen-medium",
+                                  "qwen2-vl-7b"])
 def test_empty_cache_matches_reference(arch):
-    """``init_cache``: one {k, v, pos} per layer, the reference's stacked
-    leaves split along their scan axis."""
+    """``init_cache``: one dict per layer ({k, v, pos}, MLA's {ckv, kr,
+    pos}, RG-LRU's {h, conv}, SSD's {state, conv}), the reference's stacked
+    leaves split along their scan axis, with their dtypes."""
     jcfg, tcfg = ref_reduced_config(arch), reduced_config(arch)
     want = JM.init_cache(jcfg, 2, MAX_LEN)
     got = TM.init_cache(tcfg, 2, MAX_LEN, "cpu")
@@ -237,6 +230,10 @@ def test_empty_cache_matches_reference(arch):
     for i, seg in enumerate(B.build_segments(tcfg)):
         for step in range(seg.count):
             for j in range(len(seg.unit)):
-                for name, leaf in want[f"seg{i}"][f"sub{j}"].items():
-                    np.testing.assert_array_equal(got["layers"][layer][name].numpy(), np.asarray(leaf[step]))
+                names = want[f"seg{i}"][f"sub{j}"]
+                assert sorted(got["layers"][layer]) == sorted(names)
+                for name, leaf in names.items():
+                    g = got["layers"][layer][name]
+                    assert str(g.dtype) == f"torch.{leaf.dtype}"
+                    np.testing.assert_array_equal(g.numpy(), np.asarray(leaf[step]))
                 layer += 1

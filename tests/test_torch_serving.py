@@ -1,6 +1,7 @@
 """The port's ``ServingTier`` (``repro_torch.serving.engine``) against the
 JAX package's on the CPU: the reduced hash-routed Qwen3-MoE (and
-DeepSeek-V3 under its sigmoid router and the hash router), the same
+DeepSeek-V3 under its sigmoid router and the hash router, RecurrentGemma
+and Mamba2), the same
 parameters (JAX ``init_params`` carried over by ``params_from_numpy``) and
 the same requests, served before and after a replica fails.  Routes and
 generated tokens must be identical.  Also: the entry points run on CUDA by
@@ -54,6 +55,14 @@ def test_deepseek_v3_serving_tier_matches_reference_through_a_failure(moe):
                   for c in (ref_reduced_config("deepseek-v3-671b"),
                             reduced_config("deepseek-v3-671b")))
     _serve_through_a_failure(jcfg, tcfg)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-1.3b"])
+def test_lm_family_serving_tier_matches_reference_through_a_failure(arch):
+    """RecurrentGemma reduced (RG-LRU and a sliding-window attention layer)
+    and Mamba2 reduced (SSD): prompts left-padded with token 0, which the
+    recurrent state absorbs as the reference's does."""
+    _serve_through_a_failure(ref_reduced_config(arch), reduced_config(arch))
 
 
 def _serve_through_a_failure(jcfg, tcfg):
