@@ -3,9 +3,9 @@
 datapath and its chain-mode two-pass path, the hash-routed MoE serving
 path (Qwen3-235B-A22B and DeepSeek-V3), the other LM families at full
 width and depth (RecurrentGemma-9B, Mamba2-1.3B, Starcoder2-7B,
-MusicGen-medium, Qwen2-VL-7B), the R-way replicated placement tier with
-its fleet lifecycle, and the streaming front end with its live load
-telemetry.
+MusicGen-medium, Qwen2-VL-7B), training (Qwen3-235B-A22B at full width,
+one layer), the R-way replicated placement tier with its fleet
+lifecycle, and the streaming front end with its live load telemetry.
 
     python3 chip_smoke.py
 
@@ -100,6 +100,23 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      (relative L2), then with the weights cast to float32 within the
      reference's 2e-3; the decode steps timed beside the floor of the
      bytes each reads;
+   - "train": the reduced Qwen3 (hash router, each engine), DeepSeek-V3
+     (MLA, the sigmoid router, a shared expert, the MTP loss),
+     RecurrentGemma and Mamba2 on the card against the CPU in float32
+     with TF32 off: the loss, every metric and gradient within 1e-4,
+     expert ids identical, then one AdamW step with ``grad_accum=2`` and
+     an active clip; then Qwen3-235B-A22B at its published widths, cut to
+     one MoE layer, bf16, AdamW with master weights, remat "full", per
+     engine 6 steps over one batch of 2 x 2,048 tokens from
+     ``ShardedDataPipeline`` (the counts set to 0 before the steps):
+     ``lookup_router`` launched twice a step (the forward and remat's
+     recomputation), every expert id equal to the plain lookup's, the
+     step-0 loss near ln V and falling, the training forward's
+     last-token logits against ``prefill``'s; ms a step, tokens/s, peak
+     memory and the step's floor, and one profiled step; then the launcher
+     ``python -m repro_torch.launch.train`` (the 100m preset, 20 steps,
+     then resumed to 30 from its checkpoint) and a bf16 checkpoint round
+     trip on the card;
    - placement, per engine: ``BatchRouter(1000, capacity=1024)``, a
      ``LifecycleManager`` on a ``ManualClock``, ``StorePlacement(r=3)`` with
      2^20 registered keys and a ``PlacementRepairer``; 2 replicas fall
@@ -163,11 +180,15 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1763,6 +1784,402 @@ def phase_serve_families(card: str) -> dict:
     return launches
 
 
+# --- training ----------------------------------------------------------------
+
+#: the reduced models trained on the card against the CPU (float32, TF32
+#: off): Qwen3 on the hash router of each engine, DeepSeek-V3 as published
+#: (MLA, the sigmoid router, a shared expert, the MTP loss), RecurrentGemma
+#: (RG-LRU, a sliding window) and Mamba2 (SSD); prompts past the reduced
+#: window of 16, three SSD chunks of 8
+TRAIN_SMALL = (("qwen3-moe-235b-a22b", "binomial"), ("qwen3-moe-235b-a22b", "jump"),
+               ("deepseek-v3-671b", None), ("recurrentgemma-9b", None), ("mamba2-1.3b", None))
+TRAIN_SMALL_SEQ = 24
+#: the card and the CPU sum in other orders: every loss, metric, gradient
+#: and updated leaf within 1e-4 of max(1, max |CPU|), the CPU tests'
+#: tolerance against the JAX package; expert ids identical
+TRAIN_TOL = 1e-4
+#: the full-width run: Qwen3-235B-A22B at its published widths, its 94
+#: layers cut to 1 (one MoE layer), bf16, AdamW with master weights, remat
+#: "full"; 2 sequences of 2,048 tokens from ShardedDataPipeline, the same
+#: batch at each of 6 steps, from the same seed on each engine
+TRAIN_ARCH, TRAIN_LAYERS = SERVE_ARCH, 1
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+TRAIN_LR = 1e-3
+#: router calls a step per MoE layer: the forward and remat's recomputation
+TRAIN_ROUTES_PER_LAYER = 2
+#: bytes a parameter the AdamW step must move: bf16 parameters read and
+#: written (4), the bf16 gradient read (2), the float32 master, m and v
+#: read and written (24)
+OPT_BYTES = 30
+#: the bf16 peak (NVIDIA's data sheet, dense, at 700 W)
+BF16_FLOP_S = 989e12
+
+
+def to_device(tree, device):
+    """A copy of ``tree`` on ``device`` (a train step updates its state in
+    place)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """A seeded CPU batch: tokens and targets (the last 3 of the first row
+    -1), or embeddings and targets."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(batch, seq + 1)))
+    out = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+    out["targets"][0, -3:] = -1
+    return out
+
+
+def close_by(got, want, what: str) -> float:
+    """max |got - want| against ``TRAIN_TOL`` of max(1, max |want|)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if got.shape != want.shape:
+        fail(f"{what}: shapes {tuple(got.shape)} and {tuple(want.shape)}")
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if not err <= TRAIN_TOL * max(1.0, float(want.abs().max()) if want.numel() else 0.0):
+        fail(f"{what}: the card departs from the CPU by {err:.3g}")
+    return err
+
+
+def check_small_training() -> None:
+    """Each ``TRAIN_SMALL`` model's loss, metrics and every gradient on the
+    card against the CPU, expert ids identical; then one AdamW step with
+    ``grad_accum=2`` and an active clip on both, every state leaf."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import (
+        TrainHparams, loss_and_grads, make_train_state, make_train_step)
+    from repro_torch.tree import flatten_with_path, leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the defaults, stated
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, engine in TRAIN_SMALL:
+        cfg = reduced_config(arch)
+        if engine is not None:
+            cfg = hash_routed(cfg, engine)
+        params = M.init_train_params(torch.Generator().manual_seed(0), cfg)
+        batch = train_batch(cfg, 2, TRAIN_SMALL_SEQ, 5)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            with RouteLog() as log:
+                out = loss_and_grads(to_device(params, device), to_device(batch, device), cfg)
+            runs[device] = out, [(salt, ids.cpu()) for salt, _, ids in log.calls]
+        (loss, metrics, grads), calls = runs["cuda"]
+        (want_loss, want_metrics, want_grads), want_calls = runs["cpu"]
+        if [s for s, _ in calls] != [s for s, _ in want_calls] or not all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(calls, want_calls)):
+            fail(f"train {arch}: the card's expert ids differ from the CPU's")
+        worst = max(close_by(metrics[k], want_metrics[k], f"train {arch} {k}") for k in want_metrics)
+        paths = [k for k, _ in flatten_with_path(params)]
+        worst_grad = max(close_by(g, w, f"train {arch} grad {k}")
+                         for k, g, w in zip(paths, grads, want_grads))
+        hp = TrainHparams(grad_accum=2, clip_norm=0.05)
+        batch4 = train_batch(cfg, 4, TRAIN_SMALL_SEQ, 6)
+        states = {}
+        for device in ("cuda", "cpu"):
+            opt = make_optimizer("adamw", lr=TRAIN_LR, warmup=0, total=10)
+            state = make_train_state(to_device(params, device), opt, hp)
+            states[device] = make_train_step(cfg, opt, hp)(state, to_device(batch4, device))
+        (state, m), (want_state, want_m) = states["cuda"], states["cpu"]
+        if not float(want_m["grad_norm"]) > hp.clip_norm:
+            fail(f"train {arch}: the clip was not active")
+        worst_step = max([close_by(m[k], want_m[k], f"train {arch} step {k}") for k in want_m] + [
+            close_by(a.float(), b.float(), f"train {arch} step {k}") for (k, a), b in
+            zip(flatten_with_path(state), leaves(want_state))])
+        print(f"phase 3 train reduced {arch}{f'[{engine}]' if engine else ''} "
+              f"({cfg.num_layers} layers {'/'.join(sorted(set(cfg.layer_kinds())))}, "
+              f"{cfg.moe.router if cfg.moe else 'no'} router, 2 x {TRAIN_SMALL_SEQ} tokens, float32, "
+              f"TF32 off: matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, cudnn."
+              f"allow_tf32 {torch.backends.cudnn.allow_tf32}): "
+              f"card vs CPU loss {float(loss):.6f} / {float(want_loss):.6f}, metrics within "
+              f"{worst:.3g}, {len(grads)} gradients within {worst_grad:.3g}, {len(calls)} router "
+              f"calls with identical expert ids; one AdamW step (grad_accum 2, clip 0.05 of "
+              f"{float(want_m['grad_norm']):.4f}) within {worst_step:.3g} over "
+              f"{len(leaves(state))} state leaves (tolerance {TRAIN_TOL} of max(1, |CPU|))")
+
+
+def train_floor(cfg, n_params: int, expert_ids: torch.Tensor) -> dict:
+    """The least time one training step at full width could take: the
+    larger of its products' FLOPs at the bf16 peak and the bytes it must
+    move at ``HBM_BYTES_S``.  FLOPs: three times the forward's products
+    (the forward, then the gradients of inputs and weights; remat's
+    recomputation not counted): attention's projections, its scores and
+    values over the causal pairs only, the experts' three products over
+    the assignments kept under the capacity (counted from this run's expert
+    ids) and the unembedding.  Bytes: every bf16 weight read by the forward
+    and by the backward, every gradient written, then ``OPT_BYTES`` a
+    parameter for the AdamW step (activations not counted)."""
+    from repro_torch.models.layers.moe import _capacity
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    T, D = B * S, cfg.d_model
+    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    m = cfg.moe
+    counts = torch.bincount(expert_ids.reshape(-1).long().cpu(), minlength=m.num_experts)
+    kept = int(counts.clamp(max=_capacity(cfg, T)).sum())
+    forward = cfg.num_layers * (2 * T * D * (H + 2 * G) * hd + 2 * T * H * hd * D
+                                + 4 * hd * H * B * S * (S + 1) // 2
+                                + kept * 2 * 3 * D * m.d_ff_expert) + 2 * T * D * cfg.padded_vocab
+    flops = 3 * forward
+    nbytes = n_params * (2 + 2 + 2 + OPT_BYTES)
+    flop_ms, byte_ms = flops / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return dict(flops=flops, bytes=nbytes, kept=kept, flop_ms=flop_ms, byte_ms=byte_ms,
+                floor_ms=max(flop_ms, byte_ms), bound_by="bytes" if byte_ms >= flop_ms else "operations")
+
+
+def check_train_forward(cfg, params, batch) -> float:
+    """The training forward's last-token logits against ``prefill``'s over
+    the same tokens, both bf16: the largest relative L2 of a sequence,
+    within the families' bf16 gate ``FAMILY_BF16_TOL``."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers.common import unembed
+
+    with torch.no_grad():
+        hidden, *_ = M.trunk_train(params, batch, cfg)
+        train = unembed(params["embed"], hidden[:, -1:], cfg)[:, 0].float()
+        del hidden
+        _, served = M.prefill(M.per_layer(params, cfg), {"tokens": batch["tokens"]}, cfg, TRAIN_SEQ)
+    rel = float(((train - served.float()).norm(dim=-1) / served.float().norm(dim=-1)).max())
+    if not rel <= FAMILY_BF16_TOL:
+        fail(f"train {cfg.name}: the training forward's logits depart from prefill's by {rel:.4f}")
+    return rel
+
+
+def profile_train_step(tag: str, step, state, batch, floor_ms: float, card: str):
+    """One more step under ``torch.profiler``: the device's busy share of
+    the wall and the kernels that take it.  -> the state."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    ops = [e for e in events if e.key.startswith("aten::")]
+    # the step's record_function ranges also appear on the device's timeline
+    # as annotations spanning their kernels: not kernels themselves
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("train_step/")]
+    if not kernels:
+        print(f"phase 3 {tag} profiled step: the profiler recorded no device time "
+              f"(wall {wall_ms:.1f} ms)")
+        return state
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the clip and the optimizer launch every kernel from this thread, inside
+    # their ranges (the host-side events sum those kernels' device time); the
+    # backward launches from autograd's device thread, outside any range, so
+    # the forward and backward are the rest of the device time
+    parts = {e.key.split("/")[1]: e.device_time_total / 1e3 for e in events
+             if e.device_type == DeviceType.CPU
+             and e.key in ("train_step/clip", "train_step/optimizer")}
+    parts["forward and backward (the rest)"] = busy_ms - sum(parts.values())
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
+    print(f"phase 3 {tag} profiled step: wall {wall_ms:.1f} ms, {sum(e.count for e in ops)} "
+          f"torch operators, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}; floor "
+          f"{floor_ms:.1f} ms) on {card}; device ms by part: " + json.dumps(
+              {k: round(v, 2) for k, v in parts.items()}) + "; top operators by device time: "
+          + "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+    return state
+
+
+def train_full_width(card: str) -> dict:
+    """Qwen3-235B-A22B at its published widths, one MoE layer, trained
+    ``TRAIN_STEPS`` steps per engine from the same seed, the launch counts
+    set to 0 just before the steps and read just after.  -> launches by
+    engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.data.pipeline import DataConfig, ShardedDataPipeline
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import make_train_state, make_train_step
+
+    published = get_config(TRAIN_ARCH)
+    base = dataclasses.replace(published, num_layers=TRAIN_LAYERS)
+    m = base.moe
+    pipe = ShardedDataPipeline(DataConfig(base.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 1, 0)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in pipe.batch(0).items()}
+    n_moe = sum(k == "attn_moe" for k in base.layer_kinds())
+    print(f"phase 3 train {TRAIN_ARCH} cuts: layers {published.num_layers} -> {TRAIN_LAYERS} (one "
+          f"MoE layer); router {m.router} -> hash (softmax top-k is held on the CPU and in the "
+          f"reduced check); widths as published (d_model {base.d_model}, {base.num_heads}/"
+          f"{base.num_kv_heads} heads of {base.resolved_head_dim}, {m.num_experts} experts top-"
+          f"{m.top_k} of {m.d_ff_expert}, vocab {base.vocab_size} padded to {base.padded_vocab}), "
+          f"{base.param_dtype}, remat {base.remat}, AdamW (lr {TRAIN_LR}, master weights); "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens of ShardedDataPipeline's step 0, every step")
+    launches = {}
+    for engine in ENGINES:
+        cfg = hash_routed(base, engine)
+        kernels = BULK_ENGINES[engine].kernels
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_train_params(torch.Generator("cuda").manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params, held = M.count_params(params), tree_bytes(params)
+        rel = check_train_forward(cfg, params, batch)
+        opt = make_optimizer("adamw", lr=TRAIN_LR, warmup=0, total=TRAIN_STEPS)
+        state = make_train_state(params, opt)
+        del params
+        step = make_train_step(cfg, opt)
+        state_bytes = tree_bytes(state)
+        for eng in BULK_ENGINES.values():
+            eng.kernels.reset_launches()
+        losses, walls = [], []
+        with RouteLog() as log:
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches[engine] = {"lookup_router": kernels.launches["lookup_vec"]}
+        want = TRAIN_ROUTES_PER_LAYER * n_moe * TRAIN_STEPS
+        if launches[engine]["lookup_router"] != want or len(log.calls) != want:
+            fail(f"train[{engine}]: {launches[engine]['lookup_router']} lookup_router launches "
+                 f"and {len(log.calls)} router calls, expected {TRAIN_ROUTES_PER_LAYER} x {n_moe} "
+                 f"MoE layers x {TRAIN_STEPS} steps = {want}")
+        for salt, tokens, expert_ids in log.calls:
+            plain = kernels.lookup_router_plain(tokens, salt, m.top_k, m.num_experts,
+                                                cfg.moe.router_hash_omega)
+            if expert_ids.shape != (TRAIN_BATCH, TRAIN_SEQ, m.top_k) or not torch.equal(expert_ids, plain):
+                fail(f"train[{engine}]: the expert ids of layer {salt} differ from the plain lookup's")
+        ln_v = float(np.log(base.vocab_size))
+        if not np.isfinite(losses).all() or not abs(losses[0] - ln_v) < 2.0 \
+                or not losses[-1] < losses[0]:
+            fail(f"train[{engine}]: losses {losses} (step 0 should be near ln V = {ln_v:.3f} and "
+                 "the loss should fall)")
+        floor = train_floor(cfg, n_params, log.calls[0][2])
+        ms = statistics.median(walls[1:]) * 1e3
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"phase 3 train {TRAIN_ARCH}[{engine}]: {n_params / 1e9:.3f} G parameters "
+              f"({held / 1e9:.3f} GB, init {init_s:.2f} s), train state {state_bytes / 1e9:.3f} GB; "
+              f"{TRAIN_STEPS} steps of {tokens} tokens: losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f" (ln V = {ln_v:.4f}); {statistics.median(walls[1:]) * 1e3:.1f} ms a step (median "
+              f"of steps 2-{TRAIN_STEPS}; all: " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+              + f"), {tokens / ms * 1e3:,.0f} tokens/s; peak memory {peak / 1e9:.3f} GB; floor "
+              f"{floor['floor_ms']:.2f} ms ({floor['bound_by']}: {floor['flops'] / 1e12:.2f} TFLOP "
+              f"at {BF16_FLOP_S / 1e12:.0f} TFLOP/s = {floor['flop_ms']:.2f} ms, "
+              f"{floor['bytes'] / 1e9:.1f} GB at {HBM_BYTES_S / 1e12} TB/s = "
+              f"{floor['byte_ms']:.2f} ms; {floor['kept']} expert assignments kept of "
+              f"{tokens * m.top_k}), {floor['floor_ms'] / ms:.3f} of it; lookup_router "
+              f"{launches[engine]['lookup_router'] / TRAIN_STEPS:g} launches a step "
+              f"({TRAIN_ROUTES_PER_LAYER} x {n_moe} MoE layer: the forward and remat's "
+              f"recomputation), every expert id (2, {TRAIN_SEQ}, {m.top_k}) equal to the plain "
+              f"lookup's; step-0 training forward vs prefill, last-token logits, bf16 relative L2 "
+              f"{rel:.4f} (gate {FAMILY_BF16_TOL}) on {card}")
+        state = profile_train_step(f"train {TRAIN_ARCH}[{engine}]", step, state, batch,
+                                   floor["floor_ms"], card)
+        del state, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_launcher() -> None:
+    """``python -m repro_torch.launch.train`` on the card: the 100m preset
+    for 20 steps, then on to 30, resuming from its own checkpoint, in a
+    temporary directory removed afterwards."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        outs = []
+        for steps in (20, 30):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch", "stablelm-3b",
+                 "--preset", "100m", "--steps", str(steps), "--ckpt-dir", tmp],
+                capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+            if run.returncode != 0:
+                fail(f"launch.train --steps {steps} exited {run.returncode}: {run.stderr[-2000:]}")
+            outs.append((run.stdout, time.perf_counter() - t0))
+        (first, first_s), (second, second_s) = outs
+        resumed = re.findall(r"resuming from checkpoint step (\d+)", second)
+        losses = [float(x) for x in re.findall(r"loss=(\S+)", second)]
+        from repro_torch.training.checkpoint import CheckpointManager
+
+        latest = CheckpointManager(tmp).latest_step()
+        if "resuming" in first or resumed != ["20"] or not losses or \
+                not np.isfinite(losses).all() or latest != 30:
+            fail(f"launch.train did not resume: {second[-2000:]}")
+        head = first.splitlines()[0]
+        print(f"phase 3 train launcher: `python -m repro_torch.launch.train --arch stablelm-3b "
+              f"--preset 100m --steps 20` ({head}) in {first_s:.1f} s, last line "
+              f"{first.strip().splitlines()[-2].strip()!r}; then --steps 30 resumed from step "
+              f"{resumed[0]} in {second_s:.1f} s, losses {losses}, latest checkpoint {latest}; "
+              "the directory removed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_bf16_checkpoint() -> None:
+    """A bf16 train state of the reduced Qwen3 (hash router) on the card,
+    after one step: saved, restored onto the card, every leaf bit for bit,
+    the bf16 leaves written under descr '<V2' as the reference writes them."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import make_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path
+
+    cfg = hash_routed(dataclasses.replace(reduced_config(TRAIN_ARCH), dtype="bfloat16",
+                                          param_dtype="bfloat16"), "binomial")
+    opt = make_optimizer("adamw", lr=TRAIN_LR, warmup=0, total=10)
+    state = make_train_state(M.init_train_params(torch.Generator("cuda").manual_seed(0), cfg), opt)
+    state, _ = make_train_step(cfg, opt)(state, to_device(train_batch(cfg, 2, 16, 7), "cuda"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(tmp, n_nodes=3)
+        path = mgr.save(1, state)
+        back = mgr.restore(mgr.latest_step(), state)
+        n_bf16 = 0
+        for (key, a), (_, b) in zip(flatten_with_path(back), flatten_with_path(state)):
+            if a.dtype != b.dtype or a.device != b.device:
+                fail(f"bf16 checkpoint: {key} came back as {a.dtype} on {a.device}")
+            if a.dtype == torch.bfloat16:
+                n_bf16 += 1
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            if not torch.equal(a, b):
+                fail(f"bf16 checkpoint: {key} differs after the round trip")
+        v2 = 0
+        for name in os.listdir(path):
+            if name.endswith(".npz"):
+                with zipfile.ZipFile(os.path.join(path, name)) as z:
+                    v2 += sum(b"'descr': '<V2'" in z.read(n)[:128] for n in z.namelist())
+        if n_bf16 == 0 or v2 != n_bf16:
+            fail(f"bf16 checkpoint: {n_bf16} bf16 leaves, {v2} members under '<V2'")
+        print(f"phase 3 train bf16 checkpoint: reduced {TRAIN_ARCH} state after one step on the "
+              f"card, {len(flatten_with_path(state))} leaves ({n_bf16} bf16, written under descr "
+              f"'<V2') over 3 storage nodes, restored onto the card bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_train(card: str) -> dict:
+    """The training slice: the reduced models on the card against the CPU,
+    Qwen3-235B-A22B at full width per engine, the launcher with a resume,
+    a bf16 checkpoint round trip.  -> launches by engine (the full-width
+    steps)."""
+    t0 = time.perf_counter()
+    check_small_training()
+    launches = train_full_width(card)
+    check_launcher()
+    check_bf16_checkpoint()
+    print(f"phase 3 train: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # --- the placement path ------------------------------------------------------
 
 #: the placement path's registered store (a realistic count of objects; the
@@ -3045,6 +3462,7 @@ def main() -> int:
                              for k, n in counts.items()}
     for arch, counts in phase_serve_families(card).items():
         by_path[f"serve_{arch}"] = {(e, k): n for e, c in counts.items() for k, n in c.items()}
+    by_path["train"] = {(e, k): n for e, counts in phase_train(card).items() for k, n in counts.items()}
     place_launches, place_host = phase_placement()
     by_path["placement"] = {(e, k): n for e, counts in place_launches.items() for k, n in counts.items()}
     stream_launches, stream_numbers = phase_streaming()

@@ -11,7 +11,9 @@ uint32 state) into this package's host ``FleetState``.
 package's.  ``store_from_numpy`` turns a reference ``StorePlacement``'s
 registered ``keys`` and ``holders`` into this package's ``StorePlacement``
 over a router.  ``params_from_numpy`` turns the reference's ``init_params``
-tree, as numpy arrays, into this package's model parameters.  Only numpy
+tree, as numpy arrays, into this package's per-layer serving parameters;
+``train_state_from_numpy`` turns a reference train state (or its stacked
+parameters) into this package's, which keeps the reference's layout.  Only numpy
 and text cross over; nothing of the JAX package is imported.
 """
 from __future__ import annotations
@@ -24,9 +26,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bulk import FleetState
 from repro_torch.core.memento_torch import mask_words, table_width
-from repro_torch.models.blocks import build_segments
+from repro_torch.models.blocks import build_segments, layer_index
 from repro_torch.placement.store import StorePlacement
 from repro_torch.serving.lifecycle.journal import JournalSnapshot, MembershipJournal
+from repro_torch.tree import tree_map
 
 
 def fleet_from_numpy(packed, table, state, capacity: int) -> FleetState:
@@ -85,8 +88,14 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(x, fn):
-    return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
+def train_state_from_numpy(tree, device) -> dict:
+    """A reference train state as numpy arrays (``params`` in its stacked
+    layout, ``opt`` with AdamW's ``m``/``v``/``master`` trees or
+    Adafactor's ``f`` list, ``step``, ``comp_err``), or any part of one such
+    as its ``params`` -> the same tree of tensors on ``device``, which is
+    the port's train state: training holds the reference's layout, so every
+    leaf keeps its path and shape."""
+    return tree_map(lambda a: _tensor(a, device), tree)
 
 
 def params_from_numpy(tree, cfg: ArchConfig, device) -> dict:
@@ -103,12 +112,12 @@ def params_from_numpy(tree, cfg: ArchConfig, device) -> dict:
         for j in range(len(seg.unit)):
             sub = tree[f"seg{i}"][f"sub{j}"]
             for s in range(seg.count):
-                layers[seg.base + s * len(seg.unit) + j] = _tree(sub, lambda a, s=s: _tensor(a[s], device))
+                layers[layer_index(seg, s, j)] = tree_map(lambda a, s=s: _tensor(a[s], device), sub)
     params = {
-        "embed": _tree(tree["embed"], lambda a: _tensor(a, device)),
-        "final_norm": _tree(tree["final_norm"], lambda a: _tensor(a, device)),
+        "embed": tree_map(lambda a: _tensor(a, device), tree["embed"]),
+        "final_norm": tree_map(lambda a: _tensor(a, device), tree["final_norm"]),
         "layers": layers,
     }
     if "mtp" in tree:  # not stacked: one module
-        params["mtp"] = _tree(tree["mtp"], lambda a: _tensor(a, device))
+        params["mtp"] = tree_map(lambda a: _tensor(a, device), tree["mtp"])
     return params

@@ -10,11 +10,13 @@ The attention is GQA (full causal or sliding-window) or, with
 cache.  Every decode updates its layer's cache in place.
 
 ``build_segments`` is the reference's grouping of layers into scanned
-segments; the port runs its layers in a Python loop and uses the segments
-only to read the reference's stacked parameters
-(``repro_torch.interop.params_from_numpy``).  Layer ``i`` of the loop is
-the reference's ``seg.base + step * len(seg.unit) + j``, so the MoE
-router's salt is the absolute layer index in both.
+segments.  Serving runs its layers in a Python loop over per-layer
+parameters; training holds the reference's stacked parameters, one leaf
+of shape ``(count, ...)`` per segment and sub-block, and runs the same
+loop over views of them (``repro_torch.models.model``).  Layer ``i`` of
+the loop is the reference's ``seg.base + step * len(seg.unit) + j``
+(``layer_index``), so the MoE router's salt is the absolute layer index in
+both.
 """
 from __future__ import annotations
 
@@ -73,6 +75,11 @@ def build_segments(cfg: ArchConfig) -> list[Segment]:
     return segs
 
 
+def layer_index(seg: Segment, step: int, j: int) -> int:
+    """The absolute index of sub-block ``j`` at scan step ``step``."""
+    return seg.base + step * len(seg.unit) + j
+
+
 ATTN_KINDS = ("attn", "attn_moe")
 KINDS = (*ATTN_KINDS, "rec", "ssd")
 
@@ -105,6 +112,23 @@ def _ffn(p, kind, x, token_ids, salt, cfg: ArchConfig):
     if kind == "attn_moe":
         return moe_mod.apply_moe(p["moe"], h2, token_ids, salt, cfg)
     return apply_mlp(p["mlp"], h2, cfg), torch.zeros((), device=x.device)
+
+
+def block_train(p, kind, x, positions, token_ids, salt: int, cfg: ArchConfig):
+    """The training forward of one block, no cache: -> (x, aux loss)."""
+    h = apply_norm(p["norm1"], x, cfg)
+    if kind in ATTN_KINDS:
+        train = mla_mod.mla_train if cfg.attention == "mla" else attn_mod.attention_train
+        mix = train(p["mixer"], h, positions, cfg)
+    elif kind == "rec":
+        mix, _ = rglru_mod.rglru_scan(p["mixer"], h, cfg)
+    else:
+        mix, _ = ssd_mod.ssd_scan(p["mixer"], h, cfg)
+    x = x + mix
+    if kind == "ssd":
+        return x, torch.zeros((), device=x.device)
+    y, aux = _ffn(p, kind, x, token_ids, salt, cfg)
+    return x + y, aux
 
 
 def block_prefill(p, kind, x, positions, token_ids, salt: int, cfg: ArchConfig, cache_len: int):

@@ -5,13 +5,15 @@ cached one-token decode — the counterparts of
 The reference computes attention with jnp ops and no Pallas kernel, so
 plain torch products and a softmax are its honest counterpart here.  Its
 prefill scans KV chunks of 512 with an online softmax; up to 512 cached
-positions that is one chunk, which is what ``causal_attention`` computes
-directly (unnormalised ``exp(s - max)`` weights in the values' dtype,
-divided by their f32 sum afterwards).  Scores are f32, as the reference's
+positions that is one chunk.  ``causal_attention`` takes the queries in
+chunks of 512, each with one direct softmax over its keys (unnormalised
+``exp(s - max)`` weights in the values' dtype, divided by their f32 sum
+afterwards), so up to 512 positions it computes what the reference's
+one chunk does.  Scores are f32, as the reference's
 ``preferred_element_type=float32`` makes them.  With a sliding window the
 reference scans query chunks of 512 against only their band of KV chunks;
-here each query chunk takes one direct softmax over its band of keys, so
-no score outside ``window + chunk`` keys is ever built.  Weights are
+here each query chunk takes its band of keys only, so no score outside
+``window + chunk`` keys is ever built.  Weights are
 stored fused, ``(D, H*hd)``, and the cache is the reference's dict
 ``{k, v, pos}``: k/v ``(B, T, G, hd)``, pos ``(B, T)`` with -1 for empty
 slots; a windowed layer's cache of ``window`` slots is a ring, slot
@@ -21,6 +23,9 @@ Positions are rope (``rope_fraction`` of the head dim), M-RoPE (three
 position streams ``(3, B, S)``; the mask and the cache read the last one,
 ``positions[-1]``, as the reference's do) or none (sinusoidal, added to
 the embeddings by the model).  MLA is ``repro_torch.models.layers.mla``.
+The training forward (``attention_train``) is prefill's attention
+without the cache; under autograd each query chunk's attention is
+checkpointed.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.common import (
@@ -108,23 +114,38 @@ def causal_attention(q, k, v, q_positions, kv_positions, window: int | None = No
     """q (B,S,G,R,hd); k/v (B,T,G,hd); positions (B,S)/(B,T) -> (B,S,G,R,hd).
 
     Key ``j`` is seen by query ``i`` when ``kv_pos[j] <= q_pos[i]`` and,
-    with a ``window``, ``kv_pos[j] > q_pos[i] - window``.  Windowed, the
-    queries go in chunks of ``q_chunk``, each against its band of keys
-    only: for queries ``[lo, hi)`` the keys ``[lo - window + 1, hi)`` (the
-    band is taken by index, as the reference's static band of KV chunks
-    is, so keys and queries are one sequence at positions in order)."""
+    with a ``window``, ``kv_pos[j] > q_pos[i] - window``.  The queries go
+    in chunks of ``q_chunk``: full causal, each chunk against every key
+    (the mask decides, whatever the order of the positions); windowed,
+    the chunk ``[lo, hi)`` against only its band of keys ``[lo - window +
+    1, hi)`` (the band is taken by index, as the reference's static band of
+    KV chunks is, so keys and queries are one sequence at positions in
+    order).  Under autograd each chunk is checkpointed: its backward keeps
+    q, k, v and its output and recomputes its scores, so no score wider
+    than one chunk is ever kept (the reference's online softmax over KV
+    chunks of 512 keeps a chunk's scores per scan step)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if window is None:
-        mask = (kv_positions[:, None, :] <= q_positions[:, :, None])[:, None, :, None, :]
-        return _attend(q, k, v, mask, scale)
+    S, T = q.shape[1], k.shape[1]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     outs = []
-    for lo in range(0, q.shape[1], q_chunk):
-        hi = min(lo + q_chunk, q.shape[1])
-        k_lo = max(0, lo - window + 1)
-        qp, kp = q_positions[:, lo:hi, None], kv_positions[:, None, k_lo:hi]
-        mask = ((kp <= qp) & (kp > qp - window))[:, None, :, None, :]
-        outs.append(_attend(q[:, lo:hi], k[:, k_lo:hi], v[:, k_lo:hi], mask, scale))
+    for lo in range(0, S, q_chunk):
+        hi = min(lo + q_chunk, S)
+        k_lo, k_hi = (0, T) if window is None else (max(0, lo - window + 1), hi)
+        qp, kp = q_positions[:, lo:hi, None], kv_positions[:, None, k_lo:k_hi]
+        mask = kp <= qp
+        if window is not None:
+            mask = mask & (kp > qp - window)
+        args = (q[:, lo:hi], k[:, k_lo:k_hi], v[:, k_lo:k_hi], mask[:, None, :, None, :], scale)
+        outs.append(checkpoint(_attend, *args, use_reentrant=False) if grad else _attend(*args))
     return torch.cat(outs, dim=1)
+
+
+def attention_train(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The training forward: x (B,S,D) -> (B,S,D), no cache."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    qpos = positions[-1] if cfg.pos_emb == "mrope" else positions
+    out = causal_attention(q, k, v, qpos, qpos, window=cfg.window)
+    return out.reshape(*x.shape[:2], -1) @ p["wo_attn"]
 
 
 def attention_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, cache_len: int):

@@ -19,7 +19,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item 3)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item 4: the multi-device path)")
 
 
 # ---------------------------------------------------------------------------

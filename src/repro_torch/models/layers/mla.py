@@ -67,12 +67,13 @@ def _latents(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     return q_nope, q_rope, c_kv, k_rope
 
 
-def mla_expanded(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                 latents=None) -> torch.Tensor:
-    """The expanded path: per-head keys and values from the latent, the
-    rope key broadcast to every head, ``v`` padded to ``dn + dr`` so that
-    the shared causal attention (scaled by ``1/sqrt(dn + dr)``) runs, then
-    sliced back.  -> (B,S,D)."""
+def mla_train(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
+              latents=None) -> torch.Tensor:
+    """The expanded path, the training forward and prefill's: per-head
+    keys and values from the latent, the rope key broadcast to every head,
+    ``v`` padded to ``dn + dr`` so that the shared causal attention
+    (scaled by ``1/sqrt(dn + dr)``) runs, then sliced back; ``latents``
+    are ``_latents``' outputs where the caller has them.  -> (B,S,D)."""
     m = cfg.mla
     H = cfg.num_heads
     q_nope, q_rope, c_kv, k_rope = latents or _latents(p, x, cfg, positions)
@@ -91,7 +92,7 @@ def mla_expanded(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
 def mla_prefill(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, cache_len: int):
     """Prefill: -> (out (B,S,D), cache {ckv, kr, pos} padded to cache_len)."""
     latents = _latents(p, x, cfg, positions)
-    out = mla_expanded(p, x, positions, cfg, latents)
+    out = mla_train(p, x, positions, cfg, latents)
     _, _, c_kv, k_rope = latents
     pad = cache_len - x.shape[1]
     cache = {

@@ -12,9 +12,12 @@ Routers:
 * ``topk`` — softmax top-k with the Switch load-balancing aux loss.
 * ``sigmoid`` — DeepSeek-V3's: sigmoid scores plus the selection bias
   ``router_bias`` pick the top k, the gates are the picked scores
-  renormalised; no aux loss.  Equal selection scores go to the lower
-  expert id first, as ``lax.top_k`` orders them (a stable descending sort
-  here, since ``torch.topk`` promises no order among ties).
+  renormalised; no aux loss.
+
+Both score routers pick their k experts with a stable descending sort,
+so equal scores go to the lower expert id first, as ``lax.top_k`` orders
+them (``torch.topk`` promises no order among ties), and gather the gates
+from the scores.
 
 Shared experts (``shared_experts > 0``) are one dense MLP of width
 ``shared_experts * d_ff_expert`` added to every token's output.
@@ -73,6 +76,12 @@ def init_moe(gen, cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _top_k(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The ids of the ``k`` largest scores along the last axis, in
+    ``lax.top_k``'s order: descending, ties to the lower id."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def route(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg: ArchConfig):
     """-> expert_ids (B,S,K) int32, gates (B,S,K) f32, aux_loss (0-dim f32)."""
     check_supported(cfg)
@@ -86,20 +95,20 @@ def route(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg: Arc
             n = torch.tensor([E], dtype=torch.int32, device=kk.device)
             expert_ids = kernels.lookup_dyn(kk, n, m.router_hash_omega)
         else:  # one launch builds the keys and looks them up
-            expert_ids = kernels.lookup_router(token_ids, layer_salt, K, E, m.router_hash_omega)
+            expert_ids = kernels.lookup_router(token_ids.contiguous(), layer_salt, K, E,
+                                               m.router_hash_omega)
         return expert_ids, torch.full(expert_ids.shape, 1.0 / K, device=x.device), zero
 
     logits = x.float() @ p["router"]
     if m.router == "sigmoid":
         scores = torch.sigmoid(logits)
-        sel = scores + p["router_bias"]
-        # lax.top_k's order: descending, ties to the lower expert id
-        expert_ids = torch.sort(sel, dim=-1, descending=True, stable=True).indices[..., :K]
+        expert_ids = _top_k(scores + p["router_bias"], K)
         g = torch.gather(scores, -1, expert_ids)
         gates = g / g.sum(-1, keepdim=True).clamp(min=1e-9)
         return expert_ids.to(torch.int32), gates, zero  # aux-loss-free (bias balancing)
     probs = torch.softmax(logits, dim=-1)
-    g, expert_ids = torch.topk(probs, K, dim=-1)
+    expert_ids = _top_k(probs, K)
+    g = torch.gather(probs, -1, expert_ids)
     gates = g / g.sum(-1, keepdim=True).clamp(min=1e-9)
     # Switch-style load-balance loss
     me = probs.reshape(-1, E).mean(0)

@@ -1,28 +1,48 @@
-"""Model: init / prefill / cached decode — the counterpart of
-``repro.models.model`` for serving.
+"""Model: init / training loss / prefill / cached decode — the
+counterpart of ``repro.models.model``.
 
-Parameters are ``{"embed", "final_norm", "layers"}``: the reference's
-embedding and final-norm dicts, and one block dict per layer in order (the
-reference stacks each segment's layers along a scan axis; here a Python
-loop runs over the layers).  The cache is ``{"cur": int, "layers": [...]}``
-with one dict per layer (``{k, v, pos}`` for attention, ``{h, conv}`` for
-RG-LRU, ``{state, conv}`` for SSD).
+Serving takes parameters ``{"embed", "final_norm", "layers"}``: the
+reference's embedding and final-norm dicts, and one block dict per layer in
+order.  The cache is ``{"cur": int, "layers": [...]}`` with one dict per
+layer (``{k, v, pos}`` for attention, ``{h, conv}`` for RG-LRU, ``{state,
+conv}`` for SSD).
+
+Training holds the reference's stacked layout, ``{"embed", "final_norm",
+"seg{i}": {"sub{j}": leaves of shape (count, ...)}}`` (``stack_layers``;
+``per_layer`` gives the serving layout as views of it), because the
+reference's Adafactor, gradient compression and checkpoint keys all work
+per stacked leaf.  ``loss_fn`` runs the layers in a Python loop over views
+of the stacked leaves (one ``unbind`` per segment), so autograd
+accumulates each layer's gradient into its stacked leaf with no copy of
+the parameters.  ``cfg.remat`` picks the reference's rematerialisation:
+``"full"`` checkpoints each scan step and each cross-entropy chunk
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` saves only the
+matrix products' outputs (selective checkpointing); recomputation runs the
+same operators on the same inputs, so all three give the same numbers.
+The MoE router runs again in each recomputation (one more hash-router
+launch per MoE layer).
 
 With ``mtp_depth > 0`` (DeepSeek-V3) ``init_params`` also builds the
 reference's multi-token-prediction subtree ``params["mtp"]`` (two norms,
-the ``(2D, D)`` input projection, one block and a final norm), so that
-parameter trees and counts match; prefill and decode never read it, as in
-the reference, and its loss comes with training.
+the ``(2D, D)`` input projection, one block and a final norm); prefill and
+decode never read it, and the loss adds ``0.3 *`` its cross entropy on
+the next-but-one token, as the reference's does.
 
 Inputs are token ids (``{"tokens"}``) or, for the modality backbones,
 embeddings: ``{"embeds" (B,S,D)}`` and, for M-RoPE, ``{"positions"
-(3,B,S)}`` (a decode step takes ``{"embeds" (B,1,D)}``).  Sinusoidal
-positions are added to the embedded inputs.  Training (the loss and its
-backward) waits for a later slice.
+(3,B,S)}`` (a decode step takes ``{"embeds" (B,1,D)}``); training batches
+add ``{"targets" (B,S)}``, -1 for no target.  Sinusoidal positions are
+added to the embedded inputs.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
@@ -36,6 +56,7 @@ from repro_torch.models.layers.common import (
     torch_dtype,
     unembed,
 )
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 def init_mtp(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -66,16 +87,63 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return params
 
 
+def stack_layers(params, cfg: ArchConfig) -> dict:
+    """Per-layer parameters -> the reference's stacked layout: each
+    segment's layers stacked along a new first axis, ``params["seg{i}"]
+    ["sub{j}"]``, step ``s`` holding layer ``seg.base + s * len(seg.unit)
+    + j`` (a copy)."""
+    out = {"embed": params["embed"], "final_norm": params["final_norm"]}
+    for i, seg in enumerate(B.build_segments(cfg)):
+        out[f"seg{i}"] = {
+            f"sub{j}": tree_map(lambda *ls: torch.stack(ls),
+                                *(params["layers"][B.layer_index(seg, s, j)] for s in range(seg.count)))
+            for j in range(len(seg.unit))
+        }
+    if "mtp" in params:
+        out["mtp"] = params["mtp"]
+    return out
+
+
+def per_layer(params, cfg: ArchConfig) -> dict:
+    """The stacked layout -> ``{"embed", "final_norm", "layers"}`` (and
+    ``"mtp"``) for ``prefill`` and ``decode_step``: each layer's leaves are
+    views ``leaf[s]`` of the stacked leaves, no copy."""
+    layers: list = [None] * cfg.num_layers
+    for i, seg in enumerate(B.build_segments(cfg)):
+        for j in range(len(seg.unit)):
+            for s, layer in enumerate(_unbind(params[f"seg{i}"][f"sub{j}"], seg.count)):
+                layers[B.layer_index(seg, s, j)] = layer
+    out = {"embed": params["embed"], "final_norm": params["final_norm"], "layers": layers}
+    if "mtp" in params:
+        out["mtp"] = params["mtp"]
+    return out
+
+
+def init_train_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """``init_params`` in the stacked layout of training."""
+    return stack_layers(init_params(gen, cfg), cfg)
+
+
+def count_params(params) -> int:
+    return int(sum(leaf.numel() for leaf in leaves(params)))
+
+
+def active_params(cfg: ArchConfig, params) -> int:
+    """Parameters touched per token (MoE: top_k + shared experts only)."""
+    total = count_params(params)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = cfg.d_model * m.d_ff_expert * 3
+    n_moe_layers = sum(1 for k in cfg.layer_kinds() if k == "attn_moe")
+    if cfg.mtp_depth > 0:
+        n_moe_layers += 1
+    return total - n_moe_layers * (m.num_experts - m.top_k) * per_expert
+
+
 def params_to(params, device) -> dict:
     """A copy of ``params`` on ``device``."""
-    def move(x):
-        if isinstance(x, dict):
-            return {k: move(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [move(v) for v in x]
-        return x.to(device)
-
-    return move(params)
+    return tree_map(lambda t: t.to(device), params)
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig):
@@ -102,6 +170,127 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
         pos1 = positions if positions.ndim == 2 else positions[-1]
         x = x + sinusoidal_pos_emb(pos1, cfg.d_model).to(x.dtype)
     return x, positions, token_ids
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss
+# ---------------------------------------------------------------------------
+
+#: the products ``"dots"`` remat saves (``jax.checkpoint_policies
+#: .checkpoint_dots``); every other output is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under ``cfg.remat``: ``"none"`` as it is, ``"full"``
+    checkpointed (its inputs kept, the rest recomputed in the backward),
+    ``"dots"`` keeping the matrix products' outputs too."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    context_fn = noop_context_fn
+    if cfg.remat == "dots":
+        def context_fn():
+            return create_selective_checkpoint_contexts(_save_dots)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return remat
+
+
+def _unbind(sub, count: int) -> list:
+    """A stacked sub-block's tree -> one tree of views per scan step (one
+    ``unbind`` per leaf, whose backward stacks the steps' gradients)."""
+    flat = leaves(sub)
+    views = [leaf.unbind(0) for leaf in flat]
+    return [unflatten(sub, [v[s] for v in views]) for s in range(count)]
+
+
+def trunk_train(params, batch, cfg: ArchConfig):
+    """-> (hidden (B,S,D) after the final norm, aux loss, positions,
+    token ids), over the stacked parameters."""
+    x, positions, token_ids = _embed_inputs(params, batch, cfg)
+    aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, seg in enumerate(B.build_segments(cfg)):
+        steps = [_unbind(params[f"seg{i}"][f"sub{j}"], seg.count) for j in range(len(seg.unit))]
+
+        def unit_fn(x, step, seg=seg, steps=steps):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for j, kind in enumerate(seg.unit):
+                p = steps[j][step]
+                x, a = B.block_train(p, kind, x, positions, token_ids, B.layer_index(seg, step, j), cfg)
+                aux = aux + a
+            return x, aux
+
+        unit = _remat(unit_fn, cfg)
+        seg_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for step in range(seg.count):
+            x, aux = unit(x, step)
+            seg_aux = seg_aux + aux
+        aux_tot = aux_tot + seg_aux
+    return apply_norm(params["final_norm"], x, cfg), aux_tot, positions, token_ids
+
+
+def chunked_ce(params, hidden, targets, cfg: ArchConfig, chunk: int = 512) -> torch.Tensor:
+    """Mean cross entropy over the valid (target >= 0) tokens; the vocab
+    logits (f32) of one chunk of the sequence at a time, the chunk the
+    largest divisor of S up to ``chunk`` and each one's loss under
+    ``_remat``."""
+    Bsz, S, D = hidden.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+
+    def chunk_loss(h_c, t_c):
+        logits = unembed(params["embed"], h_c, cfg)  # f32 (B,c,V)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, t_c.clamp(min=0).long()[..., None])[..., 0]
+        valid = (t_c >= 0).float()
+        return ((lse - ll) * valid).sum(), valid.sum()
+
+    chunk_loss = _remat(chunk_loss, cfg)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, S, chunk):
+        loss, n = chunk_loss(hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk])
+        tot, cnt = tot + loss, cnt + n
+    return tot / cnt.clamp(min=1.0)
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """-> (loss, metrics {ce, aux, [mtp_ce], loss}) over the stacked
+    parameters: the mean cross entropy plus the MoE aux loss, plus ``0.3 *
+    mtp_ce`` where the model has an MTP module (its block at salt 9999)."""
+    hidden, aux, positions, token_ids = trunk_train(params, batch, cfg)
+    targets = batch["targets"]
+    ce = chunked_ce(params, hidden, targets, cfg)
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth > 0 and "mtp" in params:
+        mtp = params["mtp"]
+        emb = embed_tokens(params["embed"], batch["tokens"], cfg)
+        emb_next = torch.nn.functional.pad(emb[:, 1:], (0, 0, 0, 1))
+        h_in = torch.cat([apply_norm(mtp["norm_h"], hidden, cfg),
+                          apply_norm(mtp["norm_e"], emb_next, cfg)], dim=-1)
+        h_in = h_in @ mtp["in_proj_mtp"]
+        kind = "attn_moe" if cfg.moe else "attn"
+        h_mtp, _ = B.block_train(mtp["block"], kind, h_in, positions, token_ids, 9999, cfg)
+        h_mtp = apply_norm(mtp["final_norm"], h_mtp, cfg)
+        t_mtp = torch.nn.functional.pad(targets[:, 1:], (0, 1), value=-1)
+        mtp_ce = chunked_ce(params, h_mtp, t_mtp, cfg)
+        loss = loss + 0.3 * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:

@@ -13,7 +13,7 @@ Runs on the CUDA device unless ``device`` names another (``"cpu"`` runs the
 kernels' plain versions).  ``attach_lifecycle`` wraps the router in a
 ``LifecycleManager``: heartbeats then flow through ``heartbeat``, every
 ``serve`` ticks the failure detector first, and fleet events are journaled.
-Not ported yet: ``mesh`` and ``router_spec`` (ROADMAP Queue 1, item 5).
+Not ported yet: ``mesh`` and ``router_spec`` (ROADMAP Queue 1, item 4).
 """
 from __future__ import annotations
 

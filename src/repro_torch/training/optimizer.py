@@ -1,0 +1,182 @@
+"""Optimizers over trees of tensors, AdamW and Adafactor, and the
+warmup-cosine schedule — the counterparts of ``repro.training.optimizer``
+on one device.
+
+Each update works leaf by leaf and **in place**: ``update`` writes the new
+moments, master weights and parameters into the tensors it is given and
+returns the same trees (the reference returns new ones).  AdamW walks each
+leaf in flat slices of at most ``SLICE`` elements, so its float32
+temporaries never exceed a few slices however large a leaf is (a
+full-width MoE layer's experts are one leaf of 0.8 G elements); the update
+is elementwise, so slicing changes no number.  Adafactor's factored
+moments and its update clip are per stacked leaf, as the reference's are,
+so it takes each leaf whole.
+
+Scalars (the learning rate, the bias corrections) are float32 0-dim
+tensors on the parameters' device, computed as the reference's ``jnp``
+float32 arithmetic does, and every division by one divides by a tensor
+(torch turns a division by a Python scalar into a multiplication by its
+reciprocal, which rounds twice).  ``zero1_pspecs`` belongs to the
+multi-device path, which is not ported.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.tree import leaves, tree_map
+
+#: the most elements of one leaf that one slice of an AdamW update holds
+SLICE = 1 << 26
+
+
+def _f32(value, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def flat_slices(*tensors: torch.Tensor, size: int = SLICE):
+    """Yield matching flat slices (views) of same-shaped contiguous
+    tensors, ``size`` elements at a time."""
+    flat = [t.view(-1) for t in tensors]
+    n = flat[0].numel()
+    for lo in range(0, n, size):
+        yield tuple(f[lo:lo + size] for f in flat)
+
+
+# ---------------------------------------------------------------------------
+# schedules
+# ---------------------------------------------------------------------------
+
+
+def warmup_cosine(base_lr: float, warmup: int, total: int, final_frac: float = 0.1):
+    """-> ``lr(step)``: a float32 0-dim tensor on the step's device (a
+    Python int step gives one on the CPU); linear warmup from 0, then a
+    cosine to ``final_frac * base_lr`` at ``total``."""
+
+    def lr(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        c = lambda v: _f32(v, step)  # noqa: E731
+        warm = c(base_lr) * step / c(max(warmup, 1))
+        prog = ((step - c(warmup)) / c(max(total - warmup, 1))).clamp(0.0, 1.0)
+        cos = c(final_frac) + c((1 - final_frac) * 0.5) * (c(1.0) + torch.cos(c(math.pi) * prog))
+        return torch.where(step < c(warmup), warm, c(base_lr) * cos)
+
+    return lr
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AdamW:
+    lr_fn: Callable
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    master_weights: bool = True
+
+    def init(self, params):
+        """{"m", "v"} float32 zeros like ``params`` and, with master
+        weights, {"master"}: a float32 copy of them."""
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        st = {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+        if self.master_weights:
+            st["master"] = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
+        return st
+
+    def update(self, grads, state, params, step):
+        """One step, in place: -> (params, state)."""
+        flat_p = leaves(params)
+        lr = self.lr_fn(step).to(flat_p[0].device)
+        t = torch.as_tensor(step, device=lr.device).to(torch.float32) + 1.0
+        c1 = _f32(1.0, lr) - _f32(self.b1, lr) ** t
+        c2 = _f32(1.0, lr) - _f32(self.b2, lr) ** t
+        lr_wd = lr * _f32(self.weight_decay, lr)
+        refs = leaves(state["master"]) if self.master_weights else [None] * len(flat_p)
+        with torch.no_grad():
+            for g, m, v, ref, p in zip(leaves(grads), leaves(state["m"]), leaves(state["v"]),
+                                       refs, flat_p):
+                pieces = (g, m, v, p) if ref is None else (g, m, v, p, ref)
+                for sl in flat_slices(*(x.contiguous() if x is g else x for x in pieces)):
+                    g_s, m_s, v_s, p_s = sl[:4]
+                    r_s = p_s.float() if ref is None else sl[4]
+                    g_s = g_s.float()
+                    m_s.mul_(self.b1).add_(g_s * (1 - self.b1))
+                    v_s.mul_(self.b2).add_(g_s.square().mul_(1 - self.b2))
+                    u = (m_s / c1).mul_(lr).div_((v_s / c2).sqrt_().add_(self.eps))
+                    decay = r_s * lr_wd
+                    r_s.sub_(u).sub_(decay)
+                    p_s.copy_(r_s)
+        return params, state
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment; memory ~ O(rows + cols))
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Adafactor:
+    lr_fn: Callable
+    decay: float = 0.8
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+    weight_decay: float = 0.0
+
+    def _factored(self, shape) -> bool:
+        return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+    def init(self, params):
+        """{"f": one state dict per leaf, in flatten order}: {"vr", "vc"}
+        for a factored leaf, {"v"} otherwise (float32 zeros)."""
+        def leaf(p):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32, device=p.device)  # noqa: E731
+            if self._factored(p.shape):
+                return {"vr": z(p.shape[:-1]), "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+
+        return {"f": [leaf(p) for p in leaves(params)]}
+
+    def update(self, grads, state, params, step):
+        """One step, in place: -> (params, state)."""
+        flat_p = leaves(params)
+        lr = self.lr_fn(step).to(flat_p[0].device)
+        c = lambda v: _f32(v, lr)  # noqa: E731
+        t = torch.as_tensor(step, device=lr.device).to(torch.float32) + 1.0
+        beta = c(1.0) - t ** c(-self.decay)
+        keep = c(1.0) - beta
+        with torch.no_grad():
+            for g, st, p in zip(leaves(grads), state["f"], flat_p):
+                g = g.float()
+                g2 = g.square().add_(self.eps)
+                if "vr" in st:
+                    vr, vc = st["vr"], st["vc"]
+                    vr.mul_(beta).add_(g2.mean(-1).mul_(keep))
+                    vc.mul_(beta).add_(g2.mean(-2).mul_(keep))
+                    row_mean = vr.mean(-1, keepdim=True)[..., None].clamp(min=self.eps)
+                    denom = (vr[..., None] * vc[..., None, :] / row_mean).sqrt_()
+                    u = g / denom.clamp_(min=self.eps)
+                else:
+                    st["v"].mul_(beta).add_(g2.mul_(keep))
+                    u = g / st["v"].sqrt()
+                rms = (u.square().mean() + c(self.eps)).sqrt()
+                u.div_((rms / c(self.clip_threshold)).clamp(min=1.0))
+                pf = p.float()
+                decay = lr * c(self.weight_decay) * pf
+                p.copy_(pf.sub_(u.mul_(lr)).sub_(decay))
+        return params, state
+
+
+def make_optimizer(name: str, lr: float = 3e-4, warmup: int = 100, total: int = 10000, **kw):
+    sched = warmup_cosine(lr, warmup, total)
+    if name == "adamw":
+        return AdamW(sched, **kw)
+    if name == "adafactor":
+        return Adafactor(sched, **kw)
+    raise KeyError(name)

@@ -15,7 +15,9 @@ the chain-mode remap (``chain_remap``) against its plain version and the
 scalar chain oracle, a reduced DeepSeek-V3 ``ServingTier`` (MLA, the
 hash router, shared experts) on the card against the same tier on the CPU,
 and the reduced Starcoder2, RecurrentGemma and Mamba2 tiers and the
-MusicGen and Qwen2-VL embeds models on the card against the CPU.
+MusicGen and Qwen2-VL embeds models on the card against the CPU, one
+train step of the reduced hash-routed Qwen3 on the card against the CPU,
+and a bf16 checkpoint round trip on the card.
 Needs a CUDA card and ``nvcc``; skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
@@ -616,3 +618,85 @@ def test_embeds_family_on_card(cuda, arch):
             steps.append(logits.cpu())
         results.append(torch.stack(steps))
     np.testing.assert_allclose(results[0].numpy(), results[1].numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_train_step_on_card_matches_cpu(cuda, engine):
+    """One AdamW step of the reduced hash-routed Qwen3 (grad_accum 2, an
+    active clip, int8 compression) on the card against the CPU: every state
+    leaf and metric within 1e-4 of max(1, |CPU|); the forward launched
+    lookup_router once per MoE layer and microbatch."""
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import TrainHparams, make_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router="hash",
+                                                           router_hash_engine=engine))
+    params = M.init_train_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab_size, size=(4, 17)))
+    batch = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+    hp = TrainHparams(grad_accum=2, clip_norm=0.05, compression="int8")
+    kernels = BULK_ENGINES[engine].kernels
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        opt = make_optimizer("adamw", lr=1e-3, warmup=0, total=10)
+        state = make_train_state(tree_map(lambda t: t.to(dev, copy=True), params), opt, hp)
+        kernels.reset_launches()
+        out[dev.type] = make_train_step(cfg, opt, hp)(state, {k: v.to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            n_moe = sum(k == "attn_moe" for k in cfg.layer_kinds())
+            assert kernels.launches["lookup_vec"] == n_moe * hp.grad_accum
+    (got, gm), (want, wm) = out["cuda"], out["cpu"]
+    for k in wm:
+        np.testing.assert_allclose(gm[k].cpu().numpy(), wm[k].numpy(), atol=1e-4, rtol=1e-4)
+    # int8 rounds each element to a level of its leaf's quantum (max|g|/127,
+    # at least twice the largest residual): where the two devices' gradients
+    # straddle a rounding boundary, one element's level differs by one, its
+    # residual by a quantum (more than half the largest residual), and
+    # Adam's first step, near lr * sign(g), may move that element by up to
+    # the learning rate more or less; every other element within 1e-4
+    pairs = [(k, a.cpu().double(), b.double()) for (k, a), (_, b) in
+             zip(flatten_with_path(got), flatten_with_path(want))]
+    flipped = {}
+    for key, a, b in pairs:
+        if key.startswith("['comp_err']"):
+            d, top = (a - b).abs(), float(b.abs().max())
+            off = d > top / 2
+            assert int(off.sum()) <= max(1, b.numel() // 1000), key
+            assert float(d.max()) <= 2 * top * (1 + 1e-3) + 1e-4, key
+            flipped[key.removeprefix("['comp_err']")] = off
+    for key, a, b in pairs:
+        path = next((key.removeprefix(p) for p in ("['comp_err']", "['params']", "['opt']['m']",
+                                                   "['opt']['v']", "['opt']['master']")
+                     if key.startswith(p)), None)
+        off = flipped.get(path, torch.zeros(b.shape, dtype=torch.bool))
+        d = (a - b).abs()
+        assert float(torch.where(off, 0.0, d).max()) <= 1e-4 * max(1.0, float(b.abs().max())), key
+        assert float(torch.where(off, d, 0.0).max()) <= 10 * 1e-3, key
+
+
+def test_bf16_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A bf16 train state on the card saved and restored onto the card:
+    every leaf bit for bit, dtype and device kept."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import make_train_state
+    from repro_torch.tree import flatten_with_path
+
+    cfg = dataclasses.replace(reduced_config("deepseek-v3-671b"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = M.init_train_params(torch.Generator(cuda).manual_seed(0), cfg)
+    state = make_train_state(params, make_optimizer("adamw"))
+    mgr = CheckpointManager(str(tmp_path), n_nodes=3)
+    mgr.save(2, state)
+    back = mgr.restore(mgr.latest_step(), state)
+    n_bf16 = 0
+    for (key, a), (_, b) in zip(flatten_with_path(back), flatten_with_path(state)):
+        assert a.dtype == b.dtype and a.device == b.device, key
+        if a.dtype == torch.bfloat16:
+            n_bf16 += 1
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), key
+    assert n_bf16 > 0

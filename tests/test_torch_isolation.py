@@ -47,7 +47,10 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.serving.streaming.frontend", "repro_torch.core.baselines",
             "repro_torch.core.analysis", "repro_torch.analysis.markers",
             "repro_torch.models.layers.mla", "repro_torch.models.layers.rglru",
-            "repro_torch.models.layers.ssd"} <= set(mods)
+            "repro_torch.models.layers.ssd", "repro_torch.tree", "repro_torch.training.optimizer",
+            "repro_torch.training.compression", "repro_torch.training.train_step",
+            "repro_torch.training.checkpoint", "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
