@@ -15,6 +15,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
 1. the card (``nvidia-smi`` name and power limit), the build time and each
    kernel's registers (``-Xptxas -v``), the PTX check (the jump step's
    ``div.rn.f32``) and the SASS size of each kernel;
+   "certify": the constant-time certifier (``repro_torch.analysis``) on
+   CUDA for both engines: every graph target at the contract's shapes
+   (the ``/cuda`` ones through the kernels, nothing skipped, the chain
+   baseline waived), the lint, and the SASS gate on the built kernels
+   (every back edge a tagged loop or the compiler's own, healthy and storm
+   fleets flat, also on the serving fleet of 1000 in 1024 with 250 failed
+   at 2^20 keys, each function within its SASS budget); one summary line,
+   the JSON report under ``ct-report/``;
 2. every kernel instance (route, ingest, lookup_dyn, lookup_vec x
    binomial, jump) against its plain torch version on the card,
    bit-exact, at 2^20 keys over several fleets (lookup_dyn also at n <= 1,
@@ -113,7 +121,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      recomputation), every expert id equal to the plain lookup's, the
      step-0 loss near ln V and falling, the training forward's
      last-token logits against ``prefill``'s; ms a step, tokens/s, peak
-     memory and the step's floor, and one profiled step; then the launcher
+     memory and the step's floor, one more step under
+     ``repro_torch.roofline.analyze`` (its counted FLOPs beside the
+     floor's reckoned ones), and one profiled step; then the launcher
      ``python -m repro_torch.launch.train`` (the 100m preset, 20 steps,
      then resumed to 30 from its checkpoint) and a bf16 checkpoint round
      trip on the card;
@@ -196,6 +206,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+if not (ROOT / "src" / "repro_torch").is_dir():
+    sys.exit("chip_smoke: run from a checkout of the repository")
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.analysis.sass_gate import FUNCTIONS  # noqa: E402
+from repro_torch.roofline import hw  # noqa: E402
+
 SRC = "src/repro_torch/kernels/csrc/routing.cu"
 #: the TPU kernels replaced: each kind's pallas_call in the JAX package
 REPLACES = {
@@ -217,18 +234,6 @@ ENGINES = ("binomial", "jump")
 #: the kernels that read a fleet (the routing datapath), and all kernels
 FLEET_KINDS = ("route", "ingest", "lookup_dyn")
 KINDS = (*FLEET_KINDS, "lookup_vec")
-#: H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM3 at
-#: 3.35 TB/s; 67 TFLOP/s fp32 outside the tensor cores counts an FMA as two,
-#: so 33.5e12 32-bit lane instructions/s (132 SMs x 128 lanes x 1.98 GHz).
-#: That is also the SM's issue rate — each of its four schedulers issues at
-#: most one 32-lane warp instruction per clock — so no instruction mix runs
-#: faster.  The integer ALU instructions these kernels mostly run (IADD3,
-#: LOP3, SHF, ISETP) issue at half that rate on their own pipe, but the
-#: split of the rest (IMAD, FFMA, MUFU, branches, uniform ops) over pipes is
-#: not documented, so the bound takes the issue rate: a floor, looser than a
-#: per-pipe count would be.
-HBM_BYTES_S = 3.35e12
-LANE_INSTR_S = 67e12 / 2
 #: The per-key SASS instruction counts of the kernels' first build (the
 #: yardstick): counted by hand along the common path in ``cuobjdump -sass``
 #: of that sm_90a build (CUDA 12.9), whose kernels ran one thread per key
@@ -294,24 +299,6 @@ SASS_STATIC = {
     # the chain-mode remap, one function for both engines
     ("binomial", "chain_remap"): 768, ("jump", "chain_remap"): 768,
 }
-#: each kernel instance's mangled name in the library, up to its parameters
-FUNCTIONS = {
-    (engine, kind): name.format(E=mangled)
-    for engine, mangled in (("binomial", "8Binomial"), ("jump", "4Jump"))
-    for kind, name in (
-        ("route", "_ZN7routing12route_kernelINS_{E}ENS_9KeySourceEEEv"),
-        ("ingest", "_ZN7routing12route_kernelINS_{E}ENS_8IdSourceEEEv"),
-        ("lookup_dyn", "_ZN7routing17lookup_dyn_kernelINS_{E}EEEv"),
-        ("lookup_vec", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_9KeySourceEEEv"),
-        ("lookup_router", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_15RouterKeySourceEEEv"),
-        ("route_family", "_ZN7routing12route_kernelINS_{E}ENS_15FamilyKeySourceEEEv"),
-        ("resolve", "_ZN7routing14resolve_kernelILb1EEEv"),  # one function for both engines
-        ("resolve_rows", "_ZN7routing14resolve_kernelILb0EEEv"),
-        ("route_load", "_ZN7routing17route_load_kernelINS_{E}ELb1EEEv"),
-        ("route_load_global", "_ZN7routing17route_load_kernelINS_{E}ELb0EEEv"),
-        ("chain_remap", "_ZN7routing18chain_remap_kernelE"),  # one function for both engines
-    )
-}
 #: bytes each kernel must move per key: keys (or two id halves) in, ids out
 BYTES_PER_KEY = {"route": 8, "ingest": 12, "lookup_dyn": 8, "lookup_vec": 8}
 #: the placement kernels: the route kernel over a key's r salted families
@@ -368,20 +355,65 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_sizes(lib: Path, nvcc: str) -> dict[str, int]:
-    """Static SASS instruction count of each kernel in the library."""
-    tool = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    sizes, name = {}, None
-    for line in text.splitlines():
-        s = line.strip()
-        if s.startswith("Function :"):
-            name = s.split(":", 1)[1].strip()
-            sizes[name] = 0
-        elif name and s.startswith("/*") and "*/" in s and s[2:6].isalnum() and ";" in s:
-            sizes[name] += 1
-    return sizes
+# --- the constant-time certificate -------------------------------------------
+
+#: where the certify phase writes its JSON report (git ignores it)
+CT_REPORT = ROOT / "ct-report" / "chip_smoke.json"
+
+
+def phase_certify(card: str) -> None:
+    """The constant-time certifier (``repro_torch.analysis``) on the card:
+    layer 1 over every target of both engines (the ``/cuda`` ones and the
+    composite paths through the kernels), the lint, and the SASS gate on
+    this build.  Fails on any unwaived failure, on a target none of whose
+    checks ran, and on any skipped SASS check."""
+    from repro_torch.analysis.certify import certify_all
+    from repro_torch.analysis.lint import lint_paths
+    from repro_torch.analysis.report import FAIL, SKIPPED, WAIVED
+    from repro_torch.analysis.sass_gate import gate_all, loop_table
+
+    t0 = time.perf_counter()
+    report = certify_all(device="cuda")
+    report.lint = lint_paths()
+    report.sass = gate_all(device="cuda")
+    seconds = time.perf_counter() - t0
+    CT_REPORT.parent.mkdir(exist_ok=True)
+    CT_REPORT.write_text(report.to_json() + "\n")
+    verdicts = {}
+    for t in report.targets:
+        statuses = {c.status for c in t.checks}
+        verdicts[f"{t.engine} {t.target}"] = (
+            "fail" if FAIL in statuses else "skipped" if statuses == {SKIPPED}
+            else "waived" if WAIVED in statuses else "pass")
+    counts = {v: sum(x == v for x in verdicts.values()) for v in ("pass", "waived", "fail", "skipped")}
+    sass_skipped = [f"{s.engine} {c.invariant}" for s in report.sass for c in s.checks
+                    if c.status == SKIPPED]
+    seen, edges = set(), []
+    for (engine, kind), prefix in FUNCTIONS.items():
+        if prefix in seen:
+            continue
+        seen.add(prefix)
+        fl = loop_table([(engine, kind)])[f"{kind}[{engine}]"]
+        tags = " ".join(f"{b}x{n}" for b, n in sorted(fl.bounds().items()))
+        label = kind if kind in ("resolve", "resolve_rows", "chain_remap") else f"{kind}[{engine}]"
+        edges.append(f"{label} {tags} +{fl.rejoins} rejoin +{fl.pads} pad")
+    print(f"phase 1 certify: {len(verdicts)} targets on cuda: {counts['pass']} pass, "
+          f"{counts['waived']} waived ({', '.join(k for k, v in verdicts.items() if v == 'waived')}), "
+          f"{counts['fail']} fail, {counts['skipped']} skipped; lint "
+          f"{'clean' if not report.lint else f'{len(report.lint)} findings'}; SASS gate "
+          + ", ".join(f"{s.engine} {'ok' if s.ok else 'FAIL'}" for s in report.sass)
+          + "; back edges by function (loops by their ct-loop bound, then the compiler's rejoins "
+          "and pads): " + "; ".join(edges)
+          + f"; {seconds:.1f} s; report {CT_REPORT.relative_to(ROOT)} on {card}")
+    for s in report.sass:
+        for c in s.checks:
+            if c.invariant == "sass-severity-flat":
+                print(f"phase 1 certify {s.engine} {c.invariant} {c.status}: {c.detail}")
+    if not report.ok or counts["skipped"] or sass_skipped:
+        print(report.render())
+        fail(f"certify: {counts['fail']} targets failed, {counts['skipped']} skipped, lint "
+             f"{len(report.lint)} findings, SASS checks skipped {sass_skipped}, SASS gate "
+             f"{[s.engine for s in report.sass if not s.ok]} failed")
 
 
 # --- fleets -----------------------------------------------------------------
@@ -1370,7 +1402,7 @@ def init_full_width(base, card: str, what: str, reckoned: str):
     torch.cuda.synchronize()
     init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     held = tree_bytes(params)
-    step_floor_ms = floor_bytes(base, params) / HBM_BYTES_S * 1e3
+    step_floor_ms = floor_bytes(base, params) / hw.HBM_BW * 1e3
     print(f"phase 3 {what}: random weights in {init_s:.2f} s; parameters {held / 1e9:.3f} GB "
           f"(reckoned: {reckoned}); init peak {init_peak / 1e9:.3f} GB on {card}")
     return params, held, step_floor_ms
@@ -1457,7 +1489,7 @@ def serve_engines(tag: str, base, params, held: int, step_floor_ms: float, card:
                           f"{w * 1e3 / n:.2f} ms per step)" for w, n in zip(walls, steps))
               + f" [first call, then after the failure]; floor per step {step_floor_ms:.2f} ms "
               f"(every weight read once, the input embedding table only where it is the "
-              f"unembedding, at {HBM_BYTES_S / 1e12} TB/s); "
+              f"unembedding, at {hw.HBM_BW / 1e12} TB/s); "
               f"peak memory {peak / 1e9:.3f} GB (parameters {held / 1e9:.3f} GB) on {card}")
         if extra is not None:
             extra(cfg, engine)
@@ -1681,12 +1713,12 @@ def decode_against_forward(arch: str, cfg, params, card: str) -> dict:
     windowed = [c for c in cache["layers"] if "pos" in c and c["pos"].shape[1] < L]
     ring = (f"ring caches of {windowed[0]['pos'].shape[1]} slots in {len(windowed)} layers"
             if windowed else "no ring cache")
-    floor_ms = (floor_bytes(cfg, params) + cache_bytes) / HBM_BYTES_S * 1e3
+    floor_ms = (floor_bytes(cfg, params) + cache_bytes) / hw.HBM_BW * 1e3
     print(f"phase 3 {arch} long prompt, {cfg.dtype}: {FAMILY_SEQS} x {L} positions"
           + (f" (forward pass SSD chunk {fwd_cfg.ssm.chunk})" if fwd_cfg is not cfg else "")
           + f", {ring}; prefill {prefill_ms:.1f} ms; {n} decode steps {decode_ms:.2f} ms each "
           f"({FAMILY_SEQS / decode_ms * 1e3:.1f} new tokens/s; floor {floor_ms:.2f} ms: the "
-          f"weights and {cache_bytes / 1e6:.1f} MB of caches at {HBM_BYTES_S / 1e12} TB/s); "
+          f"weights and {cache_bytes / 1e6:.1f} MB of caches at {hw.HBM_BW / 1e12} TB/s); "
           f"against the forward pass, prefill then each step, relative L2 "
           + ", ".join(f"{r:.3g}" for r in rel)
           + f"; max |diff| {max_abs:.3g} of max |logit| {float(want.abs().max()):.3f}; greedy "
@@ -1811,8 +1843,6 @@ TRAIN_ROUTES_PER_LAYER = 2
 #: written (4), the bf16 gradient read (2), the float32 master, m and v
 #: read and written (24)
 OPT_BYTES = 30
-#: the bf16 peak (NVIDIA's data sheet, dense, at 700 W)
-BF16_FLOP_S = 989e12
 
 
 def to_device(tree, device):
@@ -1905,7 +1935,7 @@ def check_small_training() -> None:
 def train_floor(cfg, n_params: int, expert_ids: torch.Tensor) -> dict:
     """The least time one training step at full width could take: the
     larger of its products' FLOPs at the bf16 peak and the bytes it must
-    move at ``HBM_BYTES_S``.  FLOPs: three times the forward's products
+    move at ``hw.HBM_BW``.  FLOPs: three times the forward's products
     (the forward, then the gradients of inputs and weights; remat's
     recomputation not counted): attention's projections, its scores and
     values over the causal pairs only, the experts' three products over
@@ -1926,9 +1956,37 @@ def train_floor(cfg, n_params: int, expert_ids: torch.Tensor) -> dict:
                                 + kept * 2 * 3 * D * m.d_ff_expert) + 2 * T * D * cfg.padded_vocab
     flops = 3 * forward
     nbytes = n_params * (2 + 2 + 2 + OPT_BYTES)
-    flop_ms, byte_ms = flops / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+    flop_ms, byte_ms = flops / hw.PEAK_FLOPS_BF16 * 1e3, nbytes / hw.HBM_BW * 1e3
     return dict(flops=flops, bytes=nbytes, kept=kept, flop_ms=flop_ms, byte_ms=byte_ms,
                 floor_ms=max(flop_ms, byte_ms), bound_by="bytes" if byte_ms >= flop_ms else "operations")
+
+
+def roofline_train_step(tag: str, step, state, batch, floor: dict, card: str):
+    """One more step under ``repro_torch.roofline.analyze``: the FLOPs its
+    aten products count (this run's shapes) beside the ones ``train_floor``
+    reckons.  Remat "full" recomputes the whole forward in the backward
+    (each layer and each cross-entropy chunk, the unembedding included), so
+    the counted products come to 4/3 of the reckoned three forwards, plus
+    what the port computes and the reckoning leaves out: the scores of
+    every query-key pair (not only the causal half), once more for the
+    attention's per-query-chunk checkpoint, and the experts' padded
+    capacity buffers (not only the kept assignments).  -> the state after
+    the step."""
+    from repro_torch.roofline.analysis import analyze
+
+    out = {}
+    roof = analyze(lambda: out.update(step=step(state, batch)), model_flops_total=floor["flops"])
+    torch.cuda.synchronize()
+    print(f"phase 3 {tag} roofline (repro_torch.roofline.analyze of one step): "
+          f"{roof.flops / 1e12:.3f} TFLOP counted over the step's matrix products (torch's flop "
+          f"counter: {roof.raw_flops / 1e12:.3f}) against {floor['flops'] / 1e12:.3f} reckoned, "
+          f"{roof.flops / floor['flops']:.4f} of it (remat full recomputes the forward: 4/3 of "
+          f"the reckoned three forwards, plus the full score squares, once more for the "
+          f"attention chunks' checkpoint, and the capacity buffers); "
+          f"{roof.hbm_bytes / 1e9:.1f} GB at tensor granularity; compute term "
+          f"{roof.compute_s * 1e3:.2f} ms at {hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s, memory term "
+          f"{roof.memory_s * 1e3:.2f} ms at {hw.HBM_BW / 1e12} TB/s ({roof.dominant}) on {card}")
+    return out["step"][0]
 
 
 def check_train_forward(cfg, params, batch) -> float:
@@ -2069,8 +2127,8 @@ def train_full_width(card: str) -> dict:
               f"of steps 2-{TRAIN_STEPS}; all: " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
               + f"), {tokens / ms * 1e3:,.0f} tokens/s; peak memory {peak / 1e9:.3f} GB; floor "
               f"{floor['floor_ms']:.2f} ms ({floor['bound_by']}: {floor['flops'] / 1e12:.2f} TFLOP "
-              f"at {BF16_FLOP_S / 1e12:.0f} TFLOP/s = {floor['flop_ms']:.2f} ms, "
-              f"{floor['bytes'] / 1e9:.1f} GB at {HBM_BYTES_S / 1e12} TB/s = "
+              f"at {hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s = {floor['flop_ms']:.2f} ms, "
+              f"{floor['bytes'] / 1e9:.1f} GB at {hw.HBM_BW / 1e12} TB/s = "
               f"{floor['byte_ms']:.2f} ms; {floor['kept']} expert assignments kept of "
               f"{tokens * m.top_k}), {floor['floor_ms'] / ms:.3f} of it; lookup_router "
               f"{launches[engine]['lookup_router'] / TRAIN_STEPS:g} launches a step "
@@ -2078,6 +2136,8 @@ def train_full_width(card: str) -> dict:
               f"recomputation), every expert id (2, {TRAIN_SEQ}, {m.top_k}) equal to the plain "
               f"lookup's; step-0 training forward vs prefill, last-token logits, bf16 relative L2 "
               f"{rel:.4f} (gate {FAMILY_BF16_TOL}) on {card}")
+        state = roofline_train_step(f"train {TRAIN_ARCH}[{engine}]", step, state, batch, floor,
+                                    card)
         state = profile_train_step(f"train {TRAIN_ARCH}[{engine}]", step, state, batch,
                                    floor["floor_ms"], card)
         del state, step, opt
@@ -2767,8 +2827,8 @@ def bound(engine, kind, keys, fleet, n_vec: int = VEC_N_TIME, nbytes: int | None
         nbytes += 4 * (fleet.packed.numel() + fleet.table.numel() + fleet.state.numel())
     elif kind == "lookup_dyn":
         nbytes += 4  # n
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = {name: ops / LANE_INSTR_S * 1e3 for name, ops in per.items()}
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    t_ops = {name: ops / hw.LANE_INSTR_S * 1e3 for name, ops in per.items()}
     return dict(bound_ms=max(t_ops["work"], t_bytes),
                 bound_by="operations" if t_ops["work"] >= t_bytes else "bytes",
                 yardstick_bound_ms=max(t_ops["yardstick"], t_bytes), t_ops=t_ops["work"],
@@ -2893,7 +2953,7 @@ def resolve_bound(keys, base, out, r: int) -> dict:
         coll += int(hit.sum()) * (12 + j + 4)
     ops = n * (2 * r + 1 + pairs) + coll
     nbytes = 4 * n + 4 * n * r * 2 + n + 4 * 1024
-    t_ops, t_bytes = ops / LANE_INSTR_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+    t_ops, t_bytes = ops / hw.LANE_INSTR_S * 1e3, nbytes / hw.HBM_BW * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 t_ops=t_ops, t_bytes=t_bytes)
 
@@ -2948,7 +3008,7 @@ def phase_placement_times(rows: dict, card: str) -> None:
         hfb = bound(engine, "route", fkeys, healthy, nbytes=4 * keys.numel() + 4 * fkeys.numel())
         hrb = resolve_bound(keys, hb_base, hb_out, PLACE_R)
         # the second resolve also reads the old columns and writes the mask
-        moved_bytes = (4 + 1) * fkeys.numel() / HBM_BYTES_S * 1e3
+        moved_bytes = (4 + 1) * fkeys.numel() / hw.HBM_BW * 1e3
         place_bound = fb["bound_ms"] + rb["bound_ms"]
         plan_bound = hfb["bound_ms"] + hrb["bound_ms"] + fb["bound_ms"] + rb["bound_ms"] + moved_bytes
         rows[engine, "route_family"] = dict(ms=fam, plain_ms=fam_plain, **bound_row(fb),
@@ -3002,8 +3062,8 @@ def load_bound(engine, keys, fleet, shift: int) -> dict:
     once beside route's keys and ids."""
     route_b = bound(engine, "route", keys, fleet)
     counted = (keys.numel() + (1 << shift) - 1) >> shift
-    t_ops = route_b["t_ops"] + 2 * counted / LANE_INSTR_S * 1e3
-    t_bytes = route_b["t_bytes"] + 8 * fleet.table.numel() / HBM_BYTES_S * 1e3
+    t_ops = route_b["t_ops"] + 2 * counted / hw.LANE_INSTR_S * 1e3
+    t_bytes = route_b["t_bytes"] + 8 * fleet.table.numel() / hw.HBM_BW * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 counted=counted)
 
@@ -3162,10 +3222,10 @@ def phase_chain_times(rows: dict, card: str) -> None:
             # 32-byte sectors of 8 keys, and the mask words and scalars.
             key_sectors = int((steps.reshape(-1, 8) > 0).any(1).sum())
             t_bytes = (8 * N_TIME + 32 * key_sectors + 4 * (chain.packed.numel() + 2)) \
-                / HBM_BYTES_S * 1e3
+                / hw.HBM_BW * 1e3
             t_ops = (CHAIN_KEY * N_TIME + CHAIN_REMOVED * hit + CHAIN_STEP * total_steps) \
-                / LANE_INSTR_S * 1e3
-            t_issued = t_ops + CHAIN_TRIP * total_steps / LANE_INSTR_S * 1e3
+                / hw.LANE_INSTR_S * 1e3
+            t_issued = t_ops + CHAIN_TRIP * total_steps / hw.LANE_INSTR_S * 1e3
             b = dict(bound_ms=max(t_ops, t_bytes),
                      bound_by="operations" if t_ops >= t_bytes else "bytes")
             # what the walk costs on the card: the scan alone (max_chain 0:
@@ -3416,18 +3476,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis import sass_gate
     from repro_torch.kernels import build
 
     card = card_line()
     print(f"phase 1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per output, started together
-        lib, ptx = pool.submit(build.build), pool.submit(build.ptx)
-        lib, ptx = lib.result(), ptx.result()
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per output, started together
+        lib, ptx, cubin = (pool.submit(f) for f in (build.build, build.ptx, build.cubin))
+        lib, ptx, _ = lib.result(), ptx.result(), cubin.result()
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({lib.name}); ptxas: "
           + " | ".join(line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
                        if "registers" in line))
@@ -3435,7 +3492,7 @@ def main() -> int:
     if "div.rn.f32" not in text or "div.approx" in text or "div.full" in text:
         fail("the jump step is not compiled to an IEEE round-to-nearest division")
     print(f"phase 1 ptx: div.rn.f32 x{text.count('div.rn.f32')}, no approximate division")
-    sizes = sass_sizes(lib, build.nvcc())
+    sizes = {name: fn.size for name, fn in sass_gate.library_sass().items()}
     found = {key: [n for name, n in sizes.items() if name.startswith(prefix)]
              for key, prefix in FUNCTIONS.items()}
     print("phase 1 sass instructions " + json.dumps(
@@ -3445,6 +3502,7 @@ def main() -> int:
         fail(f"the SASS of {stale} differs from the build the SASS table was counted "
              "from: recount the table")
     build.library()
+    phase_certify(card)
 
     max_err: dict = {}
     phase_kernels(max_err)

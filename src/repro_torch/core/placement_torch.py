@@ -76,13 +76,13 @@ def resolve_columns(
     fam = family_keys(k, r)
     n_alive = u32(state[1])
     slots = u32(table)
-    cols: list[torch.Tensor] = []
+    # the columns settled so far; -1 (never a u32 value) marks the rest, so
+    # "taken" is one compare against the row whatever j is: each column
+    # costs the same ops, and the pass stays affine in r
+    settled = torch.full((k.numel(), r), -1, dtype=torch.int64, device=k.device)
 
     def taken(b: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros_like(b, dtype=torch.bool)
-        for c in cols:
-            out = out | (b == c)
-        return out
+        return (settled == b[:, None]).any(dim=-1)
 
     exhausted = torch.zeros(k.shape, dtype=torch.bool, device=k.device)
     for j in range(r):
@@ -98,8 +98,8 @@ def resolve_columns(
                 q = q + 1
                 q = torch.where(q >= n_alive, q - n_alive, q)
             exhausted = exhausted | (coll & (n_alive > j))
-        cols.append(b)
-    replicas = torch.stack(cols, dim=-1).to(torch.int32)
+        settled[:, j] = b
+    replicas = settled.to(torch.int32)
     moved = None
     if old is not None:
         old = old.reshape(replicas.shape).to(torch.int32)

@@ -44,6 +44,7 @@ SIGNATURES = {
     "routing_chain_remap": (_P, _P, _P, _I, _P, _I, _P, _N, _P),
     "routing_chain_grid": (_N,),
     "routing_route_load_grid": (_I, _N, _I),
+    "routing_take_launches": (_P, _I),
 }
 
 
@@ -105,6 +106,26 @@ def ptx() -> Path:
     """The same sources compiled to PTX, for checking which instructions
     the compiler chose (e.g. ``div.rn.f32`` for the jump step)."""
     return _compile(BUILD_DIR / f"routing_{_digest()}.ptx", (*CODEGEN_FLAGS, "-ptx"))
+
+
+def cubin() -> Path:
+    """The same sources and code generation flags compiled to a cubin with
+    line info (``-lineinfo``, which leaves the code as it is), so that a
+    disassembly maps each instruction to its source line."""
+    return _compile(BUILD_DIR / f"routing_{_digest()}.cubin",
+                    (*CODEGEN_FLAGS, "-cubin", "-lineinfo"))
+
+
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program beside ``nvcc`` (``cuobjdump``,
+    ``nvdisasm``); raises naming it if it is absent."""
+    found = shutil.which(name)
+    if found:
+        return found
+    beside = Path(nvcc()).parent / name
+    if beside.is_file():
+        return str(beside)
+    raise RuntimeError(f"{name} not found (PATH, beside nvcc at {beside.parent})")
 
 
 @functools.cache

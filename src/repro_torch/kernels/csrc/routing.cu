@@ -80,8 +80,15 @@
 // each build and the card's times beside the bound.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
+//
+// Every loop carries a "// ct-loop: <bound>" comment naming what bounds its
+// trips (omega, a chunk's keys, the grid's stride, the capacity, r,
+// max_resalt, max_chain, or a static count); the SASS gate
+// (repro_torch.analysis.sass_gate) maps each back edge of the compiled
+// kernels to one of them.
 #include <cuda_runtime.h>
 
+#include <cstring>
 #include <type_traits>
 
 #include "routing.cuh"
@@ -203,12 +210,14 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
   // it goes, where preloading held more registers and ran slower
   uint32_t keys[MAX_ITEMS];
   if constexpr (Source::kPreload) {
+    // ct-loop: static: MAX_ITEMS keys a lane, unrolled
 #pragma unroll
     for (int j = 0; j < MAX_ITEMS; ++j) {
       const int e = j * 32 + lane;
       keys[j] = j * 32 < count ? src(base + (e < count ? e : 0)) : 0u;
     }
   }
+  // ct-loop: static: MAX_ITEMS keys a lane, unrolled
 #pragma unroll
   for (int j = 0; j < MAX_ITEMS; ++j) {
     if (j * 32 >= count) break;
@@ -251,6 +260,7 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     }
   }
   __syncwarp();
+  // ct-loop: chunk: the chunk's queued keys (at most SEG), 32 a trip
   for (int q = lane; q < front + back; q += 32) {
     const bool goes_on = q < front;
     const int e = goes_on ? w.queue[q] : w.queue[SEG - 1 - (q - front)];
@@ -285,8 +295,10 @@ __device__ void jump_chains(WarpArea& w, int count, uint32_t n, int omega) {
   uint32_t b = 0;   // the bucket (general path)
   float b1 = 1.0f;  // the bucket + 1 (kExact)
   int left = omega;
+  // ct-loop: omega: each of the chunk's keys takes at most omega steps, four a trip
   while (__any_sync(FULL, live)) {
     bool done = false;
+    // ct-loop: static: four steps a trip, unrolled
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       float fj;
@@ -332,9 +344,11 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
                            int32_t* __restrict__ out, int64_t base, int count,
                            const C& cnt = C{}) {
   const int lane = threadIdx.x & 31;
+  // ct-loop: chunk: the chunk's keys, 32 a trip
   for (int e = lane; e < count; e += 32) w.key[e] = src(base + e);
   __syncwarp();
   if (p.n <= 1 || p.omega <= 0) {
+    // ct-loop: chunk: the chunk's keys, 32 a trip
     for (int e = lane; e < count; e += 32) w.out[e] = 0u;
   } else if (p.n <= (1u << 23)) {
     jump_chains<true>(w, count, p.n, p.omega);
@@ -345,6 +359,7 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
   if constexpr (D::kDiverts) {
     const unsigned below = lanemask_lt();
     int hits = 0;
+    // ct-loop: chunk: the chunk's keys, 32 a trip
     for (int j = 0; j * 32 < count; ++j) {
       const int e = j * 32 + lane;
       const bool in = e < count;
@@ -359,6 +374,7 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       hits += __popc(m);
     }
     __syncwarp();
+    // ct-loop: chunk: the chunk's removed buckets, 32 a trip
     for (int q = lane; q < hits; q += 32) {
       const int e = w.queue[q];
       if constexpr (C::kPerKey || C::kKeeps) {
@@ -371,6 +387,7 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       }
     }
   } else {
+    // ct-loop: chunk: the chunk's keys, 32 a trip
     for (int e = lane; e < count; e += 32) out[base + e] = static_cast<int32_t>(w.out[e]);
   }
   __syncwarp();
@@ -387,6 +404,7 @@ __device__ __forceinline__ void count_chunk(const WarpArea& w, const C& cnt, int
   const int sampled = first < static_cast<uint32_t>(count)
                           ? static_cast<int>(((count - 1 - first) >> cnt.shift) + 1)
                           : 0;
+  // ct-loop: chunk: the chunk's sampled keys, 32 a trip
   for (int k = threadIdx.x & 31; k < sampled; k += 32) {
     cnt.add(w.out[first + (static_cast<uint32_t>(k) << cnt.shift)]);
   }
@@ -400,6 +418,7 @@ __device__ __forceinline__ void chunks(WarpArea& w, const Source& src, const D& 
                                        int items, const C& cnt = C{}) {
   const int64_t seg = 32 * items;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * WARPS * seg;
+  // ct-loop: grid: the warp's chunks, one resident grid's stride apart
   for (int64_t base = (static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * seg;
        base < n; base += stride) {
     const int count = static_cast<int>(n - base < seg ? n - base : seg);
@@ -448,12 +467,14 @@ route_load_kernel(KeySource src, Fleet fleet, const int32_t* __restrict__ state,
   const Divert d{fleet, n_total, n_alive};
   if constexpr (kShared) {
     __shared__ uint32_t hist[SHARED_BINS];
+    // ct-loop: capacity: the block's bins, THREADS a trip
     for (uint32_t b = threadIdx.x; b < cap; b += THREADS) hist[b] = 0u;
     __syncthreads();
     chunks<Engine>(area[threadIdx.x >> 5], src, d, fold(n_total, omega), out, n, items,
                    SharedCount{static_cast<uint32_t>(__cvta_generic_to_shared(hist)), cap,
                                shift});
     __syncthreads();
+    // ct-loop: capacity: the block's bins, THREADS a trip
     for (uint32_t b = threadIdx.x; b < cap; b += THREADS) {
       const uint32_t v = hist[b];
       if (v) atomicAdd(counts + b, v);
@@ -505,6 +526,7 @@ constexpr uint32_t RESALT_SALT = 0x7F4A7C15u;
 
 __device__ __forceinline__ bool taken(const uint32_t (&col)[MAX_R], int j, uint32_t b) {
   bool hit = false;
+  // ct-loop: static: MAX_R register columns, unrolled
 #pragma unroll
   for (int k = 0; k < MAX_R; ++k) hit |= k < j && col[k] == b;
   return hit;
@@ -513,6 +535,7 @@ __device__ __forceinline__ bool taken(const uint32_t (&col)[MAX_R], int j, uint3
 // "taken" past the registers: b equals one of the row's first j columns.
 __device__ __forceinline__ bool taken_row(const int32_t* row, int j, uint32_t b) {
   bool hit = false;
+  // ct-loop: r: the row's settled columns
   for (int k = 0; k < j; ++k) hit |= static_cast<uint32_t>(row[k]) == b;
   return hit;
 }
@@ -525,16 +548,19 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
                uint8_t* __restrict__ exhausted, uint8_t* __restrict__ moved, int64_t n) {
   const uint32_t n_alive = static_cast<uint32_t>(state[1]);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  // ct-loop: grid: one key a thread, one launch grid's stride apart
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < n; i += stride) {
     if constexpr (!kRegs) {
       const uint32_t key = keys[i];
       int32_t* row = out + i * r;
       bool ex = false;
+      // ct-loop: r: the key's columns
       for (int j = 0; j < r; ++j) {
         uint32_t b = static_cast<uint32_t>(base[i * r + j]);
         if (j > 0) {
           bool coll = taken_row(row, j, b);
           uint32_t q = __umulhi(mix32(mix32(key ^ family_salt(j)) ^ RESALT_SALT), n_alive);
+          // ct-loop: max_resalt: the column's probes
           for (int p = 0; coll && p < max_resalt; ++p) {
             const uint32_t cand = static_cast<uint32_t>(slots[q]);
             if (!taken_row(row, j, cand)) {
@@ -551,9 +577,11 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
       exhausted[i] = ex;
       if (old != nullptr) {
         const int32_t* prev = old + i * r;
+        // ct-loop: r: the key's columns
         for (int j = 0; j < r; ++j) {
           const int32_t b = row[j];
           bool kept = false;
+          // ct-loop: r: the key's old columns
           for (int k = 0; k < r; ++k) kept |= prev[k] == b;
           moved[i * r + j] = !kept;
         }
@@ -563,6 +591,7 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
     const uint32_t key = keys[i];
     uint32_t col[MAX_R];
     bool ex = false;
+    // ct-loop: static: MAX_R register columns, unrolled
 #pragma unroll
     for (int j = 0; j < MAX_R; ++j) {
       if (j >= r) break;
@@ -570,6 +599,7 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
       if (j > 0) {
         bool coll = taken(col, j, b);
         uint32_t q = __umulhi(mix32(mix32(key ^ family_salt(j)) ^ RESALT_SALT), n_alive);
+        // ct-loop: max_resalt: the column's probes
         for (int p = 0; coll && p < max_resalt; ++p) {
           const uint32_t cand = static_cast<uint32_t>(slots[q]);
           if (!taken(col, j, cand)) {
@@ -587,12 +617,15 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
     exhausted[i] = ex;
     if (old != nullptr) {
       uint32_t prev[MAX_R];
+      // ct-loop: static: MAX_R register columns, unrolled
 #pragma unroll
       for (int k = 0; k < MAX_R; ++k) prev[k] = k < r ? static_cast<uint32_t>(old[i * r + k]) : 0u;
+      // ct-loop: static: MAX_R register columns, unrolled
 #pragma unroll
       for (int j = 0; j < MAX_R; ++j) {
         if (j >= r) break;
         bool kept = false;
+        // ct-loop: static: MAX_R register columns, unrolled
 #pragma unroll
         for (int k = 0; k < MAX_R; ++k) kept |= k < r && prev[k] == col[j];
         moved[i * r + j] = !kept;
@@ -706,18 +739,22 @@ chain_remap_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict
   int64_t at = 0;            // bucket, steps left
   uint32_t kacc = 0, b = 0;
   int left = 0;
+  // ct-loop: max_chain: each queued key walks at most max_chain steps (the chain baseline's bound)
   while (true) {
     // top up: scan chunks while fewer than CHAIN_LOW keys wait
+    // ct-loop: grid: the warp's chunks, scanned while fewer than CHAIN_LOW keys wait
     for (int64_t base = first + scan * stride; queued < CHAIN_LOW && base < n;
          base += stride, ++scan) {
       const int count = static_cast<int>(n - base < seg ? n - base : seg);
       uint32_t bk[MAX_ITEMS];
+      // ct-loop: static: MAX_ITEMS keys a lane, unrolled
 #pragma unroll
       for (int j = 0; j < MAX_ITEMS; ++j) {
         const int e = j * 32 + lane;
         bk[j] = e < count ? buckets[base + e] : 0u;
       }
       fresh = 0;
+      // ct-loop: static: MAX_ITEMS keys a lane, unrolled
 #pragma unroll
       for (int j = 0; j < MAX_ITEMS; ++j) {
         if (j * 32 >= count) break;
@@ -791,6 +828,20 @@ struct Shape {
   int grid, items;
 };
 
+// The launch log: the shape of each launch this host thread made since the
+// log was last taken (routing_take_launches), written where each kernel is
+// launched, so a caller can read back the grids a call really launched (the
+// SASS gate's severity check holds a healthy fleet's against a storm's).
+// The first LOG_LAUNCHES are kept; the count goes on.
+constexpr int LOG_LAUNCHES = 16;
+thread_local Shape launch_log[LOG_LAUNCHES];
+thread_local int64_t launches_logged = 0;
+
+inline void log_launch(Shape shape) {
+  if (launches_logged < LOG_LAUNCHES) launch_log[launches_logged] = shape;
+  ++launches_logged;
+}
+
 template <class Kernel>
 Shape shape_for(Kernel kernel, int64_t n, int (&resident)[64]) {
   int dev = 0;
@@ -822,6 +873,7 @@ int launch_chain_remap(const void* keys, const void* buckets, const void* mask, 
   // a queued key's position c * SEG + e is a u32: fewer than 2^24 chunks a warp
   const int64_t stride = static_cast<int64_t>(shape.grid) * THREADS * shape.items;
   if ((n + stride - 1) / stride >= (int64_t{1} << 24)) return -1;
+  log_launch(shape);
   chain_remap_kernel<<<shape.grid, THREADS, 0, stream>>>(
       static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(buckets),
       static_cast<const uint32_t*>(mask), n_words, static_cast<const int32_t*>(state), max_chain,
@@ -836,6 +888,7 @@ int launch_route(Source src, const void* mask, int n_words, const void* slots, i
   const Shape shape = shape_for(route_kernel<Engine, Source>, n, resident);
   const Fleet fleet{static_cast<const uint32_t*>(mask), n_words,
                     static_cast<const int32_t*>(slots), n_slots};
+  log_launch(shape);
   route_kernel<Engine, Source><<<shape.grid, THREADS, 0, stream>>>(
       src, fleet, static_cast<const int32_t*>(state), omega, static_cast<int32_t*>(out), n,
       shape.items);
@@ -853,6 +906,7 @@ int launch_route_load_as(KeySource src, const Fleet& fleet, const void* state, i
                          void* out, int64_t n, void* counts, uint32_t cap, int shift,
                          cudaStream_t stream) {
   const Shape shape = route_load_shape<Engine, kShared>(n);
+  log_launch(shape);
   route_load_kernel<Engine, kShared><<<shape.grid, THREADS, 0, stream>>>(
       src, fleet, static_cast<const int32_t*>(state), omega, static_cast<int32_t*>(out), n,
       shape.items, static_cast<uint32_t*>(counts), cap, shift);
@@ -880,6 +934,7 @@ int launch_lookup_dyn(KeySource src, const void* n_buckets, int omega, void* out
                       cudaStream_t stream) {
   static int resident[64] = {};
   const Shape shape = shape_for(lookup_dyn_kernel<Engine>, n, resident);
+  log_launch(shape);
   lookup_dyn_kernel<Engine><<<shape.grid, THREADS, 0, stream>>>(
       src, static_cast<const int32_t*>(n_buckets), omega, static_cast<int32_t*>(out), n,
       shape.items);
@@ -891,6 +946,7 @@ int launch_lookup_vec(Source src, unsigned n_buckets, unsigned E, unsigned M, in
                       void* out, int64_t n, cudaStream_t stream) {
   static int resident[64] = {};
   const Shape shape = shape_for(lookup_vec_kernel<Engine, Source>, n, resident);
+  log_launch(shape);
   lookup_vec_kernel<Engine, Source><<<shape.grid, THREADS, 0, stream>>>(
       src, n_buckets, E, M, omega, static_cast<int32_t*>(out), n, shape.items);
   return static_cast<int>(cudaGetLastError());
@@ -904,6 +960,7 @@ int launch_resolve(const void* keys, const void* base, const void* slots, const 
   const int grid = static_cast<int>(blocks < (1 << 30) ? blocks : (1 << 30));
   // the register path for r <= MAX_R, the row path beyond
   auto* kernel = r <= MAX_R ? resolve_kernel<true> : resolve_kernel<false>;
+  log_launch({grid, 1});
   kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(base),
       static_cast<const int32_t*>(slots), static_cast<const int32_t*>(state), r, max_resalt,
@@ -1045,6 +1102,19 @@ extern "C" int routing_resolve(const void* keys, const void* base, const void* s
                                void* stream) {
   return routing::launch_resolve(keys, base, slots, state, r, max_resalt, old, out, exhausted,
                                  moved, n, static_cast<cudaStream_t>(stream));
+}
+
+// Takes this host thread's launch log: writes the (grid, items) of up to
+// max of the launches made since the last take into out (2 ints each),
+// empties the log, and returns the count of launches made (which may exceed
+// what was kept).
+extern "C" int routing_take_launches(void* out, int max) {
+  using namespace routing;
+  const int64_t made = launches_logged;
+  const int64_t kept = made < LOG_LAUNCHES ? made : LOG_LAUNCHES;
+  if (max > 0) std::memcpy(out, launch_log, sizeof(Shape) * (kept < max ? kept : max));
+  launches_logged = 0;
+  return static_cast<int>(made < (int64_t{1} << 30) ? made : (int64_t{1} << 30));
 }
 
 // The chain-mode remap of n keys' base buckets: state = [n_total,

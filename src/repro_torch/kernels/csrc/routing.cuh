@@ -63,6 +63,7 @@ struct Binomial {
   // 1 .. omega-1 with the original semantics, then blocks A and C.
   __device__ static uint32_t rest(uint32_t key, uint32_t n, uint32_t E, uint32_t M, int omega) {
     uint32_t kacc = key;
+    // ct-loop: omega: the lookup's trips 1 .. omega-1
     for (int i = 1; i < omega; ++i) {
       kacc += GOLDEN32;
       const uint32_t hi = mix32(kacc);

@@ -280,7 +280,7 @@ class BatchRouter:
             torch.from_numpy(hi.view(np.int32)).to(self.device),
             self._fleet_dev, self.spec,
         )
-        self.stats.lookups += int(ids.size)
+        self.stats.lookups += int(ids.size)  # ct: host-ok — a numpy batch's length
         return out
 
     def route_batch(self, session_ids) -> np.ndarray:

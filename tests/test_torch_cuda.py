@@ -17,7 +17,8 @@ hash router, shared experts) on the card against the same tier on the CPU,
 and the reduced Starcoder2, RecurrentGemma and Mamba2 tiers and the
 MusicGen and Qwen2-VL embeds models on the card against the CPU, one
 train step of the reduced hash-routed Qwen3 on the card against the CPU,
-and a bf16 checkpoint round trip on the card.
+a bf16 checkpoint round trip on the card, and the constant-time
+certifier's graph targets and SASS gate on the card.
 Needs a CUDA card and ``nvcc``; skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
@@ -700,3 +701,70 @@ def test_bf16_checkpoint_round_trip_on_card(cuda, tmp_path):
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b), key
     assert n_bf16 > 0
+
+
+def test_certifier_on_card(cuda):
+    """Every graph target of both engines on the card: the ``/cuda`` ones
+    flat in ω with one launch of their kernel, the composite paths through
+    the kernels, none skipped, the chain baseline waived."""
+    from repro_torch.analysis.certify import certify_all
+    from repro_torch.analysis.report import PASS, SKIPPED, WAIVED
+
+    report = certify_all(device="cuda")
+    assert report.ok, report.render()
+    for t in report.targets:
+        statuses = {c.status for c in t.checks}
+        if t.target == "chain/memento_remap":
+            assert statuses == {PASS, WAIVED, SKIPPED}  # unroll-affine: not ω-parameterised
+        else:
+            assert statuses == {PASS}, (t.engine, t.target, t.to_dict())
+        if t.target.endswith("/cuda"):
+            (affine,) = [c for c in t.checks if c.invariant == "unroll-affine"]
+            assert "flat" in affine.detail and "launches per call" in affine.detail
+
+
+def test_sass_gate_on_card(cuda):
+    """The SASS gate on the built library: every back edge of every kernel
+    function a tagged loop or the compiler's own, healthy and storm fleets
+    flat (launches and launched shapes too), each function within its
+    budget, the chain remap's walk waived."""
+    from repro_torch.analysis.report import PASS, WAIVED
+    from repro_torch.analysis.sass_gate import FUNCTIONS, gate_all, library_sass, loop_table
+
+    gates = {g.engine: g for g in gate_all(device="cuda")}
+    for engine in ("binomial", "jump"):
+        assert {c.status for c in gates[engine].checks} == {PASS}, gates[engine].to_dict()
+        assert gates[engine].op_count > 0
+    chain = {c.invariant: c.status for c in gates["chain"].checks}
+    assert chain == {"sass-loops-declared": WAIVED, "sass-op-budget": PASS}
+    table = loop_table(list(FUNCTIONS))
+    assert all(not fl.undeclared and fl.loops for fl in table.values())
+    sizes = {name: fn.size for name, fn in library_sass().items()}
+    for (engine, kind), prefix in FUNCTIONS.items():
+        (size,) = [n for name, n in sizes.items() if name.startswith(prefix)]
+        assert table[f"{kind}[{engine}]"].size == size
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_launch_log_reads_the_launched_shapes(cuda, engine):
+    """The library's launch log gives the (grid, items) of each launch a
+    call made, in order, and is emptied by the read: a monitored route's one
+    launch at the grid ``routing_route_load_grid`` reckons, and the chain
+    path's two, the remap's at ``routing_chain_grid``'s."""
+    from repro_torch.analysis.sass_gate import clear_launches, fleet_of, take_launches
+    from repro_torch.kernels import build
+
+    n, capacity, keys = 1000, 1024, _u32(7, 1 << 20, cuda)
+    spec = RouterSpec(engine, capacity, 16)
+    fleet = fleet_of(engine, n, capacity, range(1, 500, 2), cuda)
+    chain = fleet_of(engine, n, capacity, range(1, 500, 2), cuda, chain=True)
+    counts = torch.zeros(capacity, dtype=torch.int32, device=cuda)
+    clear_launches()
+    ops.route_load_bulk(keys, fleet, counts, spec)
+    ((grid, items),) = take_launches()
+    assert grid == _load_grid(engine, keys.numel(), capacity) and 1 <= items
+    assert take_launches() == []
+    ops.route_chain_bulk(keys, chain, spec)
+    shapes = take_launches()
+    assert len(shapes) == 2
+    assert shapes[1][0] == build.library().routing_chain_grid(keys.numel())

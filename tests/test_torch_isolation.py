@@ -50,7 +50,11 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.models.layers.ssd", "repro_torch.tree", "repro_torch.training.optimizer",
             "repro_torch.training.compression", "repro_torch.training.train_step",
             "repro_torch.training.checkpoint", "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.analysis.report",
+            "repro_torch.analysis.certify", "repro_torch.analysis.lint",
+            "repro_torch.analysis.sass", "repro_torch.analysis.sass_gate",
+            "repro_torch.analysis.__main__", "repro_torch.roofline.hw",
+            "repro_torch.roofline.op_cost", "repro_torch.roofline.analysis"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
