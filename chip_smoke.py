@@ -79,6 +79,27 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      runs under ``torch.profiler`` for the device's busy share and its
      operator count.  Before it, a reduced float32 model served on the
      card agrees with the same tier on the CPU;
+   - "mesh", the multi-device serving path (``torch.distributed``, one
+     process per device): (a) a world of one rank over NCCL,
+     ``make_local_mesh(1)``: the sharded ``BatchRouter`` at 2^24 seeded
+     keys on 1000 replicas of 1024 with 250 failed, per engine, for a host
+     batch, a device batch the caller owns (left intact) and with
+     ``donate_keys``, bit-exact with the unmeshed ``route_keys``, one route
+     launch a batch; its time in turns with the unmeshed route; (b) two
+     ranks sharing the card over gloo (spawned, a ``FileStore``, joined
+     within ``MESH_JOIN_S``): each routes its block of the 2^24 keys in
+     one launch, bit-exact with the unmeshed route's block, the whole batch
+     gathered by a c10d all-gather, and a float32 EP MoE layer (reduced
+     Qwen3) on a (1, 2) mesh within ``MESH_EP_TOL`` of the same layer
+     unmeshed; (c) after the Qwen3 serve below, over its weights:
+     ``ServingTier(mesh=(1, 1) mesh, router_spec=...)`` inside
+     ``mesh_context(expert_layout="ep")``, 24 requests of 72 tokens, 8 new:
+     replica ids bit-exact with the unmeshed tier, every prefill through
+     the expert-parallel body and every decode step through the dense
+     GShard path (their calls counted), lookup_router once per MoE layer
+     and step, route once, each step's logits of a teacher-forced meshed
+     run within 0.1 relative L2 of the unmeshed run's, new tokens/s of
+     both;
    - then, its weights released, ``ServingTier`` serving DeepSeek-V3 at its
      published widths (MLA ranks 1536/512, 256 experts of 2048, top-8, a
      shared expert, vocab 129,280), bf16, random weights, cut from 61
@@ -1509,9 +1530,10 @@ def check_full_width_logits(base, params) -> None:
              f"{bool(torch.isfinite(logits).all())}")
 
 
-def phase_serve(card: str) -> tuple[dict, dict]:
-    """ServingTier at full width, Qwen3-235B-A22B: -> (launches, the
-    largest router call's token ids and layer salt, by phase and engine)."""
+def phase_serve(card: str, mesh) -> tuple[dict, dict, dict]:
+    """ServingTier at full width, Qwen3-235B-A22B, then phase "mesh" part
+    (c) over the same weights: -> (launches, the largest router call's
+    token ids and layer salt, by phase and engine; part (c)'s launches)."""
     from repro_torch.configs import get_config
 
     check_small_model(SERVE_ARCH)
@@ -1532,10 +1554,361 @@ def phase_serve(card: str) -> tuple[dict, dict]:
     launches, calls_seen = serve_engines("serve", base, params, held, step_floor_ms, card,
                                          router_checks)
     check_full_width_logits(base, params)
+    mesh_launches = mesh_serve(card, base, params, mesh)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, calls_seen
+    return launches, calls_seen, mesh_launches
+
+
+# --- phase "mesh": the multi-device serving path ------------------------------
+
+#: the mesh phase's routing batch (2^24 seeded keys) on the serving fleet
+#: (1000 replicas of 1024 capacity, 250 failed)
+MESH_KEYS = N_TIME
+MESH_FLEET = (1000, 1024, 250)
+#: part (c): 72-token prompts, so that every replica's prefill takes the
+#: expert-parallel body (n_local * top_k >= 72 * 8 = 576 > 4 * 128 experts)
+#: and every decode step the dense GShard path (at most 24 tokens: 24 * 8 =
+#: 192 <= 512); max_len 82
+MESH_PROMPT = 72
+#: the bf16 gate on logits, relative L2 (PERF.md §2)
+MESH_LOGIT_TOL = 0.1
+#: part (b): the float32 EP layer against the same layer unmeshed
+MESH_EP_TOL = 1e-5
+#: seconds the two ranks of part (b) may take, start-up included
+MESH_JOIN_S = 300
+
+
+def serving_fleet(engine: str, mesh=None, **kw):
+    """``BatchRouter`` over the serving fleet (``MESH_FLEET``; the same
+    250 failed slots every call), sharded over ``mesh`` when given."""
+    from repro_torch.serving.batch_router import BatchRouter
+
+    n, capacity, n_fail = MESH_FLEET
+    router = BatchRouter(n, engine=engine, capacity=capacity, mesh=mesh, **kw)
+    with router.coalesced_events():
+        for b in np.random.default_rng(2).choice(n - 1, size=n_fail, replace=False):
+            router.fail(int(b))
+    return router
+
+
+def mesh_keys() -> np.ndarray:
+    return np.random.default_rng(23).integers(0, 2**32, size=MESH_KEYS, dtype=np.uint32)
+
+
+def reset_all_launches() -> None:
+    from repro_torch.core.registry import BULK_ENGINES
+
+    for eng in BULK_ENGINES.values():
+        eng.kernels.reset_launches()
+
+
+def mesh_one_rank(card: str, mesh) -> dict:
+    """Part (a): the sharded route on a world of one rank over NCCL, both
+    engines: ``route_keys`` of a host batch (its block uploaded), of a
+    device batch the caller owns (left intact) and with ``donate_keys``
+    (the ids written over the router's own upload), each bit-exact with
+    the unmeshed router, one route launch each; then the device batch's
+    median time in turns with the unmeshed ``route_keys``."""
+    from repro_torch.core.registry import BULK_ENGINES
+
+    keys_np = mesh_keys()
+    keys = torch.from_numpy(keys_np.view(np.int32)).cuda()
+    launches = {}
+    for engine in ENGINES:
+        kernels = BULK_ENGINES[engine].kernels
+        sharded, donating = serving_fleet(engine, mesh), serving_fleet(engine, mesh, donate_keys=True)
+        single = serving_fleet(engine)
+        want = single.route_keys_np(keys_np)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        got = {"host batch": sharded.route_keys_np(keys_np),
+               "device batch": sharded.route_keys(keys).full_tensor().cpu().numpy(),
+               "donated upload": donating.route_keys_np(keys_np)}
+        torch.cuda.synchronize()
+        launches[engine] = {"route": kernels.launches["route"]}
+        if launches[engine]["route"] != 3 or any(kernels.launches[k] for k in KINDS if k != "route"):
+            fail(f"mesh (a)[{engine}]: launches {kernels.launches}, expected route = 3")
+        for what, ids in got.items():
+            if ids.shape != want.shape or (ids != want).any():
+                fail(f"mesh (a)[{engine}]: the sharded route of the {what} differs from the "
+                     "unmeshed route_keys")
+        if not np.array_equal(keys.cpu().numpy().view(np.uint32), keys_np):
+            fail(f"mesh (a)[{engine}]: the caller's device batch was written")
+        ms = {"sharded": [], "unmeshed": []}
+        for _ in range(3):  # in turns
+            ms["sharded"].append(time_ms(lambda: sharded.route_keys(keys)))
+            ms["unmeshed"].append(time_ms(lambda: single.route_keys(keys)))
+        host = {k: host_ms(lambda r=r: r.route_keys(keys), calls=50)
+                for k, r in (("sharded", sharded), ("unmeshed", single))}
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        print(f"phase 3 mesh (a)[{engine}]: a world of 1 rank over NCCL, make_local_mesh(1); "
+              f"{MESH_KEYS} keys on {MESH_FLEET[0]}/{MESH_FLEET[1]} with {MESH_FLEET[2]} failed "
+              f"bit-exact with the unmeshed route_keys (host batch, device batch, donated "
+              f"upload), one route launch each; in turns x3: sharded {med['sharded']:.4f} ms, "
+              f"unmeshed {med['unmeshed']:.4f} ms ({med['sharded'] / med['unmeshed']:.4f}x), "
+              f"host per call {host['sharded'] * 1e3:.1f} / {host['unmeshed'] * 1e3:.1f} us on {card}")
+    return launches
+
+
+def mesh_two_ranks_child(rank: int, store: str, out_dir: str) -> None:
+    """Part (b), one rank of two sharing ``cuda:0`` over gloo."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable()  # a crash in a collective prints where it was
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        result = mesh_two_ranks_body()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def mesh_two_ranks_body() -> dict:
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.layers import moe
+    from repro_torch.sharding import rules
+
+    build.library()
+    out: dict = {}
+    mesh = make_local_mesh(2, 1, device_type="cuda")  # keys over data
+    keys_np = mesh_keys()
+    lo, hi, _ = ops.shard_bounds(MESH_KEYS, 2, rules.coordinate(mesh)["data"])
+    for engine in ENGINES:
+        kernels = BULK_ENGINES[engine].kernels
+        sharded, single = serving_fleet(engine, mesh), serving_fleet(engine)
+        want = single.route_keys(torch.from_numpy(keys_np.view(np.int32)).cuda())
+        torch.cuda.synchronize()
+        reset_all_launches()
+        got = sharded.route_keys(keys_np)
+        row = {"block": hi - lo, "device": str(got.to_local().device),
+               "block_ok": bool(torch.equal(got.to_local(), want[lo:hi])),
+               # the whole batch: a c10d all-gather of the CUDA blocks
+               "whole_ok": bool(np.array_equal(sharded.route_keys_np(keys_np),
+                                               want.cpu().numpy()))}
+        torch.cuda.synchronize()
+        row["route"] = kernels.launches["route"]
+        out[engine] = row
+    # a float32 EP MoE layer at reduced widths on a (1, 2) mesh: experts
+    # over model, the partial outputs summed over the two ranks
+    mesh2 = make_local_mesh(1, 2, device_type="cuda")
+    cfg = hash_routed(reduced_config(SERVE_ARCH), "binomial")
+    m = cfg.moe
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = moe.init_moe(gen, cfg)
+    B, S = 4, 16
+    if B * S * m.top_k <= 4 * m.num_experts:
+        raise AssertionError("the EP check's tokens take the dense path")
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda", dtype=torch.int32)
+    with torch.inference_mode():
+        y0, _ = moe.apply_moe(params, x, tok, 3, cfg)
+        reset_all_launches()
+        with rules.mesh_context(mesh2, expert_layout="ep"):
+            local = rules.params_local(params)
+            y1, _ = moe.apply_moe(local, x, tok, 3, cfg)  # a c10d all-reduce over model
+        torch.cuda.synchronize()
+    out["moe"] = {"err": float((y1 - y0).abs().max()), "scale": float(y0.abs().max()),
+                  "lookup_router": BULK_ENGINES["binomial"].kernels.launches["lookup_vec"],
+                  "experts_wo": list(local["experts_wo"].shape)}
+    return out
+
+
+def mesh_two_ranks(card: str) -> dict:
+    """Part (b): two ranks on the one card over gloo (a ``FileStore``,
+    joined within ``MESH_JOIN_S``): each routes its block of the 2^24 keys
+    in one launch, bit-exact with the unmeshed route's block and, gathered,
+    the whole batch; a float32 EP MoE layer on a (1, 2) mesh against the
+    same layer unmeshed.  The c10d collectives run on CUDA tensors over
+    gloo; DTensor's functional ones crash there, and none is used.  ->
+    launches, summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(mesh_two_ranks_child, args=(str(Path(tmp, "store")), tmp),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_JOIN_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    fail(f"mesh (b): the two ranks did not finish within {MESH_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(2)]
+    launches = {e: {"route": 0, "lookup_router": 0} for e in ENGINES}
+    for rank, res in enumerate(ranks):
+        for engine in ENGINES:
+            row = res[engine]
+            launches[engine]["route"] += row["route"]
+            if row["route"] != 2 or not row["block_ok"] or not row["whole_ok"] \
+                    or row["device"] != "cuda:0" or row["block"] != MESH_KEYS // 2:
+                fail(f"mesh (b) rank {rank}[{engine}]: {row}")
+        mo = res["moe"]
+        launches["binomial"]["lookup_router"] += mo["lookup_router"]
+        if mo["lookup_router"] != 1 or not mo["err"] <= MESH_EP_TOL * max(1.0, mo["scale"]):
+            fail(f"mesh (b) rank {rank}: the EP layer {mo}")
+    print(f"phase 3 mesh (b): 2 ranks sharing {card} over gloo (FileStore); per engine each "
+          f"rank routed its block of {MESH_KEYS // 2} keys in one launch a batch (route_keys, "
+          f"route_keys_np), bit-exact with the unmeshed route's block, and the whole batch "
+          f"(a c10d all-gather of the CUDA blocks); the float32 EP MoE layer (reduced "
+          f"{SERVE_ARCH}, experts over a (1, 2) mesh, blocks {ranks[0]['moe']['experts_wo']}, "
+          f"a c10d all-reduce) within {max(r['moe']['err'] for r in ranks):.3g} of the "
+          f"unmeshed layer (tolerance {MESH_EP_TOL})")
+    return launches
+
+
+class StepLog:
+    """Wraps ``repro_torch.models.model``'s ``prefill`` and ``decode_step``
+    while active, keeping each call's logits (float32, on the host) and
+    each decode step's input tokens; given another log as ``forced``, each
+    decode step is fed the tokens that log's run was fed (teacher
+    forcing), so the two runs' logits compare step by step."""
+
+    def __init__(self, forced=None):
+        from repro_torch.models import model as M
+
+        self.M, self.forced, self.logits, self.tokens = M, forced, [], []
+
+    def __enter__(self):
+        prefill, decode = self.prefill, self.decode = self.M.prefill, self.M.decode_step
+
+        def logged_prefill(params, batch, cfg, max_len):
+            cache, logits = prefill(params, batch, cfg, max_len)
+            self.logits.append(logits.float().cpu())
+            return cache, logits
+
+        def logged_decode(params, cache, batch, cfg):
+            if self.forced is not None:
+                batch = {"tokens": self.forced.tokens[len(self.tokens)].to(batch["tokens"].device)}
+            self.tokens.append(batch["tokens"].cpu())
+            cache, logits = decode(params, cache, batch, cfg)
+            self.logits.append(logits.float().cpu())
+            return cache, logits
+
+        self.M.prefill, self.M.decode_step = logged_prefill, logged_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.M.prefill, self.M.decode_step = self.prefill, self.decode
+
+
+def mesh_serve(card: str, base, params, mesh) -> dict:
+    """Part (c): ``ServingTier(mesh=...)`` at full width inside
+    ``mesh_context`` of the (1, 1) mesh, expert layout "ep", over phase 3's
+    parameters (``params_local`` cuts each leaf to its whole: one rank
+    holds every block), per engine: replica ids bit-exact with the
+    unmeshed tier, prefill through the EP body and decode through the
+    dense GShard path (their calls counted), ``lookup_router`` once per MoE
+    layer and model step and route once; every step's logits of a
+    teacher-forced meshed run within ``MESH_LOGIT_TOL`` (relative L2) of
+    the unmeshed run's; new tokens/s of each.  -> launches."""
+    from repro_torch.core.bulk import RouterSpec
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.models.layers import moe
+    from repro_torch.serving.engine import ServingTier
+    from repro_torch.sharding import rules
+
+    n_moe = sum(k == "attn_moe" for k in base.layer_kinds())
+    max_len = MESH_PROMPT + SERVE_NEW + 2
+    launches = {}
+    for engine in ENGINES:
+        cfg = hash_routed(base, engine)
+        kernels = BULK_ENGINES[engine].kernels
+        reqs = make_requests(cfg.vocab_size, 13, MESH_PROMPT)
+        ids = [r.session_id for r in reqs]
+        plain = ServingTier(cfg, params, SERVE_REPLICAS, max_len=max_len, engine=engine)
+        with rules.mesh_context(mesh, expert_layout="ep"):
+            local = rules.params_local(params)
+            tier = ServingTier(cfg, local, SERVE_REPLICAS, max_len=max_len, mesh=mesh,
+                               router_spec=RouterSpec(engine=engine, capacity=64))
+        if tier.router.route_batch(ids).tolist() != plain.router.route_batch(ids).tolist():
+            fail(f"mesh (c)[{engine}]: the meshed tier's replica ids differ")
+        groups = len(set(plain.router.route_batch(ids).tolist()))
+        with StepLog() as ref_log:
+            want = plain.serve(reqs)
+        with rules.mesh_context(mesh, expert_layout="ep"), StepLog(forced=ref_log) as mesh_log:
+            tier.serve(reqs)
+        calls = {"_ep_moe": 0, "_dense_moe": 0}
+        saved = {name: getattr(moe, name) for name in calls}
+        for name, fn in saved.items():
+            def counted(*a, _fn=fn, _name=name):
+                calls[_name] += 1
+                return _fn(*a)
+            setattr(moe, name, counted)
+        try:
+            with rules.mesh_context(mesh, expert_layout="ep"):
+                torch.cuda.synchronize()
+                reset_all_launches()
+                t0 = time.perf_counter()
+                got = tier.serve(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches[engine] = {"route": kernels.launches["route"],
+                                    "lookup_router": kernels.launches["lookup_vec"]}
+        finally:
+            for name, fn in saved.items():
+                setattr(moe, name, fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain.serve(reqs)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        check_answers(f"mesh (c)[{engine}]", got, reqs, cfg.padded_vocab)
+        want_router = n_moe * (1 + SERVE_NEW) * groups
+        if launches[engine] != {"route": 1, "lookup_router": want_router}:
+            fail(f"mesh (c)[{engine}]: launches {launches[engine]}, expected route = 1, "
+                 f"lookup_router = {n_moe} x (1 + {SERVE_NEW}) x {groups} = {want_router}")
+        if calls != {"_ep_moe": n_moe * groups, "_dense_moe": n_moe * SERVE_NEW * groups}:
+            fail(f"mesh (c)[{engine}]: mesh branches {calls}, expected the EP body in every "
+                 "prefill and the dense path in every decode step")
+        if len(mesh_log.logits) != len(ref_log.logits):
+            fail(f"mesh (c)[{engine}]: {len(mesh_log.logits)} logged steps against "
+                 f"{len(ref_log.logits)}")
+        rel = [float((a - b).norm() / b.norm()) for a, b in zip(mesh_log.logits, ref_log.logits)]
+        same = sum(np.array_equal(got[i], want[i]) for i in ids)
+        print(f"phase 3 mesh (c)[{engine}]: ServingTier(mesh=(1, 1), router_spec) over "
+              f"{SERVE_ARCH} at published widths ({base.num_layers} layers, phase 3's weights) "
+              f"in mesh_context(expert_layout='ep'): {SERVE_REQUESTS} requests of "
+              f"{MESH_PROMPT} tokens x {SERVE_NEW} new on {SERVE_REPLICAS} replicas; replica ids "
+              f"bit-exact; EP body x{calls['_ep_moe']} (prefill), dense GShard x"
+              f"{calls['_dense_moe']} (decode); launches {json.dumps(launches[engine])}; "
+              f"teacher-forced logits of {len(rel)} steps within rel L2 {max(rel):.4g} of the "
+              f"unmeshed serve's (gate {MESH_LOGIT_TOL}; median {statistics.median(rel):.4g}); "
+              f"free-running tokens identical for {same}/{len(ids)} requests; "
+              f"{SERVE_REQUESTS * SERVE_NEW / wall:.1f} new tokens/s meshed against "
+              f"{SERVE_REQUESTS * SERVE_NEW / plain_wall:.1f} unmeshed (one serve() each) on {card}")
+        if not max(rel) <= MESH_LOGIT_TOL:
+            fail(f"mesh (c)[{engine}]: logits {max(rel):.4g} from the unmeshed serve's")
+    return launches
+
+
+def phase_mesh(card: str):
+    """Phase "mesh", parts (a) and (b): -> (launches, the (1, 1) mesh that
+    part (c) serves under; its process group stays up until then)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    mesh = make_local_mesh(1, 1)
+    launches = mesh_one_rank(card, mesh)
+    two = mesh_two_ranks(card)
+    for engine in ENGINES:
+        launches[engine]["route"] += two[engine]["route"]
+        launches[engine]["lookup_router"] = two[engine]["lookup_router"]
+    return launches, mesh
 
 
 #: the DeepSeek-V3 serve: its published config (repro_torch.configs), cut
@@ -3513,8 +3886,15 @@ def main() -> int:
     phase_route_load(max_err)
     phase_chain_remap(max_err)
     by_path = {"router": phase_router(), "chain": phase_chain_path()}
-    serve_launches, serve_calls = phase_serve(card)
+    mesh_launches, mesh = phase_mesh(card)
+    by_path["mesh"] = {(e, k): n for e, counts in mesh_launches.items() for k, n in counts.items()}
+    serve_launches, serve_calls, mesh_serve_launches = phase_serve(card, mesh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     by_path["serve"] = {(e, k): n for e, counts in serve_launches.items() for k, n in counts.items()}
+    by_path["mesh_serve"] = {(e, k): n for e, counts in mesh_serve_launches.items()
+                             for k, n in counts.items()}
     dsv3_launches = phase_serve_dsv3(card)
     by_path["serve_dsv3"] = {(e, k): n for e, counts in dsv3_launches.items()
                              for k, n in counts.items()}

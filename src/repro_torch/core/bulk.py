@@ -2,7 +2,8 @@
 ``PlacementSpec``, ``BulkEngine`` (DESIGN.md §10).
 
 * ``RouterSpec`` — the frozen configuration of one routing datapath
-  (engine, capacity, ω), validated at construction.
+  (engine, capacity, ω, and the mesh-sharded datapath's shard axis and key
+  donation), validated at construction.
 * ``FleetState`` — the fleet's device operands (packed removed-slot
   bit-words, replacement-table ``slots`` permutation, ``[n_total,
   n_alive]``) with the pack / incremental-update hooks the serving tier
@@ -47,11 +48,18 @@ class RouterSpec:
     omega     lookup iteration bound (binomial's ω; jump's step bound) —
               shared by oracle and kernel so scalar == batch holds at
               non-default values too
+    shard_axis  mesh axis the sharded datapath splits key batches over
+              (``repro_torch.kernels.ops.make_sharded_route``)
+    donate_keys the sharded route writes its replica ids into the key
+              buffer it is given (the caller must not reuse it); the
+              serving tier sets it for key batches it uploads itself
     """
 
     engine: str = "binomial"
     capacity: int = 64
     omega: int = 16
+    shard_axis: str = "data"
+    donate_keys: bool = False
 
     def __post_init__(self):
         if self.capacity < 1 or self.capacity & (self.capacity - 1):

@@ -29,6 +29,7 @@ from repro_torch.core.memento_torch import mask_words, table_width
 from repro_torch.models.blocks import build_segments, layer_index
 from repro_torch.placement.store import StorePlacement
 from repro_torch.serving.lifecycle.journal import JournalSnapshot, MembershipJournal
+from repro_torch.sharding.rules import params_local
 from repro_torch.tree import tree_map
 
 
@@ -98,7 +99,7 @@ def train_state_from_numpy(tree, device) -> dict:
     return tree_map(lambda a: _tensor(a, device), tree)
 
 
-def params_from_numpy(tree, cfg: ArchConfig, device) -> dict:
+def params_from_numpy(tree, cfg: ArchConfig, device, *, local: bool = False) -> dict:
     """The reference's parameters (``params["embed"]``,
     ``params["final_norm"]``, ``params["seg{i}"]["sub{j}"]`` with every
     leaf stacked along its segment's scan axis, and ``params["mtp"]`` where
@@ -106,7 +107,14 @@ def params_from_numpy(tree, cfg: ArchConfig, device) -> dict:
     "final_norm", "layers"}`` (and ``"mtp"``) on ``device``.  Step ``s`` of
     sub-block ``j`` of segment ``i`` is layer ``seg.base + s *
     len(seg.unit) + j``.  Every leaf keeps its name and layout (MLA's
-    per-head projections, ``router_bias``, ``shared`` included)."""
+    per-head projections, ``router_bias``, ``shared`` included).
+
+    ``local=True`` gives this rank only its block of every leaf, by the
+    leaf's spec under the active mesh (``repro_torch.sharding.rules
+    .params_local``), as the reference's ``shard_map`` in-specs hand each
+    device its block."""
+    if local:
+        tree = params_local(tree)
     layers: list = [None] * cfg.num_layers
     for i, seg in enumerate(build_segments(cfg)):
         for j in range(len(seg.unit)):

@@ -153,12 +153,18 @@ class RoutingKernels:
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(KINDS, 0)
 
-    def route(self, keys, packed, table, state, omega: int = 16) -> torch.Tensor:
-        """Fused lookup + table divert: keys -> int32 replica ids."""
+    def route(self, keys, packed, table, state, omega: int = 16, out=None) -> torch.Tensor:
+        """Fused lookup + table divert: keys -> int32 replica ids, written
+        into ``out`` when one is given.  ``out`` may be ``keys`` itself:
+        every store of a replica id depends on the load of its own key."""
         if _on_cpu(keys, packed, table, state):
-            return self.route_plain(keys, packed, table, state, omega)
+            got = self.route_plain(keys, packed, table, state, omega)
+            return got if out is None else out.copy_(got)
         _check_state(state)
-        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        if out is None:
+            out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        elif out.shape != keys.shape or out.dtype != torch.int32 or not out.is_contiguous():
+            raise ValueError(f"out must be a contiguous int32 tensor of shape {tuple(keys.shape)}")
         if keys.numel():
             with torch.cuda.device(keys.device):
                 rc = build.library().routing_route(

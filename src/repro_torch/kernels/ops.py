@@ -15,7 +15,9 @@ tensors and runs the plain torch version for CPU tensors:
 * ``route_replicas_bulk(keys, fleet, pspec)`` — R-way placement: the family
   route, then the distinct-resolution pass (two launches);
 * ``placement_diff_bulk(keys, old, new, pspec)`` — both placements and the
-  moved mask (four launches).
+  moved mask (four launches);
+* ``make_sharded_route(mesh, spec)`` — the mesh-sharded route: each rank
+  routes its shard of the batch in one launch.
 
 And the binomial static-n helpers, kernel on CUDA tensors and plain version
 on CPU tensors:
@@ -42,10 +44,11 @@ def _kernels(spec: RouterSpec):
     return make_bulk(spec.engine).kernels
 
 
-def route_bulk(keys: torch.Tensor, fleet: FleetState, spec: RouterSpec) -> torch.Tensor:
+def route_bulk(keys: torch.Tensor, fleet: FleetState, spec: RouterSpec, out=None) -> torch.Tensor:
     """Fused routing: keys + device fleet state -> int32 replica ids, one
-    kernel launch (DESIGN.md §7, §10)."""
-    return _kernels(spec).route(keys, fleet.packed, fleet.table, fleet.state, spec.omega)
+    kernel launch (DESIGN.md §7, §10); written into ``out`` when given
+    (``out`` may be ``keys``)."""
+    return _kernels(spec).route(keys, fleet.packed, fleet.table, fleet.state, spec.omega, out)
 
 
 def route_load_bulk(
@@ -157,3 +160,63 @@ def binomial_bulk_lookup_dyn(keys, n, omega: int = 16, *, device=None) -> torch.
     keys = _key_bits(keys, device)
     n = u32(n).reshape(1).to(device=keys.device, dtype=torch.int32)
     return _kernels(_BINOMIAL).lookup_dyn(keys, n, omega)
+
+
+# ---------------------------------------------------------------------------
+# mesh-sharded datapath
+# ---------------------------------------------------------------------------
+
+
+def shard_bounds(total: int, n_shards: int, index: int) -> tuple[int, int, int]:
+    """-> ``(lo, hi, rows)``: shard ``index`` of ``n_shards`` holds keys
+    ``[lo, hi)`` of a batch of ``total``, in a block of ``rows =
+    ceil(total / n_shards)`` (the last blocks padded).  These are
+    DTensor's ``Shard`` blocks, and a batch padded to a multiple of the
+    shard count and split evenly."""
+    rows = -(-total // n_shards)
+    lo = min(index * rows, total)
+    return lo, min(lo + rows, total), rows
+
+
+def make_sharded_route(mesh, spec: RouterSpec):
+    """The mesh-sharded bulk route (DESIGN.md §8): ``route(keys, fleet)``.
+
+    ``keys`` is the whole 1-D batch, the same on every rank, whose length
+    is a multiple of the size of the mesh axis ``spec.shard_axis`` (the
+    caller pads); ``fleet`` is the device
+    ``FleetState``, which every rank holds whole.  Each rank routes its
+    contiguous shard of the keys in one launch of the fused route kernel
+    (``route_bulk``): no collective, no host synchronisation.  The result
+    is a DTensor ``Shard(0)`` over ``spec.shard_axis`` (replicated over the
+    other axes) whose ``full_tensor()`` is the single-device result.
+
+    With ``spec.donate_keys`` the replica ids are written into the key
+    buffer (its rank's shard): the caller must not reuse it.
+
+    ``route.block(local, fleet, donate=spec.donate_keys)`` is the launch
+    alone: a rank's block of keys -> its block of ids, a plain tensor.
+    """
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import P, placements
+
+    names = tuple(mesh.mesh_dim_names)
+    if spec.shard_axis not in names:
+        raise ValueError(f"shard axis {spec.shard_axis!r} is not an axis of the mesh {names}")
+    n_shards = mesh.size(names.index(spec.shard_axis))
+    index = mesh.get_local_rank(spec.shard_axis)
+    place = placements(P(spec.shard_axis), mesh)
+
+    def block(local: torch.Tensor, fleet: FleetState, donate: bool = spec.donate_keys):
+        return route_bulk(local, fleet, spec, out=local if donate else None)
+
+    def route(keys, fleet: FleetState):
+        total = keys.shape[0]
+        if total % n_shards:
+            raise ValueError(f"{total} keys do not split {n_shards} ways; pad the batch to a multiple")
+        lo, hi, _ = shard_bounds(total, n_shards, index)
+        return DTensor.from_local(block(keys[lo:hi], fleet), mesh, place, run_check=False,
+                                  shape=(total,), stride=(1,))
+
+    route.block = block
+    return route

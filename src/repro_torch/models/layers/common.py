@@ -18,10 +18,6 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, item 4: the multi-device path)")
-
-
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------

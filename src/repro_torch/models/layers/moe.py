@@ -21,8 +21,31 @@ from the scores.
 
 Shared experts (``shared_experts > 0``) are one dense MLP of width
 ``shared_experts * d_ff_expert`` added to every token's output.
-``apply_moe`` is the reference's unmeshed branch (the expert-parallel mesh
-branch waits for the multi-device slice).
+
+Under a mesh (``repro_torch.sharding.rules.mesh_context`` with a
+``DeviceMesh``) each rank passes its data shard of the tokens (the batch
+block ``batch_pspecs`` gives it; the same on every rank of a ``model``
+group) and holds its block of the expert weights (``params_pspecs`` under
+the active ``fsdp`` and expert layout), and gets its shard of the output.
+Which branch runs follows the reference: with few tokens per expert
+(``n_local * top_k <= 4 * num_experts``, ``n_local`` this shard's token
+count) the dense GShard path, else the expert-parallel (EP) body:
+
+* the EP body is the reference's ``shard_map`` body as per-rank code: the
+  sort-based dispatch of this shard's tokens to the rank's experts with the
+  per-shard capacity ``_capacity(cfg, n_local)``, the expert weights
+  all-gathered over ``data`` under fsdp, the partial outputs summed over
+  ``model``;
+* the dense path ranks every expert's assignments over the *global* token
+  order with the global capacity, as the reference's masks over the whole
+  batch do: the shards' tokens, expert ids and gates are gathered over the
+  data axes (a few rows at decode), and the weights stay sharded — the
+  partial products over a weight block are summed over the axis it is cut
+  on.
+
+The ``"ep"`` layout cuts the experts over ``model``, the ``"tp"`` layout
+their ff width; both give the same sums.  The mesh branches run forward
+only (serving); the collectives are not differentiated.
 
 Dispatch is sort-based: assignments are stably sorted by expert id, ranked
 within their expert, and the first ``C`` of each expert (``_capacity``) are
@@ -36,6 +59,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import rules
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.binomial_torch import router_keys
 from repro_torch.core.registry import make_bulk
@@ -43,14 +68,13 @@ from repro_torch.models.layers.common import (
     apply_mlp,
     dense_init,
     init_mlp,
-    not_ported,
     torch_dtype,
 )
 
 
 def check_supported(cfg: ArchConfig) -> None:
     if cfg.moe.router not in ("hash", "topk", "sigmoid"):
-        raise not_ported(f"the {cfg.moe.router!r} MoE router")
+        raise ValueError(f"unknown MoE router {cfg.moe.router!r} (hash, topk or sigmoid)")
 
 
 def init_moe(gen, cfg: ArchConfig) -> dict:
@@ -114,6 +138,8 @@ def route(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg: Arc
     me = probs.reshape(-1, E).mean(0)
     onehot = F.one_hot(expert_ids.reshape(-1), E).float()
     ce = (onehot.amax(1)[:, None] * onehot).mean(0) * E
+    if rules.current_mesh() is not None:  # means over the whole batch
+        me, ce = _dp_mean(me), _dp_mean(ce)
     aux = m.aux_loss_weight * E * (me * ce).sum()
     return expert_ids.to(torch.int32), gates, aux
 
@@ -188,20 +214,173 @@ def _capacity(cfg: ArchConfig, n_local_tokens: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# under a mesh
+# ---------------------------------------------------------------------------
+
+
+def _dp_axes(mesh) -> tuple:
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
+def _dp_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of equal-sized shards' ``t`` over the data axes."""
+    mesh = rules.current_mesh()
+    t = t.clone()
+    n = 1
+    for axis in _dp_axes(mesh):
+        rules.all_reduce(t, axis)
+        n *= rules.layout(mesh).shape[axis]
+    return t / n
+
+
+def _dp_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every data shard's ``t`` along dim 0, in the global batch order
+    (pod major)."""
+    mesh = rules.current_mesh()
+    for axis in reversed(_dp_axes(mesh)):
+        t = rules.all_gather(t, axis, 0)
+    return t
+
+
+def _gshard_masks(expert_ids, gates, E: int, C: int):
+    """expert_ids/gates (N,K) -> dispatch (N,E,C) 0/1, combine (N,E,C):
+    each expert takes its first ``C`` assignments in token order."""
+    N, K = expert_ids.shape
+    oh = F.one_hot(expert_ids.reshape(-1).long(), E).float()  # (N*K, E)
+    pos = torch.cumsum(oh, 0) - oh
+    rank = (pos * oh).sum(-1).long()
+    keep = (rank < C).float()
+    disp = oh * keep[:, None]
+    disp_c = disp[:, :, None] * F.one_hot(rank.clamp(max=C - 1), C).float()[:, None, :]
+    dispatch = disp_c.reshape(N, K, E, C).sum(1)
+    combine = (disp_c * gates.reshape(-1).float()[:, None, None]).reshape(N, K, E, C).sum(1)
+    return dispatch, combine
+
+
+def _relayout(w: torch.Tensor, have, want) -> torch.Tensor:
+    """This rank's block of a weight cut by spec ``have`` -> its block
+    under spec ``want`` (entries ``None`` or one axis name): a dim cut on
+    an axis it should not be is all-gathered over that axis, then a dim
+    that should be cut and is not is cut to the rank's block."""
+    mesh = rules.current_mesh()
+    coord, sizes = rules.coordinate(mesh), rules.layout(mesh).shape
+    for dim, (h, t) in enumerate(zip(have, want)):
+        if h is not None and h != t:
+            w = rules.all_gather(w, h, dim)
+    for dim, (h, t) in enumerate(zip(have, want)):
+        if t is not None and h != t:
+            size = w.shape[dim] // sizes[t]
+            w = w.narrow(dim, coord[t] * size, size)
+    return w.contiguous()
+
+
+class _ExpertBlock:
+    """The expert weights in the layout a mesh body computes with.
+
+    The parameters arrive cut by ``params_pspecs`` under the active mesh
+    context (where, the rules being first-match, ``experts_wi``/``wg``
+    take the MLP rule and so cut their ff width over ``model``, while
+    ``experts_wo`` cuts its experts).  The bodies want one cut for all
+    three: the ``"ep"`` layout holds experts ``[e_offset, e_offset +
+    E_local)`` whole, the ``"tp"`` layout every expert's ff block; the
+    model width is cut over ``data`` only where ``keep_d`` (the dense
+    path) and the parameters were cut so (fsdp)."""
+
+    def __init__(self, p, cfg: ArchConfig, keep_d: bool):
+        m = cfg.moe
+        E, D, Fe = m.num_experts, cfg.d_model, m.d_ff_expert
+        mesh = rules.current_mesh()
+        sizes = rules.layout(mesh).shape
+        have_wi = rules.param_spec("experts_wi", (E, D, Fe))
+        have_wo = rules.param_spec("experts_wo", (E, Fe, D))
+        e = "model" if rules.expert_layout() == "ep" and E % sizes["model"] == 0 else None
+        f = "model" if rules.expert_layout() == "tp" and Fe % sizes["model"] == 0 else None
+        d = "data" if keep_d and have_wi[1] == "data" else None
+        self.wi = _relayout(p["experts_wi"], have_wi, (e, d, f))
+        self.wg = _relayout(p["experts_wg"], rules.param_spec("experts_wg", (E, D, Fe)), (e, d, f))
+        self.wo = _relayout(p["experts_wo"], have_wo, (e, f, d))
+        self.E_local = E // sizes["model"] if e else E
+        self.e_offset = rules.coordinate(mesh)["model"] * self.E_local if e else 0
+        self.model_cut = e is not None or f is not None
+        self.d_cut = d is not None
+        self.d_index = rules.coordinate(mesh)["data"]
+
+    def sum_over_model(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial outputs over this rank's experts or ff block -> the sum."""
+        if self.model_cut:
+            rules.all_reduce(y, "model")
+        return y
+
+
+def _ep_moe(p, x_flat, expert_ids, gates, cfg: ArchConfig):
+    """The EP body on this shard's tokens (N_local, D)."""
+    blk = _ExpertBlock(p, cfg, keep_d=False)
+    C = _capacity(cfg, x_flat.shape[0])
+    y = _dispatch_local(x_flat, expert_ids, gates, blk.wi, blk.wg, blk.wo,
+                        blk.e_offset, blk.E_local, C)
+    return blk.sum_over_model(y.contiguous())
+
+
+def _dense_moe(p, x_flat, expert_ids, gates, cfg: ArchConfig):
+    """The dense GShard path on this shard's tokens (N_local, D): masks
+    over the global batch, the weights' model width left in its blocks."""
+    m = cfg.moe
+    blk = _ExpertBlock(p, cfg, keep_d=True)
+    n_local = x_flat.shape[0]
+    xg, eg, gg = _dp_gather(x_flat), _dp_gather(expert_ids), _dp_gather(gates)
+    Cg = max(1, int(m.capacity_factor * xg.shape[0] * m.top_k / m.num_experts))
+    dispatch, combine = _gshard_masks(eg, gg, m.num_experts, Cg)
+    lo, hi = blk.e_offset, blk.e_offset + blk.E_local
+    dispatch, combine = dispatch[:, lo:hi], combine[:, lo:hi]
+    if blk.d_cut:  # this rank's block of the model width
+        d = blk.wi.shape[1]
+        xg = xg[:, blk.d_index * d:(blk.d_index + 1) * d]
+    buf = torch.einsum("nec,nd->ecd", dispatch.to(xg.dtype), xg)
+    h_in = torch.einsum("edf,ecd->efc", blk.wi, buf)
+    h_gate = torch.einsum("edf,ecd->efc", blk.wg, buf)
+    if blk.d_cut:
+        h_in, h_gate = rules.all_reduce(h_in, "data"), rules.all_reduce(h_gate, "data")
+    out = torch.einsum("efd,efc->edc", blk.wo, F.silu(h_in) * h_gate)
+    y = blk.sum_over_model(torch.einsum("edc,nec->nd", out, combine.to(xg.dtype)).contiguous())
+    if blk.d_cut:
+        y = rules.all_gather(y, "data", 1)
+    mesh = rules.current_mesh()
+    index, _ = rules.block(_dp_axes(mesh), mesh, rules.coordinate(mesh))
+    return y[index * n_local:(index + 1) * n_local]
+
+
+def _mesh_moe(p, x, expert_ids, gates, cfg: ArchConfig) -> torch.Tensor:
+    m = cfg.moe
+    B, S, D = x.shape
+    args = (x.reshape(-1, D), expert_ids.reshape(-1, m.top_k), gates.reshape(-1, m.top_k))
+    if B * S * m.top_k <= 4 * m.num_experts:
+        # few tokens per expert (decode, small serve batches): the weights'
+        # model width stays in its blocks, only the few tokens move
+        y = _dense_moe(p, *args, cfg)
+    else:
+        y = _ep_moe(p, *args, cfg)
+    return y.reshape(B, S, D)
+
+
+# ---------------------------------------------------------------------------
 # full layer
 # ---------------------------------------------------------------------------
 
 
 def apply_moe(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg: ArchConfig):
-    """x (B,S,D) -> (B,S,D), aux_loss.  token_ids (B,S) (hash router)."""
+    """x (B,S,D) -> (B,S,D), aux_loss.  token_ids (B,S) (hash router).
+    Under a mesh, each of them is this rank's data shard."""
     m = cfg.moe
     B, S, D = x.shape
     expert_ids, gates, aux = route(p, x, token_ids, layer_salt, cfg)
-    y = _dispatch_local(
-        x.reshape(-1, D), expert_ids.reshape(-1, m.top_k), gates.reshape(-1, m.top_k),
-        p["experts_wi"], p["experts_wg"], p["experts_wo"], 0, m.num_experts,
-        _capacity(cfg, B * S),
-    ).reshape(B, S, D)
+    if rules.current_mesh() is not None:
+        y = _mesh_moe(p, x, expert_ids, gates, cfg)
+    else:
+        y = _dispatch_local(
+            x.reshape(-1, D), expert_ids.reshape(-1, m.top_k), gates.reshape(-1, m.top_k),
+            p["experts_wi"], p["experts_wg"], p["experts_wo"], 0, m.num_experts,
+            _capacity(cfg, B * S),
+        ).reshape(B, S, D)
     if m.shared_experts > 0:
         y = y + apply_mlp(p["shared"], x, cfg)
     return y, aux

@@ -27,8 +27,18 @@ With a ``LoadMonitor`` attached (``attach_load_monitor``) the fused launch
 is the instrumented one (``ops.route_load_bulk``): the same replica ids,
 and the monitor's per-shard count advanced in the same launch.
 
-``device=None`` means CUDA; with no CUDA device the constructor raises.
-``device="cpu"`` runs every kernel's plain torch version instead (tests).
+Handed a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``), the router
+splits every key batch over the spec's ``shard_axis``: every rank passes
+the same batch, routes its own block in one launch of the fused kernel
+(``ops.make_sharded_route``; the fleet state is whole on every rank, no
+collective), and ``route_keys`` returns a DTensor sharded over the axis
+(``route_keys_np`` gathers the whole batch's ids on every rank).  Under a
+mesh ``fused=False``, ``route_ids`` and ``attach_load_monitor`` are
+refused, as in the JAX package; ``donate_keys`` needs a mesh.
+
+``device=None`` means CUDA (under a mesh, the mesh's device type); with no
+CUDA device the constructor raises.  ``device="cpu"`` runs every kernel's
+plain torch version instead (tests).
 """
 from __future__ import annotations
 
@@ -45,6 +55,12 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.serving.lifecycle.errors import FleetUnavailableError
 from repro_torch.serving.router import SessionRouter, hash_session_ids
+from repro_torch.sharding.rules import P, placements
+
+
+#: "this keyword was not passed": a spec and spec fields given together
+#: are a conflict, not a merge
+_UNSET = object()
 
 
 class BatchRouter:
@@ -54,23 +70,52 @@ class BatchRouter:
     def __init__(
         self,
         n_replicas: int,
+        spec: RouterSpec | None = None,
         *,
-        engine: str = "binomial",
-        capacity: int | None = None,
-        omega: int = 16,
+        mesh=None,
         device=None,
         fused: bool = True,
         max_chain: int = 4096,
+        engine=_UNSET,
+        capacity=_UNSET,
+        omega=_UNSET,
+        shard_axis=_UNSET,
+        donate_keys=_UNSET,
     ):
-        """``capacity=None`` sizes the device table at
-        ``max(64, next_pow2(2 * n_replicas))``.  ``max_chain`` is inert: the
-        table resolution has a hard two-redirect bound; it is validated and
-        forwarded to the control plane as the JAX package's router does."""
+        """Configuration is one ``RouterSpec`` (``BatchRouter(16, spec)``)
+        or its fields as keywords (``BatchRouter(16, engine="jump")``), not
+        both.  ``capacity=None`` sizes the device table at ``max(64,
+        next_pow2(2 * n_replicas))``.  ``max_chain`` is inert: the table
+        resolution has a hard two-redirect bound; it is validated and
+        forwarded to the control plane as the JAX package's router does.
+        A ``mesh`` (a ``DeviceMesh``) shards every key batch over the
+        spec's ``shard_axis``; the router then runs on the mesh's device
+        type."""
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if capacity is None:
-            capacity = max(64, bits.next_pow2(2 * n_replicas))
-        spec = RouterSpec(engine=engine, capacity=capacity, omega=omega)
+        kwargs = {
+            name: value
+            for name, value in (
+                ("engine", engine), ("capacity", capacity), ("omega", omega),
+                ("shard_axis", shard_axis), ("donate_keys", donate_keys),
+            )
+            if value is not _UNSET
+        }
+        if spec is not None:
+            if not isinstance(spec, RouterSpec):
+                raise TypeError(
+                    f"the second positional argument is the RouterSpec (got "
+                    f"{type(spec).__name__}); pass capacity and friends as keywords"
+                )
+            if kwargs:
+                raise ValueError(
+                    f"pass either a RouterSpec or individual spec fields, not "
+                    f"both (got spec and {sorted(kwargs)})"
+                )
+        else:
+            if kwargs.get("capacity") is None:
+                kwargs["capacity"] = max(64, bits.next_pow2(2 * n_replicas))
+            spec = RouterSpec(**kwargs)
         if n_replicas > spec.capacity:
             raise ValueError(f"n_replicas ({n_replicas}) exceeds capacity ({spec.capacity})")
         if max_chain < 0:
@@ -80,6 +125,20 @@ class BatchRouter:
                 "labels the (unused) chain budget — any value >= 0 routes "
                 "identically"
             )
+        if mesh is not None and not fused:
+            raise ValueError(
+                "the two-pass baseline (fused=False) is single-host only; "
+                "the mesh-sharded datapath always runs the fused kernel"
+            )
+        if spec.donate_keys and mesh is None:
+            raise ValueError(
+                "donate_keys applies to the mesh-sharded datapath only; "
+                "pass a mesh or drop donate_keys"
+            )
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device_type}")
+            device = mesh.device_type
         self.device = resolve_device(device)
         self.spec = spec
         bulk = make_bulk(spec.engine)  # fails loudly on unknown engines
@@ -97,8 +156,18 @@ class BatchRouter:
         )
         self.max_chain = max_chain
         self.fused = fused
+        self.mesh = mesh
+        #: the mesh-sharded route (its ``block`` launches on a rank's block)
+        self._sharded_route = None
+        self._n_shards, self._shard_index, self._sharded_place = 1, 0, None
+        if mesh is not None:
+            self._sharded_route = ops.make_sharded_route(mesh, spec)
+            self._n_shards = mesh.size(tuple(mesh.mesh_dim_names).index(spec.shard_axis))
+            self._shard_index = mesh.get_local_rank(spec.shard_axis)
+            self._sharded_place = placements(P(spec.shard_axis), mesh)
         # host mirror of the device fleet state, mutated incrementally on
-        # fleet events; the device twin is refreshed only then
+        # fleet events; the device twin is refreshed only then (under a
+        # mesh every rank holds its own whole twin)
         self._fleet_host = FleetState.pack(self.domain, spec.capacity)
         self._fleet_dev: FleetState | None = None
         #: routing epoch: one tick per fleet event
@@ -126,6 +195,14 @@ class BatchRouter:
     @property
     def omega(self) -> int:
         return self.spec.omega
+
+    @property
+    def shard_axis(self) -> str:
+        return self.spec.shard_axis
+
+    @property
+    def donate_keys(self) -> bool:
+        return self.spec.donate_keys
 
     @property
     def domain(self):
@@ -210,16 +287,28 @@ class BatchRouter:
             elif keys.dtype != torch.int32:
                 keys = keys.to(torch.int64).to(torch.int32)  # wraps mod 2^32
             return keys.to(self.device).contiguous()
+        return torch.from_numpy(self._host_keys(keys).view(np.int32)).to(self.device)
+
+    @staticmethod
+    def _host_keys(keys) -> np.ndarray:
+        """Any int array-like -> contiguous uint32 numpy array of the low 32
+        bits."""
         if not (isinstance(keys, np.ndarray) and keys.dtype == np.uint32):
             keys = np.ascontiguousarray(keys, dtype=np.uint64).astype(np.uint32)
-        return torch.from_numpy(np.ascontiguousarray(keys).view(np.int32)).to(self.device)
+        return np.ascontiguousarray(keys)
 
     # -- load-monitor attachment (observability tier, DESIGN.md §15) --------
     def attach_load_monitor(self, monitor) -> None:
         """Instrument the fused launch with the monitor's device-side load
         accumulator (``ops.route_load_bulk``).  Replica ids stay bit-exact
-        with the bare route; the count rides in the same launch.  The
-        two-pass baseline is not instrumented."""
+        with the bare route; the count rides in the same launch.  Single-host
+        fused datapath only: the mesh-sharded and two-pass paths are not
+        instrumented."""
+        if self.mesh is not None:
+            raise ValueError(
+                "load monitoring is single-host only; the mesh-sharded "
+                "datapath is not instrumented"
+            )
         if not self.fused:
             raise ValueError(
                 "load monitoring requires the fused datapath "
@@ -249,27 +338,99 @@ class BatchRouter:
         buckets = ops.lookup_bulk_dyn(keys, fleet.state[:1], self.spec)
         return memento_remap_table(keys, buckets, fleet.packed, fleet.table, fleet.state)
 
-    def route_keys(self, keys) -> torch.Tensor:
+    def _route_block(self, keys: torch.Tensor) -> torch.Tensor:
+        """Mesh-sharded launch (``ops.make_sharded_route``): this rank
+        routes its block of the flat batch (``ops.shard_bounds``), padded
+        with zero keys to the block size, and keeps its ids without the
+        padding.  A host batch uploads only the rank's block, into a buffer
+        the router owns (which ``donate_keys`` lets the kernel overwrite); a
+        device tensor the caller owns is never written."""
+        lo, hi, rows = ops.shard_bounds(keys.numel(), self._n_shards, self._shard_index)
+        local = self._coerce_keys(keys.reshape(-1)[lo:hi])
+        # a block copied on its way (upload, cast) or padded is the router's
+        owned = hi - lo < rows or (
+            local.untyped_storage().data_ptr() != keys.untyped_storage().data_ptr())
+        if hi - lo < rows:
+            local = torch.cat([local, local.new_zeros(rows - (hi - lo))])
+        donate = self.spec.donate_keys and owned
+        return self._sharded_route.block(local, self._fleet_dev, donate)[: hi - lo]
+
+    def _gather(self, block: torch.Tensor, total: int) -> torch.Tensor:
+        """Every rank's block of a batch of ``total`` ids, in order: one
+        all-gather of the padded blocks over the shard axis (a c10d
+        collective, which gloo also runs on CUDA tensors)."""
+        import torch.distributed as dist
+
+        if self._n_shards == 1:
+            return block
+        rows = -(-total // self._n_shards)
+        padded = torch.cat([block, block.new_zeros(rows - block.numel())])
+        parts = [torch.empty_like(padded) for _ in range(self._n_shards)]
+        dist.all_gather(parts, padded, group=self.mesh.get_group(self.spec.shard_axis))
+        return torch.cat(parts)[:total]
+
+    def _host_tensor(self, keys) -> torch.Tensor:
+        if isinstance(keys, torch.Tensor):
+            return keys
+        return torch.from_numpy(self._host_keys(keys).view(np.int32))  # stays on the host
+
+    def route_keys(self, keys):
         """Pre-hashed keys (any int tensor or array) -> int32 replica ids, on
         the device: one kernel launch, no synchronisation.  Keys are
-        truncated to u32 like the engine's scalar u32 oracle does."""
+        truncated to u32 like the engine's scalar u32 oracle does.  Under a
+        mesh every rank passes the same batch and launches once on its
+        block; the result is a DTensor of the batch's shape, sharded over
+        ``shard_axis`` (along the flat batch: a batch whose first dim the
+        shard count does not divide is gathered and replicated)."""
         self._check_routable()
-        keys = self._coerce_keys(keys)
-        if keys.numel() == 0:
-            return torch.zeros(keys.shape, dtype=torch.int32, device=self.device)
-        out = self._dispatch(keys)
-        self.stats.lookups += keys.numel()
-        return out
+        if self.mesh is None:
+            keys = self._coerce_keys(keys)
+            if keys.numel() == 0:
+                return torch.zeros(keys.shape, dtype=torch.int32, device=self.device)
+            out = self._dispatch(keys)
+            self.stats.lookups += keys.numel()
+            return out
+        from torch.distributed.tensor import DTensor, Replicate
+
+        keys = self._host_tensor(keys)
+        shape, total = tuple(keys.shape), keys.numel()
+        if total == 0:
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+        block = self._route_block(keys)
+        self.stats.lookups += total
+        if len(shape) > 1 and shape[0] % self._n_shards:
+            # DTensor unflattens only whole rows of blocks
+            whole = self._gather(block, total).reshape(shape)
+            return DTensor.from_local(whole, self.mesh, [Replicate()] * self.mesh.ndim,
+                                      run_check=False)
+        out = DTensor.from_local(block, self.mesh, self._sharded_place, run_check=False,
+                                 shape=(total,), stride=(1,))
+        return out if len(shape) == 1 else out.reshape(shape)
 
     def route_keys_np(self, keys) -> np.ndarray:
-        """Numpy-out convenience wrapper around ``route_keys``."""
-        return self.route_keys(keys).cpu().numpy()
+        """Numpy-out convenience wrapper around ``route_keys``; under a mesh
+        every rank gets the whole batch's ids."""
+        if self.mesh is None:
+            return self.route_keys(keys).cpu().numpy()
+        self._check_routable()
+        keys = self._host_tensor(keys)
+        if keys.numel() == 0:
+            return np.zeros(tuple(keys.shape), dtype=np.int32)
+        block = self._route_block(keys)
+        self.stats.lookups += keys.numel()
+        return self._gather(block, keys.numel()).reshape(keys.shape).cpu().numpy()
 
     def route_ids(self, session_ids) -> torch.Tensor:
         """Raw u64 int session ids -> int32 replica ids, ONE fused launch:
         the splitmix64 session hash, the lookup and the divert all run in
         the ingest kernel, so no ``keys[N]`` array exists (DESIGN.md §9).
-        Bit-exact with ``route_keys(hash_session_ids(ids))``."""
+        Bit-exact with ``route_keys(hash_session_ids(ids))``.  Single-host
+        only: under a mesh, pre-hash and call ``route_keys``."""
+        if self.mesh is not None:
+            raise ValueError(
+                "route_ids is single-host only; under a mesh pre-hash with "
+                "hash_session_ids and call route_keys"
+            )
         self._check_routable()
         ids = np.ascontiguousarray(session_ids, dtype=np.uint64)
         if ids.size == 0:

@@ -13,7 +13,15 @@ Runs on the CUDA device unless ``device`` names another (``"cpu"`` runs the
 kernels' plain versions).  ``attach_lifecycle`` wraps the router in a
 ``LifecycleManager``: heartbeats then flow through ``heartbeat``, every
 ``serve`` ticks the failure detector first, and fleet events are journaled.
-Not ported yet: ``mesh`` and ``router_spec`` (ROADMAP Queue 1, item 4).
+
+Handed a ``mesh`` (a ``DeviceMesh``), the tier shards the routing datapath
+over the mesh's ranks: key batches are split over ``shard_axis``, the
+fleet state is whole on every rank (DESIGN.md §8), and every rank runs
+the same requests and fleet events.  ``router_spec`` gives the whole
+``RouterSpec`` instead of ``engine`` and ``shard_axis`` (both at once is an
+error).  The model layers run under a mesh only inside
+``repro_torch.sharding.rules.mesh_context``, with each rank holding its
+block of the parameters (``interop.params_from_numpy(..., local=True)``).
 """
 from __future__ import annotations
 
@@ -64,11 +72,27 @@ class Request:
 class ServingTier:
     def __init__(
         self, cfg: ArchConfig, params, n_replicas: int, max_len: int = 64,
-        engine: str = "binomial", device=None,
+        engine: str | None = None, device=None, mesh=None,
+        shard_axis: str | None = None, router_spec=None,
     ):
         self.cfg = cfg
         self.max_len = max_len
-        self.router = BatchRouter(n_replicas, engine=engine, device=device)
+        # a full RouterSpec carries engine and shard_axis itself, so
+        # combining it with either keyword is a conflict, not a merge
+        if router_spec is not None:
+            clash = [k for k, v in (("engine", engine), ("shard_axis", shard_axis))
+                     if v is not None]
+            if clash:
+                raise ValueError(
+                    f"pass either router_spec or {clash}, not both — the "
+                    "spec already carries those fields"
+                )
+            self.router = BatchRouter(n_replicas, router_spec, mesh=mesh, device=device)
+        else:
+            self.router = BatchRouter(
+                n_replicas, engine="binomial" if engine is None else engine, mesh=mesh,
+                shard_axis="data" if shard_axis is None else shard_axis, device=device,
+            )
         self.device = self.router.device
         self.replicas = [self._replica(params) for _ in range(n_replicas)]
         #: optional lifecycle robustness layer (``attach_lifecycle``)

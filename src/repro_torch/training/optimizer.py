@@ -16,8 +16,9 @@ Scalars (the learning rate, the bias corrections) are float32 0-dim
 tensors on the parameters' device, computed as the reference's ``jnp``
 float32 arithmetic does, and every division by one divides by a tensor
 (torch turns a division by a Python scalar into a multiplication by its
-reciprocal, which rounds twice).  ``zero1_pspecs`` belongs to the
-multi-device path, which is not ported.
+reciprocal, which rounds twice).  ``zero1_pspecs`` gives the specs of
+the optimizer state under a mesh (ZeRO-1); applying them is the meshed
+train step's work.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.sharding.rules import P, current_mesh, layout
+from repro_torch.tree import leaves, tree_map, unflatten
 
 #: the most elements of one leaf that one slice of an AdamW update holds
 SLICE = 1 << 26
@@ -180,3 +182,61 @@ def make_optimizer(name: str, lr: float = 3e-4, warmup: int = 100, total: int = 
     if name == "adafactor":
         return Adafactor(sched, **kw)
     raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 state sharding
+# ---------------------------------------------------------------------------
+
+
+def _spec_leaves(tree) -> list:
+    """A spec tree's ``P`` leaves in flatten order (a ``P`` is a tuple, so
+    the tree helpers would walk into it)."""
+    if isinstance(tree, P):
+        return [tree]
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _spec_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for v in tree for s in _spec_leaves(v)]
+    raise TypeError(f"not a spec tree leaf: {tree!r}")
+
+
+def zero1_pspecs(params, param_pspecs, opt_state):
+    """Spec tree for ``opt_state``: the params' specs with the first
+    unsharded, large-enough dim additionally put on the data axis (ZeRO-1).
+    AdamW's ``m``/``v``/``master`` mirror the params; Adafactor's ``f``
+    list gives each factored leaf ``{"vr", "vc"}`` (the spec without its
+    last dim, and without its second-to-last) and every other leaf
+    ``{"v"}``; any other entry is replicated."""
+    mesh = current_mesh()
+    data = layout(mesh).shape.get("data", 1) if mesh is not None else 1
+    flat_p = leaves(params)
+    flat_spec = _spec_leaves(param_pspecs)
+
+    def widen(spec: P, leaf) -> P:
+        used = {a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))}
+        new = list(spec) + [None] * (leaf.ndim - len(spec))
+        if "data" not in used:
+            for i, (dim, s) in enumerate(zip(leaf.shape, new)):
+                if s is None and dim >= data and dim % data == 0:
+                    new[i] = "data"
+                    break
+        return P(*new)
+
+    wide = [widen(s, p) for s, p in zip(flat_spec, flat_p)]
+    out = {}
+    for k, v in opt_state.items():
+        if k in ("m", "v", "master"):
+            out[k] = unflatten(params, wide)
+        elif k == "f":
+            fl = []
+            for spec, leaf in zip(wide, flat_p):
+                ax = list(spec) + [None] * (leaf.ndim - len(spec))
+                if leaf.ndim >= 2 and leaf.shape[-1] > 1 and leaf.shape[-2] > 1:
+                    fl.append({"vr": P(*ax[:-1]), "vc": P(*(ax[:-2] + ax[-1:]))})
+                else:
+                    fl.append({"v": P(*ax)})
+            out[k] = fl
+        else:
+            out[k] = tree_map(lambda _: P(), v)
+    return out

@@ -768,3 +768,41 @@ def test_launch_log_reads_the_launched_shapes(cuda, engine):
     shapes = take_launches()
     assert len(shapes) == 2
     assert shapes[1][0] == build.library().routing_chain_grid(keys.numel())
+
+
+@pytest.mark.parametrize("donate", [False, True], ids=["keep", "donate"])
+@pytest.mark.parametrize("engine", ["binomial", "jump"])
+def test_sharded_route_one_rank_nccl(cuda, engine, donate):
+    """The mesh-sharded route on a world of one rank over NCCL: one route
+    launch a batch, bit-exact with the unmeshed router, over fleet events
+    and a ragged batch; with ``donate_keys`` the ids are written over the
+    router's own upload, never over the caller's device batch."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1)
+        kernels = BULK_ENGINES[engine].kernels
+        sharded = BatchRouter(1000, engine=engine, capacity=1024, mesh=mesh, donate_keys=donate)
+        single = BatchRouter(1000, engine=engine, capacity=1024)
+        rng = np.random.default_rng(5)
+        keys_np = rng.integers(0, 2**32, size=1 << 20, dtype=np.uint32)
+        keys = torch.from_numpy(keys_np.view(np.int32)).to(cuda)
+        for event in (None, ("fail", 3), ("fail", 500), ("scale_up",), ("recover", 3)):
+            if event is not None:
+                for r in (sharded, single):
+                    getattr(r, event[0])(*event[1:])
+            want = single.route_keys_np(keys_np)
+            kernels.reset_launches()
+            got = sharded.route_keys(keys)
+            assert got.to_local().is_cuda and got.to_local().dtype == torch.int32
+            np.testing.assert_array_equal(got.full_tensor().cpu().numpy(), want)
+            np.testing.assert_array_equal(sharded.route_keys_np(keys_np), want)
+            assert kernels.launches["route"] == 2
+        np.testing.assert_array_equal(keys.cpu().numpy().view(np.uint32), keys_np)
+        odd = keys_np[:10_001]
+        np.testing.assert_array_equal(sharded.route_keys_np(odd), single.route_keys_np(odd))
+    finally:
+        dist.destroy_process_group()

@@ -54,7 +54,9 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.analysis.certify", "repro_torch.analysis.lint",
             "repro_torch.analysis.sass", "repro_torch.analysis.sass_gate",
             "repro_torch.analysis.__main__", "repro_torch.roofline.hw",
-            "repro_torch.roofline.op_cost", "repro_torch.roofline.analysis"} <= set(mods)
+            "repro_torch.roofline.op_cost", "repro_torch.roofline.analysis",
+            "repro_torch.launch.mesh", "repro_torch.sharding",
+            "repro_torch.sharding.rules"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
