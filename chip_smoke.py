@@ -4,8 +4,9 @@ datapath and its chain-mode two-pass path, the hash-routed MoE serving
 path (Qwen3-235B-A22B and DeepSeek-V3), the other LM families at full
 width and depth (RecurrentGemma-9B, Mamba2-1.3B, Starcoder2-7B,
 MusicGen-medium, Qwen2-VL-7B), training (Qwen3-235B-A22B at full width,
-one layer), the R-way replicated placement tier with its fleet
-lifecycle, and the streaming front end with its live load telemetry.
+one layer, also under a mesh with ZeRO-1), the R-way replicated placement
+tier with its fleet lifecycle, and the streaming front end with its live
+load telemetry.
 
     python3 chip_smoke.py
 
@@ -148,6 +149,18 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      ``python -m repro_torch.launch.train`` (the 100m preset, 20 steps,
      then resumed to 30 from its checkpoint) and a bf16 checkpoint round
      trip on the card;
+   - "mesh train", the multi-device training path: (a) per engine the
+     full-width train cell under a one-rank NCCL (1, 1) mesh with fsdp and
+     ZeRO-1 applied, 3 steps over ``ShardedDataPipeline``'s steps 0-2,
+     against the same steps unmeshed from the same seed (losses within
+     1e-3 and grad norms within 1e-2 relative, peak memory within 5 %,
+     ``lookup_router`` twice a step, ms a step beside the unmeshed); (b)
+     4 gloo ranks sharing the card on a (2, 2) mesh with fsdp, float32,
+     TF32 off: reduced Qwen3 (``ep``; ``tp`` with the hash router and full
+     remat), DeepSeek-V3, StableLM-3B, Mamba2-1.3B and StableLM variants
+     taking the four attention modes, 2 AdamW steps with ZeRO-1, every
+     rank's parameter and optimizer blocks within 1e-4 of the unmeshed
+     port on the card cut the same way, K5 counted per rank;
    - placement, per engine: ``BatchRouter(1000, capacity=1024)``, a
      ``LifecycleManager`` on a ``ManualClock``, ``StorePlacement(r=3)`` with
      2^20 registered keys and a ``PlacementRepairer``; 2 replicas fall
@@ -208,6 +221,7 @@ this file without the rest of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2613,6 +2627,281 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+# --- the meshed training path -----------------------------------------------
+
+#: part (a): the full-width run of phase "train" under a one-rank NCCL
+#: (1, 1) mesh with fsdp and ZeRO-1, 3 steps per engine, against the same
+#: steps unmeshed (the losses within MESH_TRAIN_LOSS_TOL, the grad norms
+#: within MESH_TRAIN_NORM_TOL, relative; the peak within MESH_TRAIN_PEAK
+#: of the unmeshed run's).  A step moves the loss by about 1.6e-3 and the
+#: grad norm by about 0.9 % relative, so a meshed step that updated
+#: nothing fails both; the unmeshed steps run twice, and the spread of the
+#: two runs is printed beside the meshed departure.
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_LOSS_TOL = 2e-4
+MESH_TRAIN_NORM_TOL = 1e-3
+MESH_TRAIN_PEAK = 1.05
+#: part (b): 4 gloo ranks sharing the card on a (2, 2) mesh, fsdp on,
+#: float32 (TF32 off), reduced configs: the five cases of
+#: tests/test_mesh_numerics.py and the attention modes (name, arch, expert
+#: layout, config overrides), 2 AdamW steps with master weights at
+#: TRAIN_LR; every rank's blocks within MESH_TRAIN_TOL of the unmeshed port
+#: on the card (of max(1, max |leaf|) for weights, of max |leaf| for
+#: moments).  Adam's first steps move an element by about lr * sign(g),
+#: so an element whose gradient is float noise away from zero departs at
+#: the scale of lr: the tolerance holds at lr 1e-3, not at 1e-2.
+MESH_TRAIN_CASES = (
+    ("qwen3/ep", "qwen3-moe-235b-a22b", "ep", {}),
+    ("qwen3/tp", "qwen3-moe-235b-a22b", "tp", {"router": "hash", "remat": "full"}),
+    ("deepseek-v3/ep", "deepseek-v3-671b", "ep", {}),
+    ("stablelm-3b", "stablelm-3b", "ep", {}),
+    ("mamba2-1.3b", "mamba2-1.3b", "ep", {}),
+    ("rhead", "stablelm-3b", "ep", {"num_heads": 4, "num_kv_heads": 1}),
+    ("seq", "stablelm-3b", "ep", {"num_heads": 3, "num_kv_heads": 3, "head_dim": 16}),
+    ("local", "stablelm-3b", "ep", {"num_heads": 3, "num_kv_heads": 3, "head_dim": 16,
+                                    "window": 8}),
+)
+MESH_TRAIN_TOL = 1e-4
+MESH_TRAIN_RANKS = 4
+
+
+def mesh_train_full_width(card: str, engine: str) -> dict:
+    """Part (a) for one engine: the full-width state from one seed, 3
+    steps unmeshed, then the same from the same seed under the (1, 1)
+    mesh; the launch counts set to 0 just before the meshed steps and read
+    just after.  -> numbers and launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.data.pipeline import DataConfig, ShardedDataPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import rules
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import make_train_state, make_train_step
+
+    cfg = hash_routed(dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS), engine)
+    pipe = ShardedDataPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 1, 0)
+    # the pipeline's steps 0, 1, 2: one batch repeated is learnt within a
+    # step or two (the loss falls from 12.75 to 3e-5), where a relative
+    # comparison of the losses measures nothing
+    batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in pipe.batch(i).items()}
+               for i in range(MESH_TRAIN_STEPS)]
+    kernels = BULK_ENGINES[engine].kernels
+    mesh = make_local_mesh(1, 1, device_type="cuda")
+    runs = {}
+    for run in ("unmeshed", "repeat", "meshed"):
+        meshed = run == "meshed"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = rules.mesh_context(mesh, fsdp=True, expert_layout="ep") if meshed else contextlib.nullcontext()
+        with ctx:
+            params = M.init_train_params(torch.Generator("cuda").manual_seed(0), cfg)
+            opt = make_optimizer("adamw", lr=TRAIN_LR, warmup=0, total=MESH_TRAIN_STEPS)
+            state = make_train_state(params, opt)
+            del params
+            step = make_train_step(cfg, opt)
+            torch.cuda.synchronize()
+            reset_all_launches()
+            losses, norms, walls = [], [], []
+            for batch in batches:
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+                walls.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        runs[run] = {"losses": losses, "norms": norms, "ms": statistics.median(walls[1:]) * 1e3,
+                        "peak": torch.cuda.max_memory_allocated(),
+                        "lookup_router": kernels.launches["lookup_vec"]}
+        del state, step, opt
+    a, b = runs["unmeshed"], runs["meshed"]
+    spread = {k: max(abs(p - q) / abs(p) for p, q in zip(a[k], runs["repeat"][k]))
+              for k in ("losses", "norms")}
+    depart = {k: max(abs(p - q) / abs(p) for p, q in zip(a[k], b[k])) for k in ("losses", "norms")}
+    want = TRAIN_ROUTES_PER_LAYER * MESH_TRAIN_STEPS
+    if b["lookup_router"] != want:
+        fail(f"mesh train (a)[{engine}]: {b['lookup_router']} lookup_router launches, expected {want}")
+    for x, y, tol, what in ((a["losses"], b["losses"], MESH_TRAIN_LOSS_TOL, "losses"),
+                            (a["norms"], b["norms"], MESH_TRAIN_NORM_TOL, "grad norms")):
+        if not all(np.isfinite(y)) or any(abs(p - q) > tol * abs(p) for p, q in zip(x, y)):
+            fail(f"mesh train (a)[{engine}]: {what} meshed {y} vs unmeshed {x} (tolerance {tol})")
+    if not b["peak"] <= MESH_TRAIN_PEAK * a["peak"]:
+        fail(f"mesh train (a)[{engine}]: peak {b['peak'] / 1e9:.3f} GB meshed vs "
+             f"{a['peak'] / 1e9:.3f} GB unmeshed")
+    print(f"phase 3 mesh train (a)[{engine}]: {TRAIN_ARCH} at published widths, "
+          f"{TRAIN_LAYERS} layer, bf16, AdamW + master, remat {cfg.remat}, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens of ShardedDataPipeline's steps 0-{MESH_TRAIN_STEPS - 1}; one NCCL rank, (1, 1) mesh, fsdp, ZeRO-1 applied, "
+          f"{MESH_TRAIN_STEPS} steps: losses " + ", ".join(f"{x:.5f}" for x in b["losses"])
+          + " (unmeshed " + ", ".join(f"{x:.5f}" for x in a["losses"]) + "), grad norms "
+          + ", ".join(f"{x:.4f}" for x in b["norms"]) + " (unmeshed "
+          + ", ".join(f"{x:.4f}" for x in a["norms"]) + f"); {b['ms']:.1f} ms a step vs "
+          f"{a['ms']:.1f} ms unmeshed (median of steps 2-{MESH_TRAIN_STEPS}); peak "
+          f"{b['peak'] / 1e9:.3f} GB vs {a['peak'] / 1e9:.3f} GB unmeshed; lookup_router "
+          f"{b['lookup_router'] / MESH_TRAIN_STEPS:g} launches a step on {card}; largest relative "
+          f"departure meshed vs unmeshed: losses {depart['losses']!r}, grad norms "
+          f"{depart['norms']!r}; unmeshed run twice: losses {spread['losses']!r}, grad norms "
+          f"{spread['norms']!r}")
+    return {"launches": b["lookup_router"], "ms": b["ms"], "unmeshed_ms": a["ms"],
+            "peak": b["peak"], "unmeshed_peak": a["peak"], "depart": depart, "spread": spread}
+
+
+def mesh_train_case_config(arch: str, over: dict):
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(arch)
+    over = dict(over)
+    router = over.pop("router", None)
+    if cfg.moe is not None:
+        moe = dataclasses.replace(cfg.moe, capacity_factor=8.0)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(moe, router=router) if router else moe)
+    return dataclasses.replace(cfg, **over)
+
+
+def mesh_train_rank_body(device: str) -> dict:
+    """One rank of part (b): per case, 2 AdamW steps of the unmeshed port
+    on the card from the seed, then 2 meshed ZeRO-1 steps from the same
+    state cut to this rank's blocks; the largest departure of its blocks
+    (parameters and optimizer state) from the unmeshed ones cut the same
+    way, and the lookup_router launches of the meshed steps."""
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import attention
+    from repro_torch.sharding import rules
+    from repro_torch.training.optimizer import _spec_leaves, make_optimizer, zero1_pspecs
+    from repro_torch.training.train_step import make_train_state, make_train_step, shard_batch
+    from repro_torch.tree import flatten_with_path, leaves, unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_local_mesh(2, 2, device_type="cuda" if device == "cuda" else "cpu")
+    out = {}
+    for name, arch, lay, over in MESH_TRAIN_CASES:
+        cfg = mesh_train_case_config(arch, over)
+        gen = torch.Generator(device).manual_seed(0)
+        params = M.init_train_params(gen, cfg)
+        opt = make_optimizer("adamw", lr=TRAIN_LR, warmup=0, total=10)
+        full = make_train_state(to_device(params, device), opt)
+        start = to_device(full, "cpu")
+        batches = [{k: v.to(device) for k, v in train_batch(cfg, 4, 16, 10 + i).items()}
+                   for i in range(2)]
+        step = make_train_step(cfg, opt)
+        for b in batches:
+            full, _ = step(full, b)
+        with rules.mesh_context(mesh, fsdp=True, expert_layout=lay):
+            pspecs = rules.params_pspecs(start["params"])
+            zspecs = zero1_pspecs(start["params"], pspecs, start["opt"])
+            cut = lambda tree, specs: unflatten(tree, [  # noqa: E731
+                rules.local_slice(t, sp, mesh).contiguous().to(device)
+                for t, sp in zip(leaves(tree), _spec_leaves(specs))])
+            state = {"params": cut(start["params"], pspecs), "opt": cut(start["opt"], zspecs),
+                     "step": start["step"].to(device)}
+            mstep = make_train_step(cfg, opt)
+            reset_all_launches()
+            for b in batches:
+                state, _ = mstep(state, shard_batch(b))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches = BULK_ENGINES["binomial"].kernels.launches["lookup_vec"]
+            errs = []
+            for kind, specs in (("params", pspecs), ("opt", zspecs)):
+                for (path, got), want, sp in zip(flatten_with_path(state[kind]), leaves(full[kind]),
+                                                 _spec_leaves(specs)):
+                    want = rules.local_slice(want, sp, mesh).detach().double().cpu()
+                    got = got.detach().double().cpu()
+                    moment = kind == "opt" and "['master']" not in path
+                    scale = float(want.abs().max()) if moment else max(1.0, float(want.abs().max()))
+                    errs.append(float((got - want).abs().max()) / max(scale, 1e-30))
+            out[name] = {"rel_err": max(errs), "lookup_router": launches,
+                         "mode": None if cfg.attention == "mla" or cfg.num_heads == 0
+                         else attention._mode(cfg, 16)}
+    return out
+
+
+def mesh_train_rank(rank: int, store: str, out_dir: str, device: str) -> None:
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, MESH_TRAIN_RANKS), rank=rank,
+                            world_size=MESH_TRAIN_RANKS)
+    try:
+        if device == "cuda":
+            from repro_torch.kernels import build
+
+            build.library()
+        result = mesh_train_rank_body(device)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def mesh_train_ranks(card: str, device: str = "cuda") -> int:
+    """Part (b): ``MESH_TRAIN_RANKS`` gloo ranks sharing the card (spawned,
+    a ``FileStore``, joined within ``MESH_JOIN_S``).  -> the lookup_router
+    launches of the meshed steps, summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(mesh_train_rank, args=(str(Path(tmp, "store")), tmp, device),
+                                 nprocs=MESH_TRAIN_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_JOIN_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    fail(f"mesh train (b): the ranks did not finish within {MESH_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(MESH_TRAIN_RANKS)]
+    modes = {ranks[0][name]["mode"] for name, *_ in MESH_TRAIN_CASES}
+    if not {"head", "rhead", "seq", "local"} <= modes:
+        fail(f"mesh train (b): attention modes {modes}")
+    worst = {}
+    launches = 0
+    for rank, res in enumerate(ranks):
+        for name, arch, lay, over in MESH_TRAIN_CASES:
+            row = res[name]
+            worst[name] = max(worst.get(name, 0.0), row["rel_err"])
+            want = 2 * 2 * 3 if over.get("router") == "hash" else 0  # forward + remat, 3 layers
+            if row["lookup_router"] != want or not row["rel_err"] <= MESH_TRAIN_TOL:
+                fail(f"mesh train (b) rank {rank} {name}: {row} (lookup_router expected {want})")
+            launches += row["lookup_router"]
+    print(f"phase 3 mesh train (b): {MESH_TRAIN_RANKS} gloo ranks sharing {card}, (2, 2) mesh, "
+          f"fsdp, float32 (TF32 off), 2 AdamW + master ZeRO-1 steps; every rank's parameter and "
+          f"optimizer blocks against the unmeshed port on the card, largest departure "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (tolerance {MESH_TRAIN_TOL}); attention modes {sorted(m for m in modes if m)}; "
+          f"lookup_router {launches // MESH_TRAIN_RANKS} launches a rank "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def phase_mesh_train(card: str) -> dict:
+    """The meshed training path: (a) the full width under a one-rank mesh
+    per engine, (b) four ranks on the reduced configs.  -> launches by
+    engine."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    launches = {}
+    for engine in ENGINES:
+        launches[engine] = {"lookup_router": mesh_train_full_width(card, engine)["launches"]}
+    dist.destroy_process_group()
+    launches["binomial"]["lookup_router"] += mesh_train_ranks(card)
+    print(f"phase 3 mesh train: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # --- the placement path ------------------------------------------------------
 
 #: the placement path's registered store (a realistic count of objects; the
@@ -3901,6 +4190,8 @@ def main() -> int:
     for arch, counts in phase_serve_families(card).items():
         by_path[f"serve_{arch}"] = {(e, k): n for e, c in counts.items() for k, n in c.items()}
     by_path["train"] = {(e, k): n for e, counts in phase_train(card).items() for k, n in counts.items()}
+    by_path["mesh_train"] = {(e, k): n for e, counts in phase_mesh_train(card).items()
+                             for k, n in counts.items()}
     place_launches, place_host = phase_placement()
     by_path["placement"] = {(e, k): n for e, counts in place_launches.items() for k, n in counts.items()}
     stream_launches, stream_numbers = phase_streaming()

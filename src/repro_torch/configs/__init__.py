@@ -10,8 +10,11 @@ from repro_torch.configs.base import (  # noqa: F401
     MLAConfig,
     MoEConfig,
     RGLRUConfig,
+    SHAPES,
+    ShapeConfig,
     SSMConfig,
     apply_overrides,
+    shape_applicable,
 )
 
 # -- dense LM family --------------------------------------------------------

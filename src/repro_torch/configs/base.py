@@ -137,6 +137,33 @@ class ArchConfig:
         return kinds
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(applicable, reason) — encodes the long_500k sub-quadratic rule."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, (
+            f"{cfg.name} is pure full attention; a 524288-token decode KV cache "
+            "is the defining cost and the arch has no sub-quadratic mode "
+            "(see DESIGN.md §5)"
+        )
+    return True, ""
+
+
 def apply_overrides(cfg: ArchConfig, overrides: list[str]) -> ArchConfig:
     """Apply ``key=value`` CLI overrides (ints/floats/bools auto-coerced)."""
     kv = {}

@@ -89,13 +89,37 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def train_state_from_numpy(tree, device) -> dict:
+def _cut(tree, specs):
+    """Each leaf of ``tree`` cut to this rank's block of the matching spec
+    of ``specs`` (a tree of the same shape with ``P`` leaves)."""
+    from repro_torch.sharding.rules import P, current_mesh, local_slice
+
+    if isinstance(specs, P):
+        return local_slice(tree, specs, current_mesh())
+    if isinstance(tree, dict):
+        return {k: _cut(v, specs[k]) for k, v in tree.items()}
+    return [_cut(v, s) for v, s in zip(tree, specs)]
+
+
+def train_state_from_numpy(tree, device, *, local: bool = False) -> dict:
     """A reference train state as numpy arrays (``params`` in its stacked
     layout, ``opt`` with AdamW's ``m``/``v``/``master`` trees or
     Adafactor's ``f`` list, ``step``, ``comp_err``), or any part of one such
     as its ``params`` -> the same tree of tensors on ``device``, which is
     the port's train state: training holds the reference's layout, so every
-    leaf keeps its path and shape."""
+    leaf keeps its path and shape.
+
+    ``local=True`` (under an active ``DeviceMesh``; a whole state) gives
+    this rank only its blocks: ``params`` cut by ``params_pspecs``, ``opt``
+    by ``zero1_pspecs`` (ZeRO-1), the rest whole, as the reference's
+    jitted step's in-shardings hand each device its blocks."""
+    if local:
+        from repro_torch.sharding.rules import params_pspecs
+        from repro_torch.training.optimizer import zero1_pspecs
+
+        pspecs = params_pspecs(tree["params"])
+        tree = dict(tree, params=_cut(tree["params"], pspecs),
+                    opt=_cut(tree["opt"], zero1_pspecs(tree["params"], pspecs, tree["opt"])))
     return tree_map(lambda a: _tensor(a, device), tree)
 
 

@@ -30,6 +30,7 @@ from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers import rglru as rglru_mod
 from repro_torch.models.layers import ssd as ssd_mod
+from repro_torch.sharding import rules
 from repro_torch.models.layers.common import (
     apply_mlp,
     apply_norm,
@@ -139,8 +140,10 @@ def block_prefill(p, kind, x, positions, token_ids, salt: int, cfg: ArchConfig, 
         mix, cache = prefill(p["mixer"], h, positions, cfg, cache_len)
     elif kind == "rec":
         mix, cache = rglru_mod.rglru_scan(p["mixer"], h, cfg)
+        cache = rules.cache_local(cache)
     else:
         mix, cache = ssd_mod.ssd_scan(p["mixer"], h, cfg)
+        cache = rules.cache_local(cache)
     x = x + mix
     if kind == "ssd":
         return x, cache, torch.zeros((), device=x.device)
@@ -169,29 +172,30 @@ def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int, dev
     """Empty cache for one block: k/v (B,T,G,hd) zeros, pos (B,T) -1; MLA:
     ckv (B,T,r) and kr (B,T,dr) zeros, pos (B,T) -1; rec: h (B,W) f32 and
     conv (B,cw-1,W) zeros; ssd: state (B,H,hd,N) f32 and conv
-    (B,cw-1,conv_dim) zeros."""
+    (B,cw-1,conv_dim) zeros.  Under a mesh, the rank's block of each over
+    the model axis (``rules.cache_local_shape``; ``batch`` is the rank's
+    own)."""
     dt = torch_dtype(cfg.dtype)
     if kind == "rec":
         W, cw = cfg.rglru.lru_width or cfg.d_model, cfg.rglru.conv_width
-        return {
-            "h": torch.zeros(batch, W, dtype=torch.float32, device=device),
-            "conv": torch.zeros(batch, cw - 1, W, dtype=dt, device=device),
-        }
-    if kind == "ssd":
+        spec = {"h": ((batch, W), torch.float32, 0), "conv": ((batch, cw - 1, W), dt, 0)}
+    elif kind == "ssd":
         d_inner, H, G, N, hd = ssd_mod.dims(cfg)
-        return {
-            "state": torch.zeros(batch, H, hd, N, dtype=torch.float32, device=device),
-            "conv": torch.zeros(batch, cfg.ssm.conv_width - 1, d_inner + 2 * G * N, dtype=dt,
-                                device=device),
-        }
-    if cfg.attention == "mla":
-        return mla_mod.init_mla_cache(cfg, batch, cache_len, device)
-    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return {
-        "k": torch.zeros(batch, cache_len, G, hd, dtype=dt, device=device),
-        "v": torch.zeros(batch, cache_len, G, hd, dtype=dt, device=device),
-        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=device),
-    }
+        spec = {"state": ((batch, H, hd, N), torch.float32, 0),
+                "conv": ((batch, cfg.ssm.conv_width - 1, d_inner + 2 * G * N), dt, 0)}
+    elif cfg.attention == "mla":
+        m = cfg.mla
+        spec = {"ckv": ((batch, cache_len, m.kv_lora_rank), dt, 0),
+                "kr": ((batch, cache_len, m.qk_rope_head_dim), dt, 0),
+                "pos": ((batch, cache_len), torch.int32, -1)}
+    else:
+        G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        spec = {"k": ((batch, cache_len, G, hd), dt, 0), "v": ((batch, cache_len, G, hd), dt, 0),
+                "pos": ((batch, cache_len), torch.int32, -1)}
+    if kind in ATTN_KINDS and rules.axis_size("model") > 1:
+        attn_mod._time_block(cache_len)  # the model axis must divide the slots
+    return {k: torch.full(rules.cache_local_shape(k, shape), fill, dtype=dtype, device=device)
+            for k, (shape, dtype, fill) in spec.items()}
 
 
 def block_cache_len(kind: str, cfg: ArchConfig, max_len: int) -> int:

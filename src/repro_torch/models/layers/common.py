@@ -3,6 +3,21 @@ counterparts of ``repro.models.layers.common``.
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts; init draws from an explicit ``torch.Generator`` on its device.
+
+Under a mesh (``repro_torch.sharding.rules.mesh_context`` with a
+``DeviceMesh``) each rank holds its block of every weight, cut by
+``params_pspecs``, and its data shard of the activations, replicated over
+``model``; with no mesh every helper below is the plain computation.
+Each weight is gathered over ``data`` where fsdp cuts it, at its use
+(``rules.weight``; the backward reduce-scatters its gradient), and the
+layers are Megatron's where the model axis cuts them:
+
+* ``embed_tokens``: vocab-parallel — each rank looks up the tokens of its
+  block of the vocabulary, zeros elsewhere, summed over ``model``;
+* ``apply_mlp``: ``wi``/``wg`` column-parallel, ``wo_mlp`` row-parallel,
+  the partial outputs summed over ``model``;
+* ``unembed``: the logits of the rank's block of the (padded) vocabulary,
+  which ``repro_torch.models.model.chunked_ce`` reduces over ``model``.
 """
 from __future__ import annotations
 
@@ -11,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding import rules
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -30,11 +46,27 @@ def torch_dtype(name: str) -> torch.dtype:
 DRAW_SLICE = 1 << 28
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes and dtypes are
+    wanted: ``init_params(MetaGenerator(), cfg)`` builds every leaf as a
+    ``meta`` tensor, with no storage and no draw."""
+
+    device = torch.device("meta")
+
+
+def draw_generator(gen):
+    """The ``generator=`` argument of a draw from ``gen`` (none on meta)."""
+    return None if gen.device.type == "meta" else gen
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float = 0.02) -> torch.Tensor:
     """A standard normal draw times ``scale``, made in float32 on the
     generator's device and cast to ``dtype`` (in slices along the first
-    axis past ``DRAW_SLICE`` elements)."""
+    axis past ``DRAW_SLICE`` elements); a ``meta`` tensor from a
+    ``MetaGenerator``."""
     shape = tuple(shape)
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     numel = int(np.prod(shape))
     if numel <= DRAW_SLICE or len(shape) < 2:
         x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
@@ -103,17 +135,26 @@ def init_mlp(gen, cfg: ArchConfig, d_model: int | None = None, d_ff: int | None 
     return p
 
 
-def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = x @ p["wi"]
+def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig, d_ff: int | None = None) -> torch.Tensor:
+    """x (..., D) -> (..., D); ``d_ff`` the full hidden width (``cfg.d_ff``
+    unless given), which the rules need under a mesh."""
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
+    cut = rules.model_cut("wi", (D, Fd), 1)
+    wi = rules.weight(p, "wi", (D, Fd), (None, cut))
+    wo = rules.weight(p, "wo_mlp", (Fd, D), (cut, None))
+    if cut:
+        x = rules.copy_to(x, cut)
+    h = x @ wi
     if cfg.mlp_bias:
-        h = h + p["bi"]
-    if cfg.mlp == "swiglu":
-        h = F.silu(h) * (x @ p["wg"])
-    elif cfg.mlp == "geglu":
-        h = _gelu(h) * (x @ p["wg"])
+        h = h + rules.part(p["bi"], 0, cut)
+    if cfg.mlp in ("swiglu", "geglu"):
+        g = x @ rules.weight(p, "wg", (D, Fd), (None, cut))
+        h = (F.silu(h) if cfg.mlp == "swiglu" else _gelu(h)) * g
     else:
         h = _gelu(h)
-    out = h @ p["wo_mlp"]
+    out = h @ wo
+    if cut:
+        out = rules.reduce_from(out, cut)
     if cfg.mlp_bias:
         out = out + p["bo"]
     return out
@@ -208,15 +249,41 @@ def init_embeddings(gen, cfg: ArchConfig) -> dict:
     return p
 
 
+def vocab_block(cfg: ArchConfig) -> tuple[int, int, str | None]:
+    """-> ``(first, size, axis)``: the rank's block of the padded
+    vocabulary (the embedding's rows, the unembedding's columns) and the
+    axis that cuts it (``None``: the whole vocabulary)."""
+    V = cfg.padded_vocab
+    cut = rules.model_cut("embedding", (V, cfg.d_model), 0)
+    if cut is None:
+        return 0, V, None
+    n = V // rules.axis_size(cut)
+    return rules.axis_index(cut) * n, n, cut
+
+
 def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return p["embedding"][tokens].to(torch_dtype(cfg.dtype))
+    V, D = cfg.padded_vocab, cfg.d_model
+    lo, n, cut = vocab_block(cfg)
+    emb = rules.weight(p, "embedding", (V, D), (cut, None))
+    if cut is None:
+        return emb[tokens].to(torch_dtype(cfg.dtype))
+    local = tokens - lo
+    mine = (local >= 0) & (local < n)
+    x = emb[local.clamp(0, n - 1)] * mine[..., None].to(emb.dtype)
+    return rules.reduce_from(x, cut).to(torch_dtype(cfg.dtype))
 
 
 def unembed(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """-> fp32 logits over the padded vocab (padded classes are ordinary,
-    never-targeted logits, as in the reference)."""
+    never-targeted logits, as in the reference); under a mesh whose model
+    axis cuts the vocabulary, over the rank's block of it
+    (``vocab_block``)."""
+    V, D = cfg.padded_vocab, cfg.d_model
+    _, _, cut = vocab_block(cfg)
+    if cut:
+        x = rules.copy_to(x, cut)
     if cfg.tie_embeddings:
-        logits = x @ p["embedding"].T
+        logits = x @ rules.weight(p, "embedding", (V, D), (cut, None)).T
     else:
-        logits = x @ p["unembed"]
+        logits = x @ rules.weight(p, "unembed", (D, V), (None, cut))
     return logits.float()

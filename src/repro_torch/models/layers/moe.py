@@ -8,7 +8,9 @@ Routers:
   (``make_bulk(router_hash_engine).kernels.lookup_router``, the port of
   ``binomial_hash.py``'s ``_kernel`` over keys it builds from the token ids
   in the same launch), or with ``router_dynamic_n`` the dynamic-n kernel
-  over ``router_keys``; on CPU tensors their plain versions run.
+  over ``router_keys``; on CPU tensors their plain versions run, and on
+  ``meta`` tensors (the dry run) nothing does: the ids are a ``meta``
+  tensor of their shape.
 * ``topk`` — softmax top-k with the Switch load-balancing aux loss.
 * ``sigmoid`` — DeepSeek-V3's: sigmoid scores plus the selection bias
   ``router_bias`` pick the top k, the gates are the picked scores
@@ -44,8 +46,13 @@ count) the dense GShard path, else the expert-parallel (EP) body:
   on.
 
 The ``"ep"`` layout cuts the experts over ``model``, the ``"tp"`` layout
-their ff width; both give the same sums.  The mesh branches run forward
-only (serving); the collectives are not differentiated.
+their ff width; both give the same sums.  Both branches are
+differentiable: their collectives are ``repro_torch.sharding.rules``'
+``copy_to``/``reduce_from``/``gather``, under the gradient convention
+stated there (every rank backpropagates the loss replicated over it; a
+shard's tokens carry its share of the gradient; the expert weights' blocks
+get exactly their gradient, the router's replicated weights their data
+shard's share, summed over ``data`` by the train step).
 
 Dispatch is sort-based: assignments are stably sorted by expert id, ranked
 within their expert, and the first ``C`` of each expert (``_capacity``) are
@@ -114,7 +121,9 @@ def route(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg: Arc
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if m.router == "hash":
         kernels = make_bulk(m.router_hash_engine).kernels
-        if m.router_dynamic_n:
+        if token_ids.device.type == "meta":  # the dry run: shapes, no values to route
+            expert_ids = torch.empty((*token_ids.shape, K), dtype=torch.int32, device="meta")
+        elif m.router_dynamic_n:
             kk = router_keys(token_ids, layer_salt, K).to(torch.int32)  # u32 bit patterns
             n = torch.tensor([E], dtype=torch.int32, device=kk.device)
             expert_ids = kernels.lookup_dyn(kk, n, m.router_hash_omega)
@@ -223,22 +232,19 @@ def _dp_axes(mesh) -> tuple:
 
 
 def _dp_mean(t: torch.Tensor) -> torch.Tensor:
-    """The mean of equal-sized shards' ``t`` over the data axes."""
-    mesh = rules.current_mesh()
-    t = t.clone()
-    n = 1
-    for axis in _dp_axes(mesh):
-        rules.all_reduce(t, axis)
-        n *= rules.layout(mesh).shape[axis]
-    return t / n
+    """The mean of equal-sized shards' ``t`` over the data axes, a tensor
+    replicated over them (its gradient reaches each shard's ``t`` divided
+    by the shard count)."""
+    return rules.dp_sum(t) / (rules.axis_size("pod") * rules.axis_size("data"))
 
 
 def _dp_gather(t: torch.Tensor) -> torch.Tensor:
     """Every data shard's ``t`` along dim 0, in the global batch order
-    (pod major)."""
+    (pod major); the gradient of the gathered rows is reduce-scattered
+    back to their shards."""
     mesh = rules.current_mesh()
     for axis in reversed(_dp_axes(mesh)):
-        t = rules.all_gather(t, axis, 0)
+        t = rules.gather(t, axis, 0) if t.is_floating_point() else rules.all_gather(t, axis, 0)
     return t
 
 
@@ -257,23 +263,6 @@ def _gshard_masks(expert_ids, gates, E: int, C: int):
     return dispatch, combine
 
 
-def _relayout(w: torch.Tensor, have, want) -> torch.Tensor:
-    """This rank's block of a weight cut by spec ``have`` -> its block
-    under spec ``want`` (entries ``None`` or one axis name): a dim cut on
-    an axis it should not be is all-gathered over that axis, then a dim
-    that should be cut and is not is cut to the rank's block."""
-    mesh = rules.current_mesh()
-    coord, sizes = rules.coordinate(mesh), rules.layout(mesh).shape
-    for dim, (h, t) in enumerate(zip(have, want)):
-        if h is not None and h != t:
-            w = rules.all_gather(w, h, dim)
-    for dim, (h, t) in enumerate(zip(have, want)):
-        if t is not None and h != t:
-            size = w.shape[dim] // sizes[t]
-            w = w.narrow(dim, coord[t] * size, size)
-    return w.contiguous()
-
-
 class _ExpertBlock:
     """The expert weights in the layout a mesh body computes with.
 
@@ -284,7 +273,11 @@ class _ExpertBlock:
     three: the ``"ep"`` layout holds experts ``[e_offset, e_offset +
     E_local)`` whole, the ``"tp"`` layout every expert's ff block; the
     model width is cut over ``data`` only where ``keep_d`` (the dense
-    path) and the parameters were cut so (fsdp)."""
+    path) and the parameters were cut so (fsdp).  ``rules.relayout``
+    gathers what the body needs: each rank computes its part with a
+    gathered weight, so the gradients of the gathers are reduce-scattered
+    (summed), unless nothing is cut over ``model`` and every rank of a
+    model group computes the whole layer alike."""
 
     def __init__(self, p, cfg: ArchConfig, keep_d: bool):
         m = cfg.moe
@@ -296,38 +289,47 @@ class _ExpertBlock:
         e = "model" if rules.expert_layout() == "ep" and E % sizes["model"] == 0 else None
         f = "model" if rules.expert_layout() == "tp" and Fe % sizes["model"] == 0 else None
         d = "data" if keep_d and have_wi[1] == "data" else None
-        self.wi = _relayout(p["experts_wi"], have_wi, (e, d, f))
-        self.wg = _relayout(p["experts_wg"], rules.param_spec("experts_wg", (E, D, Fe)), (e, d, f))
-        self.wo = _relayout(p["experts_wo"], have_wo, (e, f, d))
+        self.model_cut = (e is not None or f is not None) and sizes["model"] > 1
+        whole = not self.model_cut
+        self.wi = rules.relayout(p["experts_wi"], have_wi, (e, d, f), whole=whole)
+        self.wg = rules.relayout(p["experts_wg"], rules.param_spec("experts_wg", (E, D, Fe)),
+                                 (e, d, f), whole=whole)
+        self.wo = rules.relayout(p["experts_wo"], have_wo, (e, f, d), whole=whole)
         self.E_local = E // sizes["model"] if e else E
         self.e_offset = rules.coordinate(mesh)["model"] * self.E_local if e else 0
-        self.model_cut = e is not None or f is not None
         self.d_cut = d is not None
         self.d_index = rules.coordinate(mesh)["data"]
 
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor replicated over ``model`` entering the body, where each
+        model rank computes its experts' or ff block's part."""
+        return rules.copy_to(t, "model") if self.model_cut else t
+
     def sum_over_model(self, y: torch.Tensor) -> torch.Tensor:
         """Partial outputs over this rank's experts or ff block -> the sum."""
-        if self.model_cut:
-            rules.all_reduce(y, "model")
-        return y
+        return rules.reduce_from(y, "model") if self.model_cut else y
 
 
 def _ep_moe(p, x_flat, expert_ids, gates, cfg: ArchConfig):
     """The EP body on this shard's tokens (N_local, D)."""
     blk = _ExpertBlock(p, cfg, keep_d=False)
     C = _capacity(cfg, x_flat.shape[0])
-    y = _dispatch_local(x_flat, expert_ids, gates, blk.wi, blk.wg, blk.wo,
+    y = _dispatch_local(blk.enter(x_flat), expert_ids, blk.enter(gates), blk.wi, blk.wg, blk.wo,
                         blk.e_offset, blk.E_local, C)
-    return blk.sum_over_model(y.contiguous())
+    return blk.sum_over_model(y)
 
 
 def _dense_moe(p, x_flat, expert_ids, gates, cfg: ArchConfig):
     """The dense GShard path on this shard's tokens (N_local, D): masks
-    over the global batch, the weights' model width left in its blocks."""
+    over the global batch, the weights' model width left in its blocks.
+    With the model width cut over ``data``, each data rank's products over
+    its block are summed over ``data`` into activations every data rank
+    uses for its own block (all-reduced both ways)."""
     m = cfg.moe
     blk = _ExpertBlock(p, cfg, keep_d=True)
     n_local = x_flat.shape[0]
-    xg, eg, gg = _dp_gather(x_flat), _dp_gather(expert_ids), _dp_gather(gates)
+    xg = _dp_gather(blk.enter(x_flat))
+    eg, gg = _dp_gather(expert_ids), _dp_gather(blk.enter(gates))
     Cg = max(1, int(m.capacity_factor * xg.shape[0] * m.top_k / m.num_experts))
     dispatch, combine = _gshard_masks(eg, gg, m.num_experts, Cg)
     lo, hi = blk.e_offset, blk.e_offset + blk.E_local
@@ -339,11 +341,12 @@ def _dense_moe(p, x_flat, expert_ids, gates, cfg: ArchConfig):
     h_in = torch.einsum("edf,ecd->efc", blk.wi, buf)
     h_gate = torch.einsum("edf,ecd->efc", blk.wg, buf)
     if blk.d_cut:
-        h_in, h_gate = rules.all_reduce(h_in, "data"), rules.all_reduce(h_gate, "data")
+        h_in = rules.copy_to(rules.reduce_from(h_in, "data"), "data")
+        h_gate = rules.copy_to(rules.reduce_from(h_gate, "data"), "data")
     out = torch.einsum("efd,efc->edc", blk.wo, F.silu(h_in) * h_gate)
-    y = blk.sum_over_model(torch.einsum("edc,nec->nd", out, combine.to(xg.dtype)).contiguous())
+    y = blk.sum_over_model(torch.einsum("edc,nec->nd", out, combine.to(xg.dtype)))
     if blk.d_cut:
-        y = rules.all_gather(y, "data", 1)
+        y = rules.gather(y, "data", 1)
     mesh = rules.current_mesh()
     index, _ = rules.block(_dp_axes(mesh), mesh, rules.coordinate(mesh))
     return y[index * n_local:(index + 1) * n_local]
@@ -382,5 +385,5 @@ def apply_moe(p, x: torch.Tensor, token_ids: torch.Tensor, layer_salt: int, cfg:
             _capacity(cfg, B * S),
         ).reshape(B, S, D)
     if m.shared_experts > 0:
-        y = y + apply_mlp(p["shared"], x, cfg)
+        y = y + apply_mlp(p["shared"], x, cfg, d_ff=m.shared_experts * m.d_ff_expert)
     return y, aux

@@ -27,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers.common import _gelu, dense_init, torch_dtype
+from repro_torch.models.layers.common import _gelu, dense_init, draw_generator, torch_dtype
 from repro_torch.models.layers.common import causal_conv as _causal_conv
+from repro_torch.sharding import rules
 
 
 def _width(cfg: ArchConfig) -> int:
@@ -41,7 +42,7 @@ def init_rglru(gen: torch.Generator, cfg: ArchConfig) -> dict:
     dt = torch_dtype(cfg.param_dtype)
     dev = gen.device
     # Λ init so that a = sigmoid(Λ) ∈ [0.9, 0.999] (Griffin appendix)
-    u = torch.rand(W, generator=gen, dtype=torch.float32, device=dev) * (0.999 - 0.9) + 0.9
+    u = torch.rand(W, generator=draw_generator(gen), dtype=torch.float32, device=dev) * (0.999 - 0.9) + 0.9
     uc = u ** (1.0 / cfg.rglru.c)
     return {
         "in_proj_y": dense_init(gen, (D, W), dt),
@@ -55,6 +56,17 @@ def init_rglru(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "lam": torch.log(uc / (1 - uc)),
         "out_proj": dense_init(gen, (W, D), dt, scale=0.02 / math.sqrt(2 * cfg.num_layers)),
     }
+
+
+def _weights(p, cfg: ArchConfig) -> dict:
+    """``p`` with the projections whole on this rank: under a mesh the
+    rules cut ``in_proj_*`` (fsdp, tp) and ``out_proj`` (tp, fsdp), and
+    every rank of a model group computes the whole mixer with them
+    gathered (``rules.weight``), as ``ssd`` does; the reference constrains
+    nothing inside the mixer."""
+    D, W = cfg.d_model, _width(cfg)
+    shapes = {"in_proj_y": (D, W), "in_proj_gate": (D, W), "out_proj": (W, D)}
+    return {**p, **{n: rules.weight(p, n, shape) for n, shape in shapes.items()}}
 
 
 def _gates(p, y: torch.Tensor, cfg: ArchConfig):
@@ -95,6 +107,7 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
 def rglru_scan(p, x: torch.Tensor, cfg: ArchConfig, h0=None, conv_state=None):
     """Full-sequence pass. x (B,S,D) -> (out (B,S,D), {h (B,W) f32, conv});
     ``h0`` (B,W) and ``conv_state`` carry a previous segment's state."""
+    p = _weights(p, cfg)
     y = x @ p["in_proj_y"]
     gate = _gelu(x @ p["in_proj_gate"])
     y, conv_state = _causal_conv(y, p["conv_w"], p["conv_b"], conv_state)
@@ -109,13 +122,19 @@ def rglru_scan(p, x: torch.Tensor, cfg: ArchConfig, h0=None, conv_state=None):
 
 def rglru_decode(p, x: torch.Tensor, cache: dict, cfg: ArchConfig):
     """One-step decode. x (B,1,D); cache {h (B,W) f32, conv (B,cw-1,W)}.
-    -> (out (B,1,D), cache), the cache updated in place."""
+    -> (out (B,1,D), cache), the cache updated in place; under a mesh the
+    cache is the rank's block over ``model``, gathered for the step."""
+    p = _weights(p, cfg)
+    B, W = x.shape[0], _width(cfg)
+    full = {"h": (B, W), "conv": (B, cfg.rglru.conv_width - 1, W)}
+    whole = {k: rules.cache_whole(cache[k], k, full[k]) for k in full}
     y = x @ p["in_proj_y"]
     gate = _gelu(x @ p["in_proj_gate"])
-    y, conv_state = _causal_conv(y, p["conv_w"], p["conv_b"], cache["conv"])
+    y, conv_state = _causal_conv(y, p["conv_w"], p["conv_b"], whole["conv"])
     a, b = _gates(p, y, cfg)  # (B,1,W)
-    h = a[:, 0] * cache["h"] + b[:, 0]
-    cache["h"].copy_(h)
-    cache["conv"].copy_(conv_state)
+    h = a[:, 0] * whole["h"] + b[:, 0]
+    new = rules.cache_local({"h": h, "conv": conv_state})
+    cache["h"].copy_(new["h"])
+    cache["conv"].copy_(new["conv"])
     out = h[:, None].to(x.dtype) * gate
     return out @ p["out_proj"], cache

@@ -16,6 +16,14 @@ before the ``exp`` (the reference masks after it, where the entries above
 the diagonal may already have overflowed; the kept entries are the same).
 ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus`` computes it
 (``F.softplus`` returns ``x`` itself above 20).
+
+Under a mesh every rank of a model group computes the whole mixer: the
+rules cut ``in_proj_*`` (fsdp, tp) and ``out_proj`` (tp, fsdp), and each
+is gathered whole at its use (``rules.weight``; over ``model`` the
+gradient's block is kept, over ``data`` it is reduce-scattered).  The
+reference constrains nothing inside the mixer either.  A decode cache is
+the rank's block over ``model`` (``rules.cache_pspecs``: the state's heads
+and the conv's channels), gathered for the step and cut back after it.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers.common import causal_conv as _causal_conv
-from repro_torch.models.layers.common import dense_init, torch_dtype
+from repro_torch.models.layers.common import dense_init, draw_generator, torch_dtype
+from repro_torch.sharding import rules
 
 
 def dims(cfg: ArchConfig):
@@ -38,7 +47,7 @@ def dims(cfg: ArchConfig):
 
 
 def _uniform(gen: torch.Generator, n: int, lo: float, hi: float) -> torch.Tensor:
-    return torch.rand(n, generator=gen, dtype=torch.float32, device=gen.device) * (hi - lo) + lo
+    return torch.rand(n, generator=draw_generator(gen), dtype=torch.float32, device=gen.device) * (hi - lo) + lo
 
 
 def init_ssd(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -63,6 +72,15 @@ def init_ssd(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "norm_scale": torch.ones(d_inner, dtype=torch.float32, device=dev),
         "out_proj": dense_init(gen, (d_inner, D), dt, scale=0.02 / math.sqrt(2 * cfg.num_layers)),
     }
+
+
+def _weights(p, cfg: ArchConfig) -> dict:
+    """``p`` with the projections whole on this rank (see above)."""
+    d_inner, H, G, N, _ = dims(cfg)
+    D = cfg.d_model
+    shapes = {"in_proj_z": (D, d_inner), "in_proj_x": (D, d_inner), "in_proj_bc": (D, 2 * G * N),
+              "in_proj_dt": (D, H), "out_proj": (d_inner, D)}
+    return {**p, **{n: rules.weight(p, n, shape) for n, shape in shapes.items()}}
 
 
 def _project(p, x: torch.Tensor, cfg: ArchConfig, conv_state=None):
@@ -104,6 +122,7 @@ def ssd_scan(p, x: torch.Tensor, cfg: ArchConfig, state=None, conv_state=None):
     assert S % Q == 0, (S, Q)
     nc = S // Q
     Hg = H // G
+    p = _weights(p, cfg)
 
     z, xs, Bm, Cm, dtv, conv_state = _project(p, x, cfg, conv_state)
     A = -torch.exp(p["A_log"])  # (H,)
@@ -158,10 +177,13 @@ def ssd_decode(p, x: torch.Tensor, cache: dict, cfg: ArchConfig):
     d_inner, H, G, N, hd = dims(cfg)
     Bsz = x.shape[0]
     Hg = H // G
-    z, xs, Bm, Cm, dtv, conv_state = _project(p, x, cfg, cache["conv"])
+    p = _weights(p, cfg)
+    full = {"state": (Bsz, H, hd, N), "conv": (Bsz, cfg.ssm.conv_width - 1, d_inner + 2 * G * N)}
+    whole = {k: rules.cache_whole(cache[k], k, full[k]) for k in full}
+    z, xs, Bm, Cm, dtv, conv_state = _project(p, x, cfg, whole["conv"])
     A = -torch.exp(p["A_log"])
     dA = torch.exp((dtv * A)[:, 0])  # (B,H)
-    state = cache["state"].reshape(Bsz, G, Hg, hd, N)
+    state = whole["state"].reshape(Bsz, G, Hg, hd, N)
     bx = torch.einsum(
         "bgn,bgh,bghp->bghpn",
         Bm[:, 0].float(), dtv[:, 0].reshape(Bsz, G, Hg), xs[:, 0].reshape(Bsz, G, Hg, hd).float(),
@@ -169,6 +191,7 @@ def ssd_decode(p, x: torch.Tensor, cache: dict, cfg: ArchConfig):
     state = dA.reshape(Bsz, G, Hg)[..., None, None] * state + bx
     y = torch.einsum("bgn,bghpn->bghp", Cm[:, 0].float(), state)
     y = y.reshape(Bsz, 1, H, hd) + p["D_skip"][None, None, :, None] * xs.float()
-    cache["state"].copy_(state.reshape(Bsz, H, hd, N))
-    cache["conv"].copy_(conv_state)
+    new = rules.cache_local({"state": state.reshape(Bsz, H, hd, N), "conv": conv_state})
+    cache["state"].copy_(new["state"])
+    cache["conv"].copy_(new["conv"])
     return _finish(p, y, z, x.dtype, cfg), cache

@@ -44,7 +44,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.layers.common import (
     apply_norm,
@@ -55,7 +55,9 @@ from repro_torch.models.layers.common import (
     sinusoidal_pos_emb,
     torch_dtype,
     unembed,
+    vocab_block,
 )
+from repro_torch.sharding import rules
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -244,32 +246,59 @@ def chunked_ce(params, hidden, targets, cfg: ArchConfig, chunk: int = 512) -> to
     """Mean cross entropy over the valid (target >= 0) tokens; the vocab
     logits (f32) of one chunk of the sequence at a time, the chunk the
     largest divisor of S up to ``chunk`` and each one's loss under
-    ``_remat``."""
+    ``_remat``.
+
+    Under a mesh ``hidden`` and ``targets`` are the rank's data shard and
+    the mean is over the global batch (the sums and counts over the data
+    axes).  Where the model axis cuts the vocabulary, each rank holds the
+    logits of its block of it (``common.unembed``): the log-sum-exp takes
+    the maximum and the sum of ``exp`` over ``model``, and the target's
+    logit comes from the rank whose block holds it.  The padded classes
+    are ordinary logits there too, as in the reference."""
     Bsz, S, D = hidden.shape
     chunk = min(chunk, S)
     while S % chunk:
         chunk -= 1
+    lo, n, cut = vocab_block(cfg)
 
     def chunk_loss(h_c, t_c):
-        logits = unembed(params["embed"], h_c, cfg)  # f32 (B,c,V)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, t_c.clamp(min=0).long()[..., None])[..., 0]
+        logits = unembed(params["embed"], h_c, cfg)  # f32 (B,c,V) or the rank's block
+        if cut is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, t_c.clamp(min=0).long()[..., None])[..., 0]
+        else:
+            m = rules.all_reduce_max(logits.detach().amax(-1), cut)
+            lse = m + torch.log(rules.reduce_from(torch.exp(logits - m[..., None]).sum(-1), cut))
+            local = t_c.long() - lo
+            mine = ((local >= 0) & (local < n)).float()
+            ll = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0] * mine
+            ll = rules.reduce_from(ll, cut)
         valid = (t_c >= 0).float()
         return ((lse - ll) * valid).sum(), valid.sum()
 
     chunk_loss = _remat(chunk_loss, cfg)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for lo in range(0, S, chunk):
-        loss, n = chunk_loss(hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk])
-        tot, cnt = tot + loss, cnt + n
+    for lo_s in range(0, S, chunk):
+        loss, c = chunk_loss(hidden[:, lo_s:lo_s + chunk], targets[:, lo_s:lo_s + chunk])
+        tot, cnt = tot + loss, cnt + c
+    tot = rules.dp_sum(tot)  # each is itself with no mesh
+    for axis in ("pod", "data"):
+        cnt = rules.all_reduce(cnt, axis)
     return tot / cnt.clamp(min=1.0)
 
 
 def loss_fn(params, batch, cfg: ArchConfig):
     """-> (loss, metrics {ce, aux, [mtp_ce], loss}) over the stacked
     parameters: the mean cross entropy plus the MoE aux loss, plus ``0.3 *
-    mtp_ce`` where the model has an MTP module (its block at salt 9999)."""
+    mtp_ce`` where the model has an MTP module (its block at salt 9999).
+
+    Under a mesh (``rules.mesh_context`` with a ``DeviceMesh``) ``params``
+    are this rank's blocks and ``batch`` its data shard; the loss is the
+    global mean, the same on every rank, and its backward gives each rank
+    its blocks' gradients (its data shard's share where a leaf is
+    replicated over the data axes; ``repro_torch.training.train_step``
+    sums those)."""
     hidden, aux, positions, token_ids = trunk_train(params, batch, cfg)
     targets = batch["targets"]
     ce = chunked_ce(params, hidden, targets, cfg)
@@ -277,11 +306,12 @@ def loss_fn(params, batch, cfg: ArchConfig):
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_depth > 0 and "mtp" in params:
         mtp = params["mtp"]
+        D = cfg.d_model
         emb = embed_tokens(params["embed"], batch["tokens"], cfg)
         emb_next = torch.nn.functional.pad(emb[:, 1:], (0, 0, 0, 1))
         h_in = torch.cat([apply_norm(mtp["norm_h"], hidden, cfg),
                           apply_norm(mtp["norm_e"], emb_next, cfg)], dim=-1)
-        h_in = h_in @ mtp["in_proj_mtp"]
+        h_in = h_in @ rules.weight(mtp, "in_proj_mtp", (2 * D, D))
         kind = "attn_moe" if cfg.moe else "attn"
         h_mtp, _ = B.block_train(mtp["block"], kind, h_in, positions, token_ids, 9999, cfg)
         h_mtp = apply_norm(mtp["final_norm"], h_mtp, cfg)
@@ -336,3 +366,50 @@ def decode_step(params, cache, batch, cfg: ArchConfig):
     x = apply_norm(params["final_norm"], x, cfg)
     logits = unembed(params["embed"], x, cfg)[:, 0]
     return {"cur": pos + 1, "layers": cache["layers"]}, logits
+
+
+# ---------------------------------------------------------------------------
+# input and cache specs (meta tensors: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The batch of ``shape`` as ``meta`` tensors with the reference's
+    shapes and dtypes (its ``input_specs``' ``ShapeDtypeStruct``s)."""
+    Bsz = shape.global_batch
+    S = shape.seq_len if shape.kind != "decode" else 1
+
+    def f(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "decode":
+        if cfg.input_mode == "tokens":
+            return {"tokens": f((Bsz, 1), i32)}
+        return {"embeds": f((Bsz, 1, cfg.d_model), bf16)}
+    batch = ({"tokens": f((Bsz, S), i32)} if cfg.input_mode == "tokens"
+             else {"embeds": f((Bsz, S, cfg.d_model), bf16)})
+    if cfg.input_mode == "embeds_mrope":
+        batch["positions"] = f((3, Bsz, S), i32)
+    if shape.kind == "train":
+        batch["targets"] = f((Bsz, S), i32)
+    return batch
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The reference's ``cache_specs``: its stacked decode cache for
+    ``shape`` (``{"cur", "seg{i}": {"sub{j}": leaves (count, ...)}}``) as
+    ``meta`` tensors, whole (no mesh)."""
+    with rules.mesh_context(None):
+        out = {"cur": torch.empty((), dtype=torch.int32, device="meta")}
+        for i, seg in enumerate(B.build_segments(cfg)):
+            out[f"seg{i}"] = {
+                f"sub{j}": {
+                    k: torch.empty((seg.count, *v.shape), dtype=v.dtype, device="meta")
+                    for k, v in B.init_block_cache(kind, cfg, shape.global_batch,
+                                                   B.block_cache_len(kind, cfg, shape.seq_len),
+                                                   "meta").items()
+                }
+                for j, kind in enumerate(seg.unit)
+            }
+    return out

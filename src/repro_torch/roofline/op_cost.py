@@ -26,8 +26,16 @@ Cost model per op (``hlo_parse``'s, as far as eager ops map onto HLO):
   - every other op is elementwise and counted 2 x result bytes: eager torch
     fuses nothing, so each runs at tensor granularity, as the reference
     counts elementwise ops in its entry computation;
-* collective bytes — none: the port runs on one device (``torch.distributed``
-  collectives arrive with the multi-device path).
+* collective bytes — the c10d ops the call issues (``c10d.allreduce_``,
+  ``allgather_``/``_allgather_base_``, ``reduce_scatter_``/
+  ``_reduce_scatter_base_``, ``alltoall_``/``alltoall_base_``), each its
+  operand plus its result bytes, by the reference's kind names
+  (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``;
+  ``coll_by_kind``: kind -> [calls, bytes]); the same bytes are added to
+  the memory traffic.  On a multi-pod mesh the bytes of a group of the
+  ``pod`` axis also go to ``dcn_bytes``.  A collective over an axis of one
+  rank is never issued (``repro_torch.sharding.rules``), so it costs
+  nothing.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.roofline import hw
+from repro_torch.sharding import rules
 
 #: products: op name -> index of the operand whose last dim is contracted
 PRODUCTS = {
@@ -102,6 +111,29 @@ class Cost:
         e[2] += nbytes_
 
 
+#: c10d ops: name -> (kind, index of the operand argument, index of the
+#: result argument)
+COLLECTIVES = {
+    "c10d.allreduce_.default": ("all-reduce", 0, 0),
+    "c10d.allgather_.default": ("all-gather", 1, 0),
+    "c10d._allgather_base_.default": ("all-gather", 1, 0),
+    "c10d.reduce_scatter_.default": ("reduce-scatter", 1, 0),
+    "c10d._reduce_scatter_base_.default": ("reduce-scatter", 1, 0),
+    "c10d.alltoall_.default": ("all-to-all", 1, 0),
+    "c10d.alltoall_base_.default": ("all-to-all", 1, 0),
+}
+
+
+def _group_name(args) -> str | None:
+    """The name of the process group among a c10d op's arguments."""
+    import torch.distributed as dist
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(a._type()):
+            return dist.ProcessGroup.unbox(a).group_name
+    return None
+
+
 def op_cost(name: str, args, kwargs, out) -> tuple:
     """``(flops, bytes)`` of one dispatched op."""
     outs = _tensors(out)
@@ -122,17 +154,35 @@ def op_cost(name: str, args, kwargs, out) -> tuple:
 
 
 class CostMode(TorchDispatchMode):
-    """Counts the ``Cost`` of every op run under it."""
+    """Counts the ``Cost`` of every op run under it (the pod axis of the
+    mesh active when it is made decides what counts as DCN)."""
 
     def __init__(self):
         super().__init__()
         self.cost = Cost()
+        mesh = rules.current_mesh()
+        names = rules.layout(mesh).axis_names if mesh is not None else ()
+        self.pod_groups = ({mesh.get_group("pod").group_name}
+                           if "pod" in names and hasattr(mesh, "get_group") else set())
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = str(func)
-        self.cost.add(name, *op_cost(name, args, kwargs, out))
+        if name in COLLECTIVES:
+            kind, i_op, i_res = COLLECTIVES[name]
+            nb = (sum(nbytes(t) for t in _tensors(args[i_op]))
+                  + sum(nbytes(t) for t in _tensors(args[i_res])))
+            c = self.cost
+            c.coll_bytes += nb
+            if _group_name(args) in self.pod_groups:
+                c.dcn_bytes += nb
+            e = c.coll_by_kind.setdefault(kind, [0, 0])
+            e[0] += 1
+            e[1] += nb
+            c.add(name, 0.0, nb)
+        else:
+            self.cost.add(name, *op_cost(name, args, kwargs, out))
         return out
 
 

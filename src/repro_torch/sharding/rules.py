@@ -68,6 +68,12 @@ def current_mesh():
     return _ACTIVE["mesh"]
 
 
+def fsdp() -> bool:
+    """Whether the active mesh context puts the parameters' ``fsdp`` dims
+    on the data axis."""
+    return _ACTIVE["fsdp"]
+
+
 def expert_layout() -> str:
     """"ep" (experts over model — train/prefill) or "tp" (per-expert tensor
     parallelism, experts replicated over model with their ff dim sharded —
@@ -351,6 +357,48 @@ def cache_pspecs(cache_like):
     return walk("", cache_like)
 
 
+def cache_cut(name: str, shape) -> int | None:
+    """The dim of one layer's cache leaf ``name`` of full ``shape`` (no
+    stacked layer dim) that ``cache_pspecs`` puts on the model axis of
+    the active mesh, or ``None`` (no such axis of more than one rank, or
+    it does not divide the dim)."""
+    trailing = _CACHE_SPECS.get(name, ())
+    tp = axis_size("model")
+    if tp == 1 or "tp" not in trailing:
+        return None
+    d = len(shape) - len(trailing) + trailing.index("tp")
+    return d if shape[d] % tp == 0 else None
+
+
+def cache_local_shape(name: str, shape) -> tuple:
+    """The shape of this rank's block of a cache leaf of full ``shape``."""
+    shape = tuple(shape)
+    d = cache_cut(name, shape)
+    if d is None:
+        return shape
+    return shape[:d] + (shape[d] // axis_size("model"),) + shape[d + 1:]
+
+
+def cache_local(cache: dict) -> dict:
+    """One layer's full cache -> this rank's block of each leaf over the
+    model axis (``cache_cut``)."""
+    out = {}
+    for k, v in cache.items():
+        d = cache_cut(k, v.shape)
+        if d is not None:
+            n = v.shape[d] // axis_size("model")
+            v = v.narrow(d, axis_index("model") * n, n).contiguous()
+        out[k] = v
+    return out
+
+
+def cache_whole(t: torch.Tensor, name: str, shape) -> torch.Tensor:
+    """This rank's block of a cache leaf of full ``shape`` -> the whole
+    leaf, gathered over the model axis where ``cache_cut`` cuts it."""
+    d = cache_cut(name, shape)
+    return t if d is None else all_gather(t, "model", d)
+
+
 def batch_pspecs(batch_like):
     """Spec tree for an input batch: batch dim -> dp."""
     mesh = current_mesh()
@@ -389,25 +437,262 @@ def params_local(params, mesh=None):
     return _walk("", params, lambda path, x: local_slice(x, _spec_for(path, x), mesh, coord))
 
 
-def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along ``dim`` over mesh axis
-    ``axis`` (a tiled all-gather), in the axis's rank order."""
+# ---------------------------------------------------------------------------
+# Collectives over one mesh axis.
+#
+# ``all_gather``/``all_reduce``/``all_reduce_max`` have no gradient: they
+# raise when autograd records and their input requires a gradient, so no
+# collective is ever backpropagated through without a rule.  The
+# differentiable ones follow one convention (Megatron's tensor parallelism
+# with DDP over the data axes):
+#
+# * every rank holds the loss as the same value (the global mean) and
+#   backpropagates 1 from it; a rank's graph holds only its own data
+#   shard's work, so what reaches a tensor on a rank is its data shard's
+#   share of the gradient;
+# * the ranks of a ``model`` group compute a tensor replicated over
+#   ``model`` alike, and each gets its whole gradient;
+# * the gradient of a leaf replicated over the data axes is summed over
+#   them after the backward (the train step does it).
+#
+# The pairs that follow from it:
+#   copy_to(x, axis)         identity; all-reduce backward — a replicated
+#                            tensor entering a region where each rank of
+#                            ``axis`` computes a part
+#   reduce_from(x, axis)     all-reduce; identity backward — the parts
+#                            summed into a tensor replicated over ``axis``
+#   gather(x, axis, dim)     all-gather; reduce-scatter (sum) backward —
+#                            each rank of ``axis`` uses the whole in its
+#                            own part (fsdp weights over data, weights
+#                            re-laid over model, tokens over data)
+#   gather(..., grad="block")  all-gather; the rank's block of the
+#                            gradient — every rank of ``axis`` computes the
+#                            same thing with the whole
+# Over an axis of one rank each is the identity and copies nothing.
+# ---------------------------------------------------------------------------
+
+
+def axis_size(axis: str) -> int:
+    """The size of mesh axis ``axis`` under the active mesh (1 with none
+    or where the mesh has no such axis)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    return layout(mesh).shape.get(axis, 1)
+
+
+def axis_index(axis: str) -> int:
+    """This rank's index on mesh axis ``axis`` (0 with no mesh)."""
+    if axis_size(axis) == 1:
+        return 0
+    return coordinate(current_mesh())[axis]
+
+
+def _group(axis: str):
+    return current_mesh().get_group(axis)
+
+
+def _refuse_grad(x: torch.Tensor, what: str) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{what} has no gradient rule and autograd is recording on an input that "
+            "requires a gradient: use copy_to, reduce_from or gather")
+
+
+def _gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     import torch.distributed as dist
 
-    mesh = current_mesh()
-    if mesh.size(mesh.mesh_dim_names.index(axis)) == 1:
-        return x
-    g = mesh.get_group(axis)
+    g = _group(axis)
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
     dist.all_gather(parts, x.contiguous(), group=g)
     return torch.cat(parts, dim=dim)
 
 
-def all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
-    """Sum ``x`` over mesh axis ``axis`` (in place; returns ``x``)."""
+def _reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """The sum over ``axis``, cut along ``dim`` to this rank's block.  Gloo
+    reduce-scatters CPU tensors only, so a gloo group (ranks sharing one
+    card) all-reduces a CUDA tensor and keeps the rank's block: the same
+    values, more traffic."""
     import torch.distributed as dist
 
-    mesh = current_mesh()
-    if mesh.size(mesh.mesh_dim_names.index(axis)) > 1:
-        dist.all_reduce(x, group=mesh.get_group(axis))
+    g = _group(axis)
+    n = dist.get_world_size(g)
+    if x.is_cuda and dist.get_backend(g) == "gloo":
+        return _sum(x, axis).chunk(n, dim=dim)[dist.get_rank(g)].contiguous()
+    parts = [p.contiguous() for p in x.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=g)
+    return out
+
+
+def _sum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    import torch.distributed as dist
+
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=_group(axis))
     return x
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim`` over mesh axis
+    ``axis`` (a tiled all-gather), in the axis's rank order.  No
+    gradient."""
+    if axis_size(axis) == 1:
+        return x
+    _refuse_grad(x, "all_gather")
+    return _gather(x, axis, dim)
+
+
+def all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Sum ``x`` over mesh axis ``axis`` (in place; returns ``x``).  No
+    gradient."""
+    import torch.distributed as dist
+
+    if axis_size(axis) > 1:
+        _refuse_grad(x, "all_reduce")
+        dist.all_reduce(x, group=_group(axis))
+    return x
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` summed over mesh axis ``axis``, cut along ``dim``
+    to this rank's block.  No gradient."""
+    if axis_size(axis) == 1:
+        return x
+    _refuse_grad(x, "reduce_scatter")
+    return _reduce_scatter(x, axis, dim % x.ndim)
+
+
+def all_reduce_max(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over mesh axis ``axis`` (a new
+    tensor).  No gradient."""
+    import torch.distributed as dist
+
+    if axis_size(axis) == 1:
+        return x
+    _refuse_grad(x, "all_reduce_max")
+    x = x.contiguous().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group(axis))
+    return x
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, grad):
+        ctx.axis, ctx.dim, ctx.grad, ctx.size = axis, dim, grad, x.shape[dim]
+        return _gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            return _reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
+        i = axis_index(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size).contiguous(), None, None, None
+
+
+def copy_to(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Identity forward, gradient summed over ``axis`` (see above)."""
+    return x if axis_size(axis) == 1 else _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``x`` summed over ``axis`` (a new tensor), identity backward."""
+    return x if axis_size(axis) == 1 else _ReduceFrom.apply(x, axis)
+
+
+def gather(x: torch.Tensor, axis: str, dim: int, grad: str = "sum") -> torch.Tensor:
+    """Every rank's ``x`` over ``axis`` concatenated along ``dim``;
+    backward ``grad="sum"`` reduce-scatters the gradient, ``"block"``
+    takes the rank's block of it (see above)."""
+    if grad not in ("sum", "block"):
+        raise ValueError(f"grad must be 'sum' or 'block', got {grad!r}")
+    dim = dim % x.ndim
+    return x if axis_size(axis) == 1 else _Gather.apply(x, axis, dim, grad)
+
+
+def dp_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the data axes (``pod``, ``data``) of the active
+    mesh, replicated over them (``reduce_from``: each shard's ``t`` gets
+    the sum's gradient); ``t`` itself with none."""
+    for axis in ("pod", "data"):
+        t = reduce_from(t, axis)
+    return t
+
+
+def part(x: torch.Tensor, dim: int, axis: str | None) -> torch.Tensor:
+    """This rank's block along ``dim`` of a tensor replicated over
+    ``axis`` that the rank uses only in its part (a bias of a
+    column-parallel product): ``copy_to`` then the block."""
+    if axis is None or axis_size(axis) == 1:
+        return x
+    n = x.shape[dim] // axis_size(axis)
+    return copy_to(x, axis).narrow(dim, axis_index(axis) * n, n)
+
+
+def relayout(w: torch.Tensor, have, want, *, whole: bool = False) -> torch.Tensor:
+    """This rank's block of a weight cut by spec ``have`` -> its block
+    under spec ``want`` (entries ``None`` or one axis name; a shorter spec
+    is padded with ``None``): a dim cut on an axis it should not be is
+    gathered over that axis, then a dim that should be cut and is not is
+    narrowed to the rank's block.  A gather over ``model`` takes
+    ``grad="block"`` when ``whole`` (every rank of the model group
+    computes the same thing with the weight), else ``"sum"``; a gather
+    over a data axis always sums."""
+    have = list(have) + [None] * (w.ndim - len(have))
+    want = list(want) + [None] * (w.ndim - len(want))
+    for dim, (h, t) in enumerate(zip(have, want)):
+        if h is not None and h != t:
+            w = gather(w, h, dim, "block" if whole and h == "model" else "sum")
+    for dim, (h, t) in enumerate(zip(have, want)):
+        if t is not None and h != t:
+            size = w.shape[dim] // axis_size(t)
+            w = w.narrow(dim, axis_index(t) * size, size)
+    return w
+
+
+def weight(p: dict, name: str, shape, want=(), *, use: str = "whole") -> torch.Tensor:
+    """``p[name]``, this rank's block of a weight whose full shape is
+    ``shape`` (cut by ``param_spec(name, shape)``), in the layout ``want``
+    (``relayout``).  ``use`` says how the ranks of a model group use a
+    weight that ``want`` leaves whole over ``model``: ``"whole"``, each
+    computes the same thing with it; ``"part"``, each computes its own
+    part (so a weight replicated over ``model`` takes ``copy_to``).
+    Without a mesh, ``p[name]`` itself."""
+    if current_mesh() is None:
+        return p[name]
+    have = param_spec(name, shape)
+    w = relayout(p[name], have, want, whole=use == "whole")
+    if use == "part" and "model" not in have and "model" not in want:
+        w = copy_to(w, "model")
+    return w
+
+
+def model_cut(name: str, shape, dim: int) -> str | None:
+    """``"model"`` where ``param_spec(name, shape)`` cuts ``dim`` over the
+    model axis of the active mesh and that axis has more than one rank,
+    else ``None``."""
+    if axis_size("model") == 1:
+        return None
+    spec = param_spec(name, shape)
+    return "model" if dim < len(spec) and spec[dim] == "model" else None

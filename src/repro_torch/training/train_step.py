@@ -1,6 +1,7 @@
 """The train step: loss and gradients, microbatch accumulation, gradient
 compression, global-norm clipping and the optimizer update — the
-counterpart of ``repro.training.train_step`` on one device.
+counterpart of ``repro.training.train_step``, on one device and under a
+mesh.
 
 The state is the reference's tree: ``{"params", "opt", "step", "comp_err"
 (with compression)}``, ``params`` in the stacked layout of
@@ -18,6 +19,24 @@ accumulation, in both packages.  The three parts of a step run under
 ``torch.profiler.record_function`` ranges (``train_step/grads``,
 ``train_step/clip``, ``train_step/optimizer``), which a profiler reads and
 which cost nothing measurable otherwise.
+
+Under a mesh (the state made and the step called inside
+``rules.mesh_context`` with a ``DeviceMesh``) ``make_train_state`` takes the
+full parameters (on any device, ``meta`` included) and the state holds this
+rank's blocks of them (``rules.params_local``; a block smaller than its
+leaf gets its own storage) and its ZeRO-1 blocks of the optimizer state
+(``optimizer.Zero1``, built from the full shapes); the batch is the rank's
+data shard, and with ``grad_accum > 1`` the shard holds each microbatch's
+data shard in turn (``shard_batch``), so microbatch ``i`` of every rank is
+the reference's microbatch ``i``.  One step serves both cases: the loss and
+the gradients of the blocks (``model.loss_fn``'s convention), each leaf's
+gradient summed over the data axes it is replicated on and cut to its
+ZeRO-1 block, the global norm from the blocks, the clip, the optimizer on
+the blocks, and the updated blocks all-gathered over ``data`` into the
+parameters' own layout.  With no mesh ``Zero1`` is the identity: every
+block is the whole leaf and nothing is summed, cut or gathered.  Gradient
+compression under a mesh is refused: its ``topk`` needs a global top-k over
+the blocks, which is not ported.
 """
 from __future__ import annotations
 
@@ -29,8 +48,10 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.training import compression as C
-from repro_torch.training.optimizer import flat_slices
-from repro_torch.tree import leaves, unflatten
+from repro_torch.models.layers.common import MetaGenerator
+from repro_torch.sharding import rules
+from repro_torch.training.optimizer import Zero1, flat_slices
+from repro_torch.tree import flatten_with_path, leaves, unflatten
 
 
 @dataclass(frozen=True)
@@ -40,29 +61,47 @@ class TrainHparams:
     compression: str = "none"  # none | int8 | topk
 
 
-def _clip_by_global_norm(grads, max_norm: float):
-    """Scale every gradient by min(1, max_norm / global norm), in place
-    (through float32 for a narrower dtype). -> (grads, the norm)."""
-    flat = leaves(grads)
-    gn = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-    for g in flat:
-        gn = gn + sum(s.float().square().sum() for (s,) in flat_slices(g))
-    gn = gn.sqrt()
+def _scale_to(flat, max_norm: float, gn: torch.Tensor) -> None:
+    """Scale every gradient of ``flat`` by min(1, max_norm / gn), in place
+    (through float32 for a narrower dtype)."""
     scale = (torch.tensor(max_norm, dtype=torch.float32, device=gn.device)
              / gn.clamp(min=1e-12)).clamp(max=1.0)
     with torch.no_grad():
         for g in flat:
             for (s,) in flat_slices(g):
                 s.copy_(s.float() * scale)
-    return grads, gn
+
+
+def zero1_layout(cfg: ArchConfig) -> Zero1:
+    """The ZeRO-1 layout of ``cfg``'s train state under the active mesh
+    (from its parameters' shapes on ``meta``; the identity with none)."""
+    return Zero1(M.init_train_params(MetaGenerator(), cfg))
 
 
 def make_train_state(params, optimizer, hp: TrainHparams = TrainHparams()) -> dict:
-    state = {"params": params, "opt": optimizer.init(params),
-             "step": torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)}
+    """The state over ``params``.  Under a mesh ``params`` are the full
+    parameters and the state holds this rank's blocks of them and its
+    ZeRO-1 blocks of the optimizer state (see the module docstring)."""
+    zero1 = Zero1(params)
+    if rules.current_mesh() is not None:
+        if hp.compression != "none":
+            _refuse_compression()
+        local = leaves(rules.params_local(params))
+        params = unflatten(params, [b if b.numel() == p.numel() else b.clone()
+                                    for p, b in zip(leaves(params), local)])
+    flat = leaves(params)
+    blocks = [zero1.param_block(i, p) for i, p in enumerate(flat)]
+    state = {"params": params, "opt": optimizer.init(unflatten(params, blocks)),
+             "step": torch.zeros((), dtype=torch.int32, device=flat[0].device)}
     if hp.compression != "none":
         state["comp_err"] = C.init_error_state(params)
     return state
+
+
+def _refuse_compression():
+    raise NotImplementedError(
+        "gradient compression under a mesh is not ported: topk needs a global top-k "
+        "over the ZeRO-1 blocks")
 
 
 def _split(x: torch.Tensor, n: int) -> list[torch.Tensor]:
@@ -74,34 +113,91 @@ def _split(x: torch.Tensor, n: int) -> list[torch.Tensor]:
     return list(x.reshape(n, x.shape[0] // n, *x.shape[1:]))
 
 
+def shard_batch(batch: dict, grad_accum: int = 1) -> dict:
+    """A global batch -> this rank's data shard under the active mesh: each
+    of the ``grad_accum`` microbatches cut over the data axes
+    (``rules.batch_pspecs``), the shards put back in microbatch order."""
+    out = {}
+    mesh = rules.current_mesh()
+    for k, v in batch.items():
+        parts = _split(v, grad_accum)
+        axis = 1 if v.ndim >= 2 and v.shape[0] == 3 else 0
+        spec = rules.batch_pspecs({k: parts[0]})[k]
+        cut = [rules.local_slice(p, spec, mesh) for p in parts]
+        out[k] = torch.cat(cut, dim=axis) if len(cut) > 1 else cut[0]
+    return out
+
+
+def unreached(cfg: ArchConfig) -> tuple:
+    """The path endings of the leaves ``cfg``'s loss does not reach, whose
+    gradient is zero (``jax.grad`` gives zeros): the score router's weights
+    under the hash router, the sigmoid router's selection bias (it only
+    orders the experts), and an embeds-input model's untied embedding."""
+    out = []
+    if cfg.moe is not None and cfg.moe.router == "hash":
+        out.append("['router']")
+    if cfg.moe is not None and cfg.moe.router == "sigmoid":
+        out.append("['router_bias']")
+    if cfg.input_mode != "tokens" and not cfg.tie_embeddings:
+        out.append("['embed']['embedding']")
+    return tuple(out)
+
+
 def loss_and_grads(params, batch, cfg: ArchConfig):
     """-> (loss, metrics, gradients in flatten order) of ``model.loss_fn``
-    at ``params``, which are left without autograd history."""
-    flat = leaves(params)
-    live = [p.detach().requires_grad_() for p in flat]
+    at ``params``, which are left without autograd history.  A leaf that
+    gets no gradient gets zeros; under a mesh only the ``unreached`` ones
+    may, and any other raises (a collective without a gradient rule would
+    otherwise train nothing silently)."""
+    flat = flatten_with_path(params)
+    live = [p.detach().requires_grad_() for _, p in flat]
     loss, metrics = M.loss_fn(unflatten(params, live), batch, cfg)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+    if rules.current_mesh() is not None:
+        missing = [path for (path, _), g in zip(flat, grads)
+                   if g is None and not path.endswith(unreached(cfg))]
+        if missing:
+            raise RuntimeError(f"the loss reached no gradient to {missing[:4]}")
+    grads = [torch.zeros_like(p) if g is None else g for g, (_, p) in zip(grads, flat)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(cfg: ArchConfig, optimizer, hp: TrainHparams = TrainHparams()):
     """-> ``train_step(state, batch) -> (state, metrics)``: metrics
-    ``{ce, aux, [mtp_ce], loss, grad_norm}``, or ``{loss, grad_norm}`` with
-    ``grad_accum > 1``, as the reference's."""
+    ``{ce, aux, [mtp_ce], loss}``, or ``{loss}`` with ``grad_accum > 1``,
+    as the reference's, plus ``grad_norm``.  Under a mesh the step is the
+    meshed one (see the module docstring).  Its ZeRO-1 layout is built
+    here, for the active mesh context (outside any step a caller traces or
+    times: the build initialises the parameters on ``meta``), and the step
+    raises under another context."""
+    made_in = (rules.current_mesh(), rules.fsdp(), rules.expert_layout())
+    if made_in[0] is not None and hp.compression != "none":
+        _refuse_compression()
+    zero1 = zero1_layout(cfg)
 
     def train_step(state, batch):
+        now = (rules.current_mesh(), rules.fsdp(), rules.expert_layout())
+        if now[0] is not made_in[0] or now[1:] != made_in[1:]:
+            raise RuntimeError("a train step runs under the mesh context it was made in")
         params = state["params"]
+        flat = leaves(params)
         with record_function("train_step/grads"):
             grads, metrics = _grads(params, batch)
         with record_function("train_step/clip"):
             if hp.compression != "none":
                 grads, state["comp_err"] = C.apply_compression(grads, state["comp_err"],
                                                                hp.compression)
-            grads, gn = _clip_by_global_norm(grads, hp.clip_norm)
+            blocks = [zero1.grad_block(i, g) for i, g in enumerate(leaves(grads))]
+            del grads
+            gn = zero1.global_norm(blocks)
+            _scale_to(blocks, hp.clip_norm, gn)
         with record_function("train_step/optimizer"):
-            state["params"], state["opt"] = optimizer.update(grads, state["opt"], params,
-                                                             state["step"])
+            p_blocks = [zero1.param_block(i, p) for i, p in enumerate(flat)]
+            optimizer.update(unflatten(params, blocks), state["opt"], unflatten(params, p_blocks),
+                             state["step"], cuts=zero1.cuts)
+            with torch.no_grad():
+                for i, (p, b) in enumerate(zip(flat, p_blocks)):
+                    zero1.put_back(i, p, b)
         state["step"] = state["step"] + 1
         metrics["grad_norm"] = gn
         return state, metrics

@@ -24,6 +24,8 @@ Imports no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -804,5 +806,51 @@ def test_sharded_route_one_rank_nccl(cuda, engine, donate):
         np.testing.assert_array_equal(keys.cpu().numpy().view(np.uint32), keys_np)
         odd = keys_np[:10_001]
         np.testing.assert_array_equal(sharded.route_keys_np(odd), single.route_keys_np(odd))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("engine", ["binomial", "jump"])
+def test_meshed_train_step_on_one_nccl_rank(cuda, engine):
+    """The meshed train step (fsdp, ZeRO-1 applied) under a one-rank NCCL
+    (1, 1) mesh on reduced Qwen3-MoE with the hash router and full remat:
+    two AdamW steps give the unmeshed step's losses and grad norms, and
+    lookup_router launches twice per MoE layer per step (the forward and
+    remat's recomputation)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import rules
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import make_train_state, make_train_step
+
+    base = reduced_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(base, remat="full", moe=dataclasses.replace(
+        base.moe, router="hash", router_hash_engine=engine))
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 17))).to(cuda)
+    batch = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+    kernels = BULK_ENGINES[engine].kernels
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1)
+        runs = []
+        for meshed in (False, True):
+            ctx = rules.mesh_context(mesh, fsdp=True, expert_layout="ep")
+            with ctx if meshed else contextlib.nullcontext():
+                params = M.init_train_params(torch.Generator(cuda).manual_seed(0), cfg)
+                opt = make_optimizer("adamw", lr=1e-3, warmup=0, total=10)
+                state = make_train_state(params, opt)
+                step = make_train_step(cfg, opt)
+                kernels.reset_launches()
+                out = []
+                for _ in range(2):
+                    state, metrics = step(state, batch)
+                    out.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+                runs.append((out, kernels.launches["lookup_vec"]))
+        n_moe = sum(k == "attn_moe" for k in cfg.layer_kinds())
+        assert runs[1][1] == 2 * n_moe * 2
+        for (l0, g0), (l1, g1) in zip(runs[0][0], runs[1][0]):
+            assert abs(l1 - l0) <= 1e-5 * abs(l0) and abs(g1 - g0) <= 1e-4 * abs(g0)
     finally:
         dist.destroy_process_group()

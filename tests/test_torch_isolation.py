@@ -56,7 +56,8 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.analysis.__main__", "repro_torch.roofline.hw",
             "repro_torch.roofline.op_cost", "repro_torch.roofline.analysis",
             "repro_torch.launch.mesh", "repro_torch.sharding",
-            "repro_torch.sharding.rules"} <= set(mods)
+            "repro_torch.sharding.rules", "repro_torch.launch.dryrun",
+            "repro_torch.configs.base"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -28,6 +28,7 @@ from repro_torch.interop import train_state_from_numpy  # noqa: E402
 from repro_torch.training import compression as TC  # noqa: E402
 from repro_torch.training import optimizer as TO  # noqa: E402
 from repro_torch.training import train_step as TT  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 from test_torch_train_common import (  # noqa: E402
     HPARAM_IDS, HPARAMS, _configs, _reference_params, assert_close, assert_tree_close,
     make_batch, run_steps,
@@ -85,7 +86,10 @@ def test_clip_by_global_norm_matches_reference(max_norm):
     tree = {"b": rng.normal(size=(7,)).astype(np.float32),
             "a": {"w": rng.normal(size=(5, 3)).astype(np.float32)}}
     jg, jn = JT._clip_by_global_norm(jax.tree.map(jnp.asarray, tree), max_norm)
-    tg, tn = TT._clip_by_global_norm(jax.tree.map(torch.from_numpy, tree), max_norm)
+    tg = jax.tree.map(torch.from_numpy, tree)
+    blocks = leaves(tg)  # the step's clip: the norm from the blocks (with no mesh the
+    tn = TO.Zero1(tg).global_norm(blocks)  # leaves), then the scale
+    TT._scale_to(blocks, max_norm, tn)
     assert_close(tn.numpy(), jn, "norm")
     assert_tree_close(tg, jg, "clipped ")
 
