@@ -161,6 +161,20 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      taking the four attention modes, 2 AdamW steps with ZeRO-1, every
      rank's parameter and optimizer blocks within 1e-4 of the unmeshed
      port on the card cut the same way, K5 counted per rank;
+   - "compress", gradient compression under a mesh: (a) per engine the
+     train cell with Adafactor, int8 then top-k, 3 steps unmeshed and 3
+     under a one-rank NCCL (1, 1) mesh with fsdp and ZeRO-1 (losses within
+     2e-4, grad norms within 1e-3, ``lookup_router`` twice a step); in the
+     first meshed top-k step every leaf's threshold equals ``torch.topk``'s
+     k-th value on the card bit for bit and the kept count is k plus the
+     ties; ms a step, the ``train_step/compress`` range's device ms, the
+     peak memory by part, and the select on the largest leaf against
+     ``torch.topk`` (and without a host synchronisation); (b) 4 gloo ranks
+     sharing the card on a (2, 2) mesh with fsdp, reduced Qwen3-MoE (hash
+     router) and StableLM-3B, int8 and top-k, 2 AdamW steps, each against
+     the unmeshed port's step on the card from the same state: every
+     rank's blocks within 1e-4 but for the elements whose compression
+     flipped, which are bounded and checked as the CPU tests check them;
    - placement, per engine: ``BatchRouter(1000, capacity=1024)``, a
      ``LifecycleManager`` on a ``ManualClock``, ``StorePlacement(r=3)`` with
      2^20 registered keys and a ``PlacementRepairer``; 2 replicas fall
@@ -2820,7 +2834,9 @@ def mesh_train_rank_body(device: str) -> dict:
     return out
 
 
-def mesh_train_rank(rank: int, store: str, out_dir: str, device: str) -> None:
+def mesh_train_rank(rank: int, store: str, out_dir: str, device: str, body: str) -> None:
+    """One of ``MESH_TRAIN_RANKS`` gloo ranks running the rank function
+    named ``body`` on ``device``; its result as JSON under ``out_dir``."""
     import faulthandler
 
     import torch.distributed as dist
@@ -2835,34 +2851,41 @@ def mesh_train_rank(rank: int, store: str, out_dir: str, device: str) -> None:
             from repro_torch.kernels import build
 
             build.library()
-        result = mesh_train_rank_body(device)
+        result = globals()[body](device)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result))
 
 
-def mesh_train_ranks(card: str, device: str = "cuda") -> int:
-    """Part (b): ``MESH_TRAIN_RANKS`` gloo ranks sharing the card (spawned,
-    a ``FileStore``, joined within ``MESH_JOIN_S``).  -> the lookup_router
-    launches of the meshed steps, summed over the ranks."""
+def run_ranks(body: str, device: str, what: str) -> list:
+    """``MESH_TRAIN_RANKS`` gloo ranks sharing the card (spawned, a
+    ``FileStore``, joined within ``MESH_JOIN_S``), each running the rank
+    function named ``body``.  -> their results, in rank order."""
     import torch.multiprocessing as mp
 
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(mesh_train_rank, args=(str(Path(tmp, "store")), tmp, device),
+        ctx = mp.start_processes(mesh_train_rank,
+                                 args=(str(Path(tmp, "store")), tmp, device, body),
                                  nprocs=MESH_TRAIN_RANKS, join=False, start_method="spawn")
         deadline = time.monotonic() + MESH_JOIN_S
         try:
             while not ctx.join(timeout=1.0):
                 if time.monotonic() > deadline:
-                    fail(f"mesh train (b): the ranks did not finish within {MESH_JOIN_S} s")
+                    fail(f"{what}: the ranks did not finish within {MESH_JOIN_S} s")
         finally:
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
-        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-                 for r in range(MESH_TRAIN_RANKS)]
+        return [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(MESH_TRAIN_RANKS)]
+
+
+def mesh_train_ranks(card: str, device: str = "cuda") -> int:
+    """Part (b): ``MESH_TRAIN_RANKS`` gloo ranks sharing the card.  -> the
+    lookup_router launches of the meshed steps, summed over the ranks."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("mesh_train_rank_body", device, "mesh train (b)")
     modes = {ranks[0][name]["mode"] for name, *_ in MESH_TRAIN_CASES}
     if not {"head", "rhead", "seq", "local"} <= modes:
         fail(f"mesh train (b): attention modes {modes}")
@@ -2900,6 +2923,472 @@ def phase_mesh_train(card: str) -> dict:
     launches["binomial"]["lookup_router"] += mesh_train_ranks(card)
     print(f"phase 3 mesh train: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# --- gradient compression under a mesh -----------------------------------------
+
+COMPRESS_KINDS = ("int8", "topk")
+COMPRESS_STEPS = 3
+#: part (b)'s reduced cases: name, arch, expert layout, config overrides
+COMPRESS_CASES = (("qwen3/tp", "qwen3-moe-235b-a22b", "tp", {"router": "hash", "remat": "full"}),
+                  ("stablelm-3b", "stablelm-3b", "ep", {}))
+COMPRESS_LR = 1e-3
+#: the CPU tests' tolerance (``tests/test_torch_compression_mesh.py``): a
+#: block within 1e-4 of its scale, but for the elements whose compression
+#: flips between two runs whose sums differ in order (at most this share
+#: of a leaf), which may move apart by the steps' updates
+COMPRESS_TOL = 1e-4
+COMPRESS_FLIP_SHARE = 1e-3
+#: a topk flip's |gf| lies this close to the threshold, relatively
+COMPRESS_NEAR = 1e-5
+
+
+class SelectCheck:
+    """While active, and while ``armed``, holds each threshold the train
+    step's ``compression.kth_magnitude`` returns against ``torch.topk``'s
+    k-th value of the same leaf on the card, bit for bit, and the kept
+    count (elements at or above it) against k plus the ties; keeps the
+    largest leaf's block and k for timing."""
+
+    def __init__(self):
+        from repro_torch.training import compression as C
+
+        self.C, self.select = C, C.kth_magnitude
+        self.armed, self.checked, self.bad, self.largest = False, 0, [], None
+
+    def __enter__(self):
+        def checked(gf, k, axes=()):
+            t = self.select(gf, k, axes)
+            if self.armed:
+                mags = gf.abs().reshape(-1)
+                want = torch.topk(mags, k).values[-1]
+                above, kept = int((mags > t).sum()), int((mags >= t).sum())
+                if int(t.view(torch.int32)) != int(want.view(torch.int32)) or not above < k <= kept:
+                    self.bad.append((tuple(gf.shape), k, float(t), float(want), above, kept))
+                self.checked += 1
+                if self.largest is None or gf.numel() > self.largest[0].numel():
+                    self.largest = (gf.detach().clone(), k)
+                del mags
+            return t
+
+        self.C.kth_magnitude = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.C.kth_magnitude = self.select
+
+
+def compress_step_parts(step, state, batch):
+    """One more step under ``torch.profiler``, with the peak memory of each
+    part (the counts reset as each part begins: the forward and backward,
+    the compression and the clip, the optimizer).  -> (the state, the
+    device ms of the kernels launched inside ``train_step/compress``, or
+    None when the profiler recorded no device time, peak bytes by part)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training import compression as C
+    from repro_torch.training.optimizer import Adafactor
+
+    peaks = {}
+    compress, update = C.compress, Adafactor.update
+
+    def note(part):
+        if part not in peaks:
+            peaks[part] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+    def compress_noted(*args, **kw):
+        note("forward and backward")
+        return compress(*args, **kw)
+
+    def update_noted(self, *args, **kw):
+        note("compress and clip")
+        return update(self, *args, **kw)
+
+    C.compress, Adafactor.update = compress_noted, update_noted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+        note("optimizer")
+    finally:
+        C.compress, Adafactor.update = compress, update
+    ms = [e.device_time_total / 1e3 for e in prof.key_averages()
+          if e.device_type == DeviceType.CPU and e.key == "train_step/compress"]
+    return state, (ms[0] if ms and ms[0] > 0 else None), peaks
+
+
+def compress_full_width(card: str, engine: str) -> dict:
+    """Part (a) for one engine: the full-width train cell (``TRAIN_ARCH`` at
+    its published widths, one layer, bf16, the hash router) with Adafactor,
+    per compression ``COMPRESS_STEPS`` steps unmeshed, then the same from
+    the same seed under a one-rank NCCL (1, 1) mesh with fsdp and ZeRO-1;
+    the launch counts set to 0 just before the meshed steps and read just
+    after; with ``topk`` every leaf's threshold of the first meshed step
+    held against ``torch.topk``.  -> lookup_router launches and numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.data.pipeline import DataConfig, ShardedDataPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import rules
+    from repro_torch.training import compression as C
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import TrainHparams, make_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = hash_routed(dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS), engine)
+    pipe = ShardedDataPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 1, 0)
+    batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in pipe.batch(i).items()}
+               for i in range(COMPRESS_STEPS)]
+    kernels = BULK_ENGINES[engine].kernels
+    mesh = make_local_mesh(1, 1, device_type="cuda")
+    out = {"lookup_router": 0}
+    for kind in COMPRESS_KINDS:
+        hp = TrainHparams(compression=kind)
+        runs = {}
+        for meshed in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ctx = (rules.mesh_context(mesh, fsdp=True, expert_layout="ep") if meshed
+                   else contextlib.nullcontext())
+            with ctx, SelectCheck() as check:
+                params = M.init_train_params(torch.Generator("cuda").manual_seed(0), cfg)
+                opt = make_optimizer("adafactor", lr=TRAIN_LR, warmup=0, total=COMPRESS_STEPS)
+                state = make_train_state(params, opt, hp)
+                del params
+                step = make_train_step(cfg, opt, hp)
+                n_params = sum(p.numel() for p in leaves(state["params"]))
+                n_leaves = len(leaves(state["params"]))
+                sizes = {k: tree_bytes(state[k]) for k in ("params", "opt", "comp_err")}
+                torch.cuda.synchronize()
+                reset_all_launches()
+                losses, norms, walls = [], [], []
+                for i, batch in enumerate(batches):
+                    check.armed = meshed and kind == "topk" and i == 0
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch)
+                    losses.append(float(metrics["loss"]))
+                    norms.append(float(metrics["grad_norm"]))
+                    walls.append(time.perf_counter() - t0)
+                    if i == 0:  # the peak of the steps after the first (and its check)
+                        if check.largest is not None:  # kept off the card meanwhile
+                            check.largest = (check.largest[0].cpu(), check.largest[1])
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                check.armed = False
+                run = {"losses": losses, "norms": norms, "peak": torch.cuda.max_memory_allocated(),
+                       "ms": statistics.median(walls[1:]) * 1e3, "walls": walls,
+                       "lookup_router": kernels.launches["lookup_vec"], "sizes": sizes}
+                if meshed:
+                    state, run["compress_ms"], run["parts"] = compress_step_parts(
+                        step, state, batches[0])
+                runs["meshed" if meshed else "unmeshed"] = run
+                del state, step, opt
+        a, b = runs["unmeshed"], runs["meshed"]
+        want = TRAIN_ROUTES_PER_LAYER * COMPRESS_STEPS
+        if b["lookup_router"] != want:
+            fail(f"compress (a)[{engine}] {kind}: {b['lookup_router']} lookup_router launches, "
+                 f"expected {want}")
+        for x, y, tol, what in ((a["losses"], b["losses"], MESH_TRAIN_LOSS_TOL, "losses"),
+                                (a["norms"], b["norms"], MESH_TRAIN_NORM_TOL, "grad norms")):
+            if not all(np.isfinite(y)) or any(abs(p - q) > tol * abs(p) for p, q in zip(x, y)):
+                fail(f"compress (a)[{engine}] {kind}: {what} meshed {y} vs unmeshed {x} "
+                     f"(tolerance {tol})")
+        select = ""
+        if kind == "topk":
+            if check.bad or check.checked != n_leaves:
+                fail(f"compress (a)[{engine}]: the select checked {check.checked} of {n_leaves} "
+                     f"leaves; against torch.topk: {check.bad[:4]}")
+            gf, k = check.largest
+            gf = gf.cuda()
+            check.largest = None
+            mine = time_ms(lambda: C.radix_kth_magnitude(gf, k), launches=1, repeats=3)
+            mags = gf.abs().reshape(-1)
+            lib = time_ms(lambda: torch.topk(mags, k), launches=1, repeats=3)
+            torch.cuda.synchronize()
+            previous = torch.cuda.get_sync_debug_mode()  # a synchronising call raises
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                C.radix_kth_magnitude(gf, k)
+            except RuntimeError as e:
+                import traceback
+
+                traceback.print_exc()
+                fail(f"compress (a)[{engine}]: the select waits for the device: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(previous)
+            select = (f"; every leaf's threshold ({check.checked}) equal to torch.topk's k-th value "
+                      f"bit for bit, kept = k + ties; the select on the largest leaf "
+                      f"({gf.numel():,} elements, k = {k:,}) {mine:.3f} ms against torch.topk's "
+                      f"{lib:.3f} ms, no host synchronisation")
+            out[engine, "select"] = {"elements": gf.numel(), "k": k, "ms": mine, "topk_ms": lib}
+            del gf, mags
+        comp = b.get("compress_ms")
+        print(f"phase 3 compress (a)[{engine}] {kind}: {TRAIN_ARCH} at published widths, "
+              f"{TRAIN_LAYERS} layer, bf16, hash router, Adafactor (lr {TRAIN_LR}), "
+              f"{n_params / 1e9:.3f} G parameters ({b['sizes']['params'] / 1e9:.3f} GB), optimizer "
+              f"state {b['sizes']['opt'] / 1e9:.3f} GB, residual {b['sizes']['comp_err'] / 1e9:.3f} "
+              f"GB (ZeRO-1 blocks, float32); {COMPRESS_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens, one NCCL rank, (1, 1) mesh, fsdp: losses "
+              + ", ".join(f"{x:.5f}" for x in b["losses"]) + " (unmeshed "
+              + ", ".join(f"{x:.5f}" for x in a["losses"]) + "), grad norms "
+              + ", ".join(f"{x:.4f}" for x in b["norms"]) + " (unmeshed "
+              + ", ".join(f"{x:.4f}" for x in a["norms"]) + f"); {b['ms']:.1f} ms a step vs "
+              f"{a['ms']:.1f} ms unmeshed (median of steps 2-{COMPRESS_STEPS}; all "
+              + ", ".join(f"{w * 1e3:.1f}" for w in b["walls"]) + "), train_step/compress "
+              + ("not measured (no device time recorded)" if comp is None else f"{comp:.2f} ms")
+              + f" of a profiled step; peak of steps 2-{COMPRESS_STEPS} {b['peak'] / 1e9:.3f} GB (unmeshed "
+              f"{a['peak'] / 1e9:.3f} GB; by part of the profiled step "
+              + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in b["parts"].items())
+              + f"); lookup_router {b['lookup_router'] / COMPRESS_STEPS:g} "
+              f"launches a step{select} on {card}")
+        out[engine, kind] = {"ms": b["ms"], "unmeshed_ms": a["ms"], "compress_ms": comp,
+                             "peak": b["peak"], "unmeshed_peak": a["peak"], "parts": b["parts"]}
+        out["lookup_router"] += b["lookup_router"]
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks of part (b) share the card
+    return out
+
+
+def compress_blocks(state, full, specs, kind, mesh, threshes) -> dict:
+    """A rank's blocks of ``state`` after one meshed step against ``full``
+    (the unmeshed port's state after the same step from the same state)
+    cut the same way, held as ``tests/test_torch_compression_mesh.py::
+    _note_flips`` holds a rank to the reference.  A residual element whose
+    compression flipped between the two runs (their sums differ in order)
+    departs by more than half a quantum (int8) or beyond ``COMPRESS_TOL``
+    of its leaf's scale (topk: kept on one side only, its ``|gf|`` within
+    ``COMPRESS_NEAR`` of the meshed threshold ``threshes[i]``); the
+    parameter and optimizer state of a flipped element (from every rank's
+    blocks) may move apart by one step's update.  -> the largest departure
+    of the other elements as a share of their leaf's scale (a residual's
+    is its gradient's: 254 times its largest element with int8, its largest
+    with topk; a moment's its largest; a weight's at least 1), the flipped
+    elements over the whole leaves, whether every leaf flipped at most
+    ``COMPRESS_FLIP_SHARE`` of its elements and every flip is one of those,
+    and the largest departure of a flipped element's parameter or optimizer
+    state."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import rules
+    from repro_torch.training.optimizer import _spec_leaves
+    from repro_torch.tree import flatten_with_path, leaves
+
+    row = {"rel_err": 0.0, "flips": 0, "flips_ok": True, "flip_err": 0.0}
+    flipped = {}
+
+    def blocks(part):
+        return zip(flatten_with_path(state[part]), leaves(full[part]), _spec_leaves(specs[part]))
+
+    for i, ((path, got), whole, sp) in enumerate(blocks("comp_err")):
+        want = rules.local_slice(whole, sp, mesh).detach().double().cpu()
+        got = got.detach().double().cpu()
+        top = float(whole.detach().abs().max())
+        scale = max(top, 1e-30) * (254 if kind == "int8" else 1)
+        d = (got - want).abs()
+        if kind == "int8":
+            off = d > top / 2
+            ok = float(d.max()) <= 2 * top * (1 + 1e-3) + COMPRESS_TOL * scale
+        else:
+            off = d > COMPRESS_TOL * scale
+            one_side = (got == 0) != (want == 0)
+            mag = torch.where(got == 0, want.abs(), got.abs())
+            near = (mag - threshes[i]).abs() <= COMPRESS_NEAR * threshes[i]
+            ok = bool(one_side[off].all()) and bool(near[off].all())
+        row["flips_ok"] &= ok and int(off.sum()) <= max(1, int(d.numel() * COMPRESS_FLIP_SHARE))
+        row["rel_err"] = max(row["rel_err"], float(torch.where(off, 0.0, d).max()) / scale)
+        mine = torch.zeros(tuple(whole.shape))  # this rank's flips, placed in the whole leaf
+        rules.local_slice(mine, sp, mesh).copy_(off.float())
+        dist.all_reduce(mine)
+        flipped[path] = mine > 0
+        row["flips"] += int(flipped[path].sum())
+    for part in ("params", "opt"):
+        for (path, got), whole, sp in blocks(part):
+            key = path
+            for prefix in ("['m']", "['v']", "['master']"):
+                key = key.removeprefix(prefix)
+            mask = rules.local_slice(flipped[key], sp, mesh)
+            want = rules.local_slice(whole, sp, mesh).detach().double().cpu()
+            d = (got.detach().double().cpu() - want).abs()
+            floor = 0.0 if path.startswith(("['m']", "['v']")) else 1.0
+            scale = max(float(whole.detach().abs().max()), 1e-30, floor)
+            row["rel_err"] = max(row["rel_err"], float(torch.where(mask, 0.0, d).max()) / scale)
+            row["flip_err"] = max(row["flip_err"], float(torch.where(mask, d, 0.0).max()))
+    return row
+
+
+def gather_state(state, like, specs, mesh, device):
+    """Every rank's blocks of ``state`` put together into the whole state
+    (shaped and typed like ``like``) on ``device``: each leaf summed over
+    the ranks in float64 and divided by its copies, which is exact."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import rules
+    from repro_torch.training.optimizer import _spec_leaves
+    from repro_torch.tree import leaves, unflatten
+
+    out = {"step": state["step"].detach().cpu().to(device, copy=True)}
+    for part, spec in specs.items():
+        whole = []
+        for b, w, sp in zip(leaves(state[part]), leaves(like[part]), _spec_leaves(spec)):
+            acc = torch.zeros(tuple(w.shape), dtype=torch.float64)
+            copies = torch.zeros(tuple(w.shape), dtype=torch.float64)
+            rules.local_slice(acc, sp, mesh).copy_(b.detach().double().cpu())
+            rules.local_slice(copies, sp, mesh).fill_(1.0)
+            dist.all_reduce(acc)
+            dist.all_reduce(copies)
+            whole.append((acc / copies).to(w.dtype).to(device))
+        out[part] = unflatten(like[part], whole)
+    return out
+
+
+def compress_rank_body(device: str) -> dict:
+    """One rank of part (b): per case and compression, 2 meshed ZeRO-1
+    AdamW (master weights) steps on the card from the seed, each held
+    against the unmeshed port's step from the same state (the first from
+    the seed, the second from every rank's blocks after the first put
+    together, so that a residual read back at the second step is held to
+    the same tolerance as the first step's): this rank's parameter,
+    optimizer and residual blocks (``compress_blocks``), the losses and
+    grad norms of both, and the lookup_router launches of the meshed
+    steps."""
+    from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import rules
+    from repro_torch.training import compression as C
+    from repro_torch.training.optimizer import _spec_leaves, make_optimizer, zero1_pspecs
+    from repro_torch.training.train_step import (TrainHparams, make_train_state, make_train_step,
+                                                 shard_batch)
+    from repro_torch.tree import leaves, unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_local_mesh(2, 2, device_type="cuda" if device == "cuda" else "cpu")
+    select, threshes = C.kth_magnitude, []
+
+    def recorded(gf, k, axes=()):  # the meshed step's thresholds, in leaf order
+        t = select(gf, k, axes)
+        threshes.append(float(t))
+        return t
+
+    out = {}
+    C.kth_magnitude = recorded
+    try:
+        for name, arch, lay, over in COMPRESS_CASES:
+            cfg = mesh_train_case_config(arch, over)
+            ctx = lambda: rules.mesh_context(mesh, fsdp=True, expert_layout=lay)  # noqa: E731
+            for kind in COMPRESS_KINDS:
+                hp = TrainHparams(compression=kind)
+                params = M.init_train_params(torch.Generator(device).manual_seed(0), cfg)
+                opt = make_optimizer("adamw", lr=COMPRESS_LR, warmup=0, total=10)
+                start = to_device(make_train_state(to_device(params, device), opt, hp), "cpu")
+                batches = [{k: v.to(device) for k, v in train_batch(cfg, 4, 16, 20 + i).items()}
+                           for i in range(2)]
+                step = make_train_step(cfg, opt, hp)
+                with ctx():
+                    pspecs = rules.params_pspecs(start["params"])
+                    specs = {"params": pspecs,
+                             "opt": zero1_pspecs(start["params"], pspecs, start["opt"]),
+                             "comp_err": zero1_pspecs(start["params"], pspecs,
+                                                      {"m": start["comp_err"]})["m"]}
+                    state = {k: unflatten(start[k], [
+                        rules.local_slice(t, sp, mesh).contiguous().to(device)
+                        for t, sp in zip(leaves(start[k]), _spec_leaves(specs[k]))]) for k in specs}
+                    state["step"] = start["step"].to(device)
+                    mstep = make_train_step(cfg, opt, hp)
+                whole, rows, launched = to_device(start, device), [], 0
+                for b in batches:
+                    want, metrics = step(whole, b)
+                    loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+                    with ctx():
+                        threshes.clear()
+                        if device == "cuda":
+                            torch.cuda.synchronize()
+                        reset_all_launches()
+                        state, metrics = mstep(state, shard_batch(b))
+                        if device == "cuda":
+                            torch.cuda.synchronize()
+                        launched += BULK_ENGINES["binomial"].kernels.launches["lookup_vec"]
+                        row = compress_blocks(state, want, specs, kind, mesh, threshes)
+                        row.update(loss=(float(metrics["loss"]), loss),
+                                   norm=(float(metrics["grad_norm"]), norm))
+                        rows.append(row)
+                        whole = gather_state(state, start, specs, mesh, device)
+                    del want
+                del whole
+                out[f"{name}/{kind}"] = {"steps": rows, "lookup_router": launched}
+    finally:
+        C.kth_magnitude = select
+    return out
+
+
+def compress_ranks(card: str, device: str = "cuda") -> int:
+    """Part (b): ``MESH_TRAIN_RANKS`` gloo ranks sharing the card, each
+    step of each case gated as ``compress_blocks`` says.  -> the
+    lookup_router launches of the meshed steps, summed over the ranks."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("compress_rank_body", device, "compress (b)")
+    worst, flips, total = {}, {}, 0
+    for rank, res in enumerate(ranks):
+        for name, arch, lay, over in COMPRESS_CASES:
+            for kind in COMPRESS_KINDS:
+                row = res[f"{name}/{kind}"]
+                want = 2 * 2 * 3 if over.get("router") == "hash" else 0  # forward + remat, 3 layers
+                close = all(abs(p - q) <= tol * abs(q) for r in row["steps"]
+                            for (p, q), tol in ((r["loss"], MESH_TRAIN_LOSS_TOL),
+                                                (r["norm"], MESH_TRAIN_NORM_TOL)))
+                good = all(r["flips_ok"] and r["rel_err"] <= COMPRESS_TOL
+                           and r["flip_err"] <= COMPRESS_LR * 10 for r in row["steps"])
+                if row["lookup_router"] != want or not close or not good:
+                    fail(f"compress (b) rank {rank} {name} {kind}: {row} (lookup_router "
+                         f"expected {want})")
+                key = f"{name} {kind}"
+                worst[key] = [max(a, r["rel_err"]) for a, r in
+                              zip(worst.get(key, [0.0] * len(row["steps"])), row["steps"])]
+                flips[key] = [r["flips"] for r in row["steps"]]  # the same on every rank
+                total += row["lookup_router"]
+    print(f"phase 3 compress (b): {MESH_TRAIN_RANKS} gloo ranks sharing {card}, (2, 2) mesh, "
+          f"fsdp, float32 (TF32 off), 2 AdamW + master ZeRO-1 steps with each compression, "
+          f"each against the unmeshed port's step on the card from the same state (step 2 "
+          f"from the ranks' blocks after step 1): losses within {MESH_TRAIN_LOSS_TOL} and grad "
+          f"norms within {MESH_TRAIN_NORM_TOL}; every rank's parameter, optimizer and residual "
+          f"blocks within {COMPRESS_TOL} of their scale but for the elements whose compression "
+          f"flipped (at most {COMPRESS_FLIP_SHARE} of a leaf, each int8 one quantum or topk "
+          f"within {COMPRESS_NEAR} of the threshold, their state within "
+          f"{COMPRESS_LR * 10:g}); largest departure by step "
+          + ", ".join(f"{k} {' / '.join(f'{v:.2e}' for v in vs)}" for k, vs in worst.items())
+          + "; flipped elements by step: "
+          + ", ".join(f"{k} {' / '.join(str(v) for v in vs)}" for k, vs in flips.items())
+          + f"; lookup_router {total // MESH_TRAIN_RANKS} launches a rank "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
+def phase_compress(card: str) -> tuple[dict, dict]:
+    """Gradient compression under a mesh: (a) per engine the full-width
+    cell with Adafactor under a one-rank NCCL mesh against unmeshed, (b)
+    four gloo ranks on the reduced cases.  -> (launches by engine, the
+    numbers of (a))."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    for engine in ENGINES:
+        got = compress_full_width(card, engine)
+        launches[engine] = {"lookup_router": got.pop("lookup_router")}
+        numbers.update(got)
+    dist.destroy_process_group()
+    launches["binomial"]["lookup_router"] += compress_ranks(card)
+    print(f"phase 3 compress: {time.perf_counter() - t0:.1f} s")
+    return launches, numbers
 
 
 # --- the placement path ------------------------------------------------------
@@ -4192,6 +4681,9 @@ def main() -> int:
     by_path["train"] = {(e, k): n for e, counts in phase_train(card).items() for k, n in counts.items()}
     by_path["mesh_train"] = {(e, k): n for e, counts in phase_mesh_train(card).items()
                              for k, n in counts.items()}
+    compress_launches, _ = phase_compress(card)
+    by_path["compress"] = {(e, k): n for e, counts in compress_launches.items()
+                           for k, n in counts.items()}
     place_launches, place_host = phase_placement()
     by_path["placement"] = {(e, k): n for e, counts in place_launches.items() for k, n in counts.items()}
     stream_launches, stream_numbers = phase_streaming()

@@ -111,15 +111,20 @@ def train_state_from_numpy(tree, device, *, local: bool = False) -> dict:
 
     ``local=True`` (under an active ``DeviceMesh``; a whole state) gives
     this rank only its blocks: ``params`` cut by ``params_pspecs``, ``opt``
-    by ``zero1_pspecs`` (ZeRO-1), the rest whole, as the reference's
+    and ``comp_err`` by ``zero1_pspecs`` (ZeRO-1: the residual of gradient
+    compression in the blocks of ``m``), the rest whole, as the reference's
     jitted step's in-shardings hand each device its blocks."""
     if local:
         from repro_torch.sharding.rules import params_pspecs
         from repro_torch.training.optimizer import zero1_pspecs
 
         pspecs = params_pspecs(tree["params"])
-        tree = dict(tree, params=_cut(tree["params"], pspecs),
-                    opt=_cut(tree["opt"], zero1_pspecs(tree["params"], pspecs, tree["opt"])))
+        cut = dict(params=_cut(tree["params"], pspecs),
+                   opt=_cut(tree["opt"], zero1_pspecs(tree["params"], pspecs, tree["opt"])))
+        if "comp_err" in tree:
+            wide = zero1_pspecs(tree["params"], pspecs, {"m": tree["comp_err"]})["m"]
+            cut["comp_err"] = _cut(tree["comp_err"], wide)
+        tree = dict(tree, **cut)
     return tree_map(lambda a: _tensor(a, device), tree)
 
 

@@ -12,41 +12,133 @@ The reference applies the hook to the gradient tree inside its train step,
 as a simulation of compressing the cross-pod all-reduce; so does this one.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.  Each
 compression is per leaf, so it sees the train state's stacked leaves.
+
+Under a mesh the train step hands each hook a leaf's ZeRO-1 block of the
+summed gradient (``optimizer.Zero1``), with the leaf's full element count
+and the mesh axes that cut it, and the hook computes what the reference
+computes on the whole leaf: ``int8``'s scale from the block's largest
+magnitude all-reduced (MAX) over those axes, ``topk``'s threshold from
+``kth_magnitude``, an exact radix select whose histograms are all-reduced
+(SUM) over them.  A copy replicated over an axis that does not cut the
+leaf is counted once, as ``Zero1.global_norm`` counts it.  With no mesh
+the axes are empty, nothing is reduced, the block is the leaf, and
+``topk``'s threshold is ``torch.topk``'s k-th value.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.sharding import rules
+from repro_torch.tree import leaves, unflatten
+
+#: the radix select's rounds: (shift, width) of each digit of the
+#: magnitudes' bit patterns, high digit first (bit 31 is the sign, 0)
+RADIX_ROUNDS = ((21, 11), (10, 11), (0, 10))
+
+#: the most elements one chunk of a histogram reads: its temporaries stay
+#: a few chunks however large the block (a full-width MoE layer's experts
+#: are one leaf of 0.8 G elements)
+HIST_CHUNK = 1 << 24
 
 
-def init_error_state(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+def _all_reduce(x: torch.Tensor, axes, op: str) -> torch.Tensor:
+    for axis in axes:
+        x = rules.all_reduce(x, axis) if op == "sum" else rules.all_reduce_max(x, axis)
+    return x
 
 
-def compress_int8(g: torch.Tensor, err: torch.Tensor):
-    """-> (dequantised gradient in g's dtype, new residual)."""
+def kth_magnitude(gf: torch.Tensor, k: int, axes=()) -> torch.Tensor:
+    """The k-th largest ``|x|``, counted with multiplicity, over the leaf
+    whose block on this rank is ``gf`` (float32) and whose other blocks lie
+    on the ranks of the mesh ``axes`` (every rank of them calls this with
+    the same ``k``): a float32 0-dim tensor, equal bit for bit to
+    ``torch.topk(|leaf|, k).values[-1]``.  With no axes the block is the
+    leaf and this is that ``torch.topk`` call; otherwise
+    ``radix_kth_magnitude``."""
+    if not 1 <= k:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if not axes:
+        return torch.topk(gf.abs().reshape(-1), k).values[-1]
+    return radix_kth_magnitude(gf, k, axes)
+
+
+def radix_kth_magnitude(gf: torch.Tensor, k: int, axes=()) -> torch.Tensor:
+    """``kth_magnitude`` by an exact radix select whose histograms are
+    summed over ``axes``.
+
+    Non-negative float32 values order as their bit patterns do (``-0.0``
+    has the magnitude ``0.0``), so the select runs on ``|gf|.view(int32)``:
+    each round of ``RADIX_ROUNDS`` counts one digit of the patterns that
+    match the digits found so far (a histogram built ``HIST_CHUNK``
+    elements at a time; the others left out), sums the histogram over
+    ``axes``, and keeps the digit at which the count from the top reaches
+    the rank still sought.  The histogram is ``torch.histc`` over the
+    digits as floats with unit bins (exact: a digit and a count per chunk
+    stay below 2^24), which counts in shared memory and, given its range,
+    never waits for the device (``torch.bincount`` reads its input's range
+    on the host); the whole select leaves nothing to the host."""
+    flat = gf.reshape(-1)
+    device = flat.device
+    # (1,) tensors made on the device, indexed by index_select: a scalar
+    # copied from the host or an index read back would wait for the device
+    prefix = torch.zeros(1, dtype=torch.int32, device=device)
+    sought = torch.full((1,), k, dtype=torch.int64, device=device)
+    for shift, width in RADIX_ROUNDS:
+        bins = 1 << width
+        top = shift + width  # the bits above this digit are known
+        hist = torch.zeros(bins, dtype=torch.int64, device=device)
+        for lo in range(0, flat.numel(), HIST_CHUNK):
+            bits = flat[lo:lo + HIST_CHUNK].abs().view(torch.int32)
+            digit = (bits >> shift) & (bins - 1)
+            if top < 32:  # an element off the prefix falls outside the range
+                digit = torch.where((bits >> top) == (prefix >> top), digit, -1)
+            hist += torch.histc(digit.float(), bins, -0.5, bins - 0.5).long()
+        hist = _all_reduce(hist, axes, "sum")
+        from_top = hist.flip(0).cumsum(0).flip(0)  # elements at or above each digit
+        d = (from_top >= sought).sum().view(1) - 1  # the highest digit whose count reaches it
+        sought = sought - (from_top.index_select(0, d) - hist.index_select(0, d))
+        prefix = prefix | (d.to(torch.int32) << shift)
+    return prefix.view(torch.float32)[0]
+
+
+def compress_int8(g: torch.Tensor, err: torch.Tensor, axes=()):
+    """-> (dequantised gradient in g's dtype, new residual); the scale
+    from the largest magnitude of the leaf whose block is ``g``."""
     gf = g.float() + err
-    scale = gf.abs().max().clamp(min=1e-12) / torch.tensor(127.0, device=gf.device)
+    top = _all_reduce(gf.abs().max(), axes, "max")
+    scale = top.clamp(min=1e-12) / torch.full((), 127.0, device=gf.device)
     q = torch.round(gf / scale).clamp(-127, 127).to(torch.int8)
     deq = q.float() * scale
     return deq.to(g.dtype), gf - deq
 
 
-def compress_topk(g: torch.Tensor, err: torch.Tensor, frac: float = 0.05):
-    """-> (the entries at or above the k-th largest magnitude, zeros
-    elsewhere, in g's dtype; new residual)."""
+def compress_topk(g: torch.Tensor, err: torch.Tensor, frac: float = 0.05, numel: int | None = None,
+                  axes=()):
+    """-> (the entries at or above the k-th largest magnitude of the leaf
+    whose block is ``g``, zeros elsewhere, in g's dtype; new residual).
+    ``k`` counts the whole leaf's ``numel`` elements (the block's when not
+    given)."""
     gf = g.float() + err
-    k = max(1, int(gf.numel() * frac))
-    thresh = torch.topk(gf.abs().reshape(-1), k).values[-1]
+    k = max(1, int((gf.numel() if numel is None else numel) * frac))
+    thresh = kth_magnitude(gf, k, axes)
     kept = torch.where(gf.abs() >= thresh, gf, torch.zeros((), device=gf.device))
     return kept.to(g.dtype), gf - kept
 
 
-def apply_compression(grads, err_state, kind: str, **kw):
-    """-> (compressed grads, new error state)."""
+def compress(kind: str, g: torch.Tensor, err: torch.Tensor, numel: int, axes=()):
+    """One leaf's block ``g`` of the summed gradient and its residual
+    block -> (compressed block, new residual block); ``numel`` is the
+    whole leaf's element count and ``axes`` the mesh axes that cut it."""
+    if kind == "int8":
+        return compress_int8(g, err, axes)
+    if kind == "topk":
+        return compress_topk(g, err, numel=numel, axes=axes)
+    raise KeyError(kind)
+
+
+def apply_compression(grads, err_state, kind: str):
+    """-> (compressed grads, new error state), every leaf whole."""
     if kind == "none":
         return grads, err_state
-    fn = {"int8": compress_int8, "topk": compress_topk}[kind]
-    pairs = [fn(g, e, **kw) for g, e in zip(leaves(grads), leaves(err_state))]
+    pairs = [compress(kind, g, e, g.numel()) for g, e in zip(leaves(grads), leaves(err_state))]
     return unflatten(grads, [p[0] for p in pairs]), unflatten(err_state, [p[1] for p in pairs])

@@ -309,7 +309,10 @@ class Zero1:
     * ``global_norm``: the gradients' global norm from their blocks, each
       leaf's squares summed once: over its block, all-reduced over the
       axes that cut it (replicated copies are not counted again);
-    * ``cuts``: each leaf's optimizer spec, for ``Adafactor.update``."""
+    * ``cuts``: each leaf's optimizer spec, for ``Adafactor.update``;
+      ``axes(i)`` the mesh axes that cut leaf ``i``'s block and
+      ``block_shape(i)`` the block's shape (gradient compression reduces
+      over those axes and keeps its residual in those blocks)."""
 
     def __init__(self, full_params):
         mesh = current_mesh()
@@ -353,10 +356,17 @@ class Zero1:
         elif block is not p:
             p.copy_(block)
 
+    def axes(self, i: int) -> tuple:
+        return tuple(sorted({a for a in self.cuts[i] if a is not None}))
+
+    def block_shape(self, i: int) -> tuple:
+        return tuple(n if a is None else n // rules.axis_size(a)
+                     for n, a in zip(self.shapes[i], self.cuts[i]))
+
     def global_norm(self, blocks) -> torch.Tensor:
         groups: dict = {}
-        for g, cut in zip(blocks, self.cuts):
-            key = tuple(sorted({a for a in cut if a is not None}))
+        for i, g in enumerate(blocks):
+            key = self.axes(i)
             sq = sum(s.float().square().sum() for (s,) in flat_slices(g.contiguous()))
             groups[key] = groups.get(key, 0) + sq
         total = torch.zeros((), dtype=torch.float32, device=blocks[0].device)

@@ -15,10 +15,11 @@ under the hash router) gets a zero gradient, as ``jax.grad`` gives.  With
 ``grad_accum > 1`` each microbatch's gradients are added into float32
 buffers, as the reference's scan adds them into float32 zeros, so the
 optimizer sees float32 gradients there and parameter-dtype ones without
-accumulation, in both packages.  The three parts of a step run under
+accumulation, in both packages.  The parts of a step run under
 ``torch.profiler.record_function`` ranges (``train_step/grads``,
-``train_step/clip``, ``train_step/optimizer``), which a profiler reads and
-which cost nothing measurable otherwise.
+``train_step/clip``, ``train_step/optimizer``; with compression
+``train_step/compress`` inside the clip's range), which a profiler reads and which cost nothing
+measurable otherwise.
 
 Under a mesh (the state made and the step called inside
 ``rules.mesh_context`` with a ``DeviceMesh``) ``make_train_state`` takes the
@@ -35,11 +36,15 @@ ZeRO-1 block, the global norm from the blocks, the clip, the optimizer on
 the blocks, and the updated blocks all-gathered over ``data`` into the
 parameters' own layout.  With no mesh ``Zero1`` is the identity: every
 block is the whole leaf and nothing is summed, cut or gathered.  Gradient
-compression under a mesh is refused: its ``topk`` needs a global top-k over
-the blocks, which is not ported.
+compression runs on the ZeRO-1 blocks of the summed gradient, before the
+clip, as the reference compresses its global gradient before its clip
+(``compression``: each hook reduces over the axes that cut the leaf, so it
+computes the whole leaf's scale or top-k threshold); ``comp_err`` holds
+this rank's float32 ZeRO-1 block of each leaf's residual.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -84,8 +89,6 @@ def make_train_state(params, optimizer, hp: TrainHparams = TrainHparams()) -> di
     ZeRO-1 blocks of the optimizer state (see the module docstring)."""
     zero1 = Zero1(params)
     if rules.current_mesh() is not None:
-        if hp.compression != "none":
-            _refuse_compression()
         local = leaves(rules.params_local(params))
         params = unflatten(params, [b if b.numel() == p.numel() else b.clone()
                                     for p, b in zip(leaves(params), local)])
@@ -94,14 +97,10 @@ def make_train_state(params, optimizer, hp: TrainHparams = TrainHparams()) -> di
     state = {"params": params, "opt": optimizer.init(unflatten(params, blocks)),
              "step": torch.zeros((), dtype=torch.int32, device=flat[0].device)}
     if hp.compression != "none":
-        state["comp_err"] = C.init_error_state(params)
+        state["comp_err"] = unflatten(params, [
+            torch.zeros(zero1.block_shape(i), dtype=torch.float32, device=p.device)
+            for i, p in enumerate(flat)])
     return state
-
-
-def _refuse_compression():
-    raise NotImplementedError(
-        "gradient compression under a mesh is not ported: topk needs a global top-k "
-        "over the ZeRO-1 blocks")
 
 
 def _split(x: torch.Tensor, n: int) -> list[torch.Tensor]:
@@ -171,8 +170,6 @@ def make_train_step(cfg: ArchConfig, optimizer, hp: TrainHparams = TrainHparams(
     times: the build initialises the parameters on ``meta``), and the step
     raises under another context."""
     made_in = (rules.current_mesh(), rules.fsdp(), rules.expert_layout())
-    if made_in[0] is not None and hp.compression != "none":
-        _refuse_compression()
     zero1 = zero1_layout(cfg)
 
     def train_step(state, batch):
@@ -184,11 +181,11 @@ def make_train_step(cfg: ArchConfig, optimizer, hp: TrainHparams = TrainHparams(
         with record_function("train_step/grads"):
             grads, metrics = _grads(params, batch)
         with record_function("train_step/clip"):
-            if hp.compression != "none":
-                grads, state["comp_err"] = C.apply_compression(grads, state["comp_err"],
-                                                               hp.compression)
             blocks = [zero1.grad_block(i, g) for i, g in enumerate(leaves(grads))]
             del grads
+            if hp.compression != "none":
+                with record_function("train_step/compress"):
+                    blocks = _compress(blocks, state)
             gn = zero1.global_norm(blocks)
             _scale_to(blocks, hp.clip_norm, gn)
         with record_function("train_step/optimizer"):
@@ -201,6 +198,21 @@ def make_train_step(cfg: ArchConfig, optimizer, hp: TrainHparams = TrainHparams(
         state["step"] = state["step"] + 1
         metrics["grad_norm"] = gn
         return state, metrics
+
+    def _compress(blocks, state):
+        """The compressed gradient blocks, each gradient block dropped from
+        ``blocks`` once compressed; the new residuals are written into
+        ``state["comp_err"]`` in place (so one residual of a leaf is alive
+        at a time, not the old and the new)."""
+        out = []
+        with torch.no_grad():
+            for i, err in enumerate(leaves(state["comp_err"])):
+                c, new = C.compress(hp.compression, blocks[i], err, math.prod(zero1.shapes[i]),
+                                    zero1.axes(i))
+                blocks[i] = None
+                err.copy_(new)
+                out.append(c)
+        return out
 
     def _grads(params, batch):
         """-> (gradient tree, metrics): one batch, or the mean over

@@ -317,8 +317,10 @@ def test_one_rank_mesh_steps_match_unmeshed(one_rank):
 
 
 def test_meshed_train_refusals(one_rank):
-    """Under a mesh, gradient compression is refused (its topk needs a
-    global top-k over the ZeRO-1 blocks), and a step made under another
-    mesh context raises instead of training on the wrong layout."""
+    """Under a mesh a state and a step with gradient compression are made
+    (the state holds a residual block for every leaf; the meshed steps
+    themselves are ``tests/test_torch_compression_mesh.py``'s), and a step
+    made under another mesh context raises instead of training on the
+    wrong layout."""
     assert one_rank["refused"] == {k: True for k in one_rank["refused"]}, one_rank["refused"]
     assert len(one_rank["refused"]) == 3

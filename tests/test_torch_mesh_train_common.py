@@ -272,8 +272,10 @@ def one_rank_steps(rank, world):
     with the hash router and full remat, unmeshed and then under a one-rank
     (1, 1) mesh with fsdp, where every collective is over an axis of one
     rank and ZeRO-1 cuts nothing: -> each run's losses and grad norms, and
-    whether the refusals hold (compression under a mesh; a step run under
-    another mesh context than it was made in)."""
+    the checks of the context rules: a state and a step with int8
+    compression are made under the mesh (the state with a residual block
+    for every leaf), and a step run under another mesh context than it was
+    made in raises."""
     import contextlib
     import dataclasses
 
@@ -283,6 +285,7 @@ def one_rank_steps(rank, world):
     from repro_torch.sharding import rules
     from repro_torch.training.optimizer import make_optimizer
     from repro_torch.training.train_step import TrainHparams, make_train_state, make_train_step
+    from repro_torch.tree import leaves
 
     base = reduced_config("qwen3-moe-235b-a22b")
     cfg = dataclasses.replace(base, remat="full", dtype="bfloat16", param_dtype="bfloat16",
@@ -316,12 +319,174 @@ def one_rank_steps(rank, world):
     params = M.init_train_params(torch.Generator().manual_seed(0), cfg)
     unmeshed_step = make_train_step(cfg, opt)
     with rules.mesh_context(mesh, fsdp=True, expert_layout="ep"):
+        made = make_train_state(params, opt, int8)
         out["refused"] = {
-            "state with compression": refused(
-                lambda: make_train_state(params, opt, int8), NotImplementedError),
-            "step with compression": refused(
-                lambda: make_train_step(cfg, opt, int8), NotImplementedError),
+            "state with compression made": [tuple(e.shape) for e in leaves(made["comp_err"])]
+            == [tuple(p.shape) for p in leaves(made["params"])],
+            "step with compression made": callable(make_train_step(cfg, opt, int8)),
             "step of another context": refused(
                 lambda: unmeshed_step(state, batches[0]), RuntimeError),
         }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gradient compression under the mesh
+# ---------------------------------------------------------------------------
+
+#: the distributed select's layouts per world size: (data, model) mesh
+#: shape and the axes that cut the leaf (the others hold replicated copies)
+SELECT_LAYOUTS = {
+    1: [((1, 1), ("model",))],
+    2: [((1, 2), ("model",)), ((2, 1), ("model",))],
+    4: [((2, 2), ("model",)), ((2, 2), ("data", "model"))],
+}
+
+
+def select_blocks(x: np.ndarray, n_blocks: int, uneven: bool) -> list:
+    """A flat leaf (of at least 4 elements when ``uneven``) cut into
+    ``n_blocks`` contiguous blocks: even, or at uneven points (the first
+    block a single element, the third too when there are four)."""
+    if not uneven:
+        return np.array_split(x, n_blocks)
+    return np.split(x, [1, x.size // 2, x.size // 2 + 1][:n_blocks - 1])
+
+
+def select_rank(rank, world, cases):
+    """Per layout of ``SELECT_LAYOUTS[world]`` and per case ``name -> (x,
+    k, uneven)``: the bit pattern of ``compression.kth_magnitude`` of this
+    rank's block of ``x`` over the cutting axes (every rank of a
+    replicated axis passes the same block)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import rules
+    from repro_torch.training.compression import kth_magnitude
+
+    out = {}
+    for shape, axes in SELECT_LAYOUTS[world]:
+        mesh = make_local_mesh(*shape, device_type="cpu")
+        coord = rules.coordinate(mesh)
+        sizes = dict(zip(("data", "model"), shape))
+        index, n_blocks = 0, 1
+        for a in axes:
+            index, n_blocks = index * sizes[a] + coord[a], n_blocks * sizes[a]
+        with rules.mesh_context(mesh):
+            for name, (x, k, uneven) in cases.items():
+                block = torch.from_numpy(select_blocks(x, n_blocks, uneven)[index].copy())
+                got = kth_magnitude(block, int(k), axes)
+                out[(shape, axes, name)] = int(got.view(torch.int32))
+    return out
+
+
+#: the meshed compression cases: name, loss case (``LOSS_CASES``), kind;
+#: AdamW with master weights
+COMP_CASES = [(f"{kind}/{case}", case, kind) for kind in ("int8", "topk")
+              for case in ("qwen3/tp", "stablelm-3b")]
+COMP_STEPS = 2
+COMP_LR = 1e-2
+
+
+def compression_rank(rank, world, arrays):
+    """Per case of ``COMP_CASES``: this rank's parameter, optimizer and
+    residual blocks after each of ``COMP_STEPS`` meshed ZeRO-1 steps with
+    the compression, the losses and grad norms, the float32 threshold of
+    every leaf at every ``topk`` step (the select's, recorded as the step
+    calls it) and whether ``make_train_state`` cuts the same blocks."""
+    from repro_torch import configs
+    from repro_torch.interop import train_state_from_numpy
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers.common import MetaGenerator
+    from repro_torch.sharding import rules
+    from repro_torch.training import compression as C
+    from repro_torch.training import train_step as T
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.tree import leaves, tree_map
+
+    mesh = make_local_mesh(2, 2, device_type="cpu")
+    select = C.kth_magnitude
+    seen: list = []
+
+    def recorded(gf, k, axes=()):
+        t = select(gf, k, axes)
+        seen.append(float(t))
+        return t
+
+    C.kth_magnitude = recorded
+    out = {}
+    try:
+        for name, case, kind in COMP_CASES:
+            _, arch, lay, over = next(c for c in LOSS_CASES if c[0] == case)
+            cfg = case_config(configs, arch, over)
+            like = M.init_train_params(MetaGenerator(), cfg)
+            opt = make_optimizer("adamw", lr=COMP_LR, warmup=0, total=10, master_weights=True)
+            hp = T.TrainHparams(compression=kind)
+            state0 = T.make_train_state(like, opt, hp)
+            params = _tree(like, arrays, f"{case}/params")
+            tree = {"params": params, "opt": _tree(state0["opt"], arrays, f"{name}/opt0"),
+                    "step": np.zeros((), np.int32),
+                    "comp_err": tree_map(lambda a: np.zeros(a.shape, np.float32), params)}
+            with rules.mesh_context(mesh, fsdp=True, expert_layout=lay):
+                state = train_state_from_numpy(tree, "cpu", local=True)
+                made = T.make_train_state(train_state_from_numpy(params, "cpu"), opt, hp)
+                out[f"{name}/made_err"] = max(
+                    float((a - b).abs().max()) for k in ("params", "opt", "comp_err")
+                    for a, b in zip(leaves(made[k]), leaves(state[k]), strict=True))
+                step = T.make_train_step(cfg, opt, hp)
+                for i in range(COMP_STEPS):
+                    batch = {k: torch.from_numpy(arrays[f"{name}/batch{i}/{k}"])
+                             for k in ("tokens", "targets")}
+                    seen.clear()
+                    state, metrics = step(state, T.shard_batch(batch))
+                    out[f"{name}/loss{i}"] = float(metrics["loss"])
+                    out[f"{name}/grad_norm{i}"] = float(metrics["grad_norm"])
+                    out[f"{name}/thresh{i}"] = list(seen)
+                    for part in ("params", "opt", "comp_err"):
+                        _blocks(state[part], f"{name}/state{i}/{part}", out)
+    finally:
+        C.kth_magnitude = select
+    return out
+
+
+def one_rank_compression_steps(rank, world):
+    """Three AdamW steps (master weights) of reduced Qwen3-MoE in bfloat16
+    with the hash router and full remat, for each compression, unmeshed
+    and then under a one-rank (1, 1) mesh with fsdp: -> each run's losses,
+    grad norms and final residuals and parameters."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding import rules
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import TrainHparams, make_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path
+
+    base = reduced_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(base, remat="full", dtype="bfloat16", param_dtype="bfloat16",
+                              moe=dataclasses.replace(base.moe, router="hash"))
+    rng = np.random.default_rng(3)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65))) for _ in range(3)]
+    batches = [{"tokens": t[:, :-1].contiguous(), "targets": t[:, 1:].contiguous()} for t in toks]
+    mesh = make_local_mesh(1, 1, device_type="cpu")
+    out = {}
+    for kind in ("int8", "topk"):
+        hp = TrainHparams(compression=kind)
+        for meshed in (False, True):
+            ctx = rules.mesh_context(mesh, fsdp=True, expert_layout="ep")
+            with ctx if meshed else contextlib.nullcontext():
+                opt = make_optimizer("adamw", lr=1e-3, warmup=0, total=3, master_weights=True)
+                params = M.init_train_params(torch.Generator().manual_seed(0), cfg)
+                state = make_train_state(params, opt, hp)
+                step = make_train_step(cfg, opt, hp)
+                runs = []
+                for b in batches:
+                    state, metrics = step(state, b)
+                    runs.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+            out[kind, meshed] = {
+                "runs": runs,
+                "state": {f"{part}{path}": leaf.float().numpy().copy()
+                          for part in ("params", "comp_err")
+                          for path, leaf in flatten_with_path(state[part])}}
     return out
