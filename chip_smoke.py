@@ -20,10 +20,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    CUDA for both engines: every graph target at the contract's shapes
    (the ``/cuda`` ones through the kernels, nothing skipped, the chain
    baseline waived), the lint, and the SASS gate on the built kernels
-   (every back edge a tagged loop or the compiler's own, healthy and storm
-   fleets flat, also on the serving fleet of 1000 in 1024 with 250 failed
-   at 2^20 keys, each function within its SASS budget); one summary line,
-   the JSON report under ``ct-report/``;
+   (every back edge a tagged loop or the compiler's own; every counted
+   loop's trips, from the counting build of the same sources, within its
+   bound on every launch over the gate's fleets, with outputs bit-exact
+   with this build's and a seeded ω = 4 evaluation failing the ω loops;
+   healthy and storm fleets flat, also on the serving fleet of 1000 in
+   1024 with 250 failed at 2^20 keys; each function within its SASS
+   budget); one summary line, the loop table, the JSON report under
+   ``ct-report/``;
 2. every kernel instance (route, ingest, lookup_dyn, lookup_vec x
    binomial, jump) against its plain torch version on the card,
    bit-exact, at 2^20 keys over several fleets (lookup_dyn also at n <= 1,
@@ -197,6 +201,13 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      per probe re-route; then two storylines of ``tests/chaos.py``
      (overload, latency_spike), cut down, on a ``VirtualClockUs`` on the
      card and on the CPU give the same results and JSON bytes;
+   - "examples": each of the seven ``examples/*_torch.py`` (quickstart,
+     serve_lm, train_lm, elastic_cluster, placement_demo,
+     observability_demo, streaming_demo) through its ``main(["--device",
+     "cuda"])`` in this process, then ``main(["--device", "cpu"])``: the two
+     outputs equal line for line with the wall times, the device and the
+     numbers that follow the random weights masked, and the quickstart's
+     CUDA kernel matching its plain path;
 4. each kernel's time at 2^24 keys (CUDA events around back-to-back
    launches) beside its bound and its plain version's time; the static-n
    lookup also at n = 1025; ``lookup_router`` at 2^24 router keys and, as
@@ -212,11 +223,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    global-atomic instance), against ``route`` in turns (instrumented/bare
    and the extra us), beside its bound, its plain version and ``route`` +
    ``torch.bincount`` at 2^24;
-   ``place_keys`` at 2^20 keys, r = 16; and the storm cliff: the
-   chain-mode two-pass path against ``route`` (table) at 2^24 keys in
-   turns at 0, 6, 25 and 50 % failed, ``chain_remap`` alone beside its
-   bound, with the walk steps per lane of its resident grid beside the
-   per-warp-maximum walk that one thread per key would issue.
+   ``place_keys`` at 2^20 keys, r = 16, and ``resolve_kernel<false>`` (its
+   row path) alone there beside its bound (the function's own bytes; its
+   own row's re-reads are printed beside it) and its plain version; and
+   the storm cliff: the chain-mode two-pass path against ``route``
+   (table) at 2^24 keys in turns at 0, 6, 25 and 50 % failed,
+   ``chain_remap`` alone beside its bound, with the walk steps per lane of
+   its resident grid beside the per-warp-maximum walk that one thread per
+   key would issue.
 
 ``--baseline DIR [DIR ...]`` also builds each ``DIR/routing.cu`` (another
 build of the kernels with the same C interface: the parent commit's, or a
@@ -454,10 +468,16 @@ def phase_certify(card: str) -> None:
           + "; back edges by function (loops by their ct-loop bound, then the compiler's rejoins "
           "and pads): " + "; ".join(edges)
           + f"; {seconds:.1f} s; report {CT_REPORT.relative_to(ROOT)} on {card}")
+    from repro_torch.analysis.report import render_trip_table
+
     for s in report.sass:
         for c in s.checks:
-            if c.invariant == "sass-severity-flat":
+            if c.invariant in ("sass-severity-flat", "sass-loops-bounded"):
                 print(f"phase 1 certify {s.engine} {c.invariant} {c.status}: {c.detail}")
+        if s.trips:
+            print(f"phase 1 certify {s.engine} loop table (the counting build's largest trips of "
+                  f"one entry, or steps of one key, against the bound on each launch; on {card}):")
+            print("\n".join("    " + row for row in render_trip_table(s.trips)))
     if not report.ok or counts["skipped"] or sass_skipped:
         print(report.render())
         fail(f"certify: {counts['fail']} targets failed, {counts['skipped']} skipped, lint "
@@ -3824,6 +3844,77 @@ def phase_streaming() -> tuple[dict, dict]:
     return launches, numbers
 
 
+# --- the examples -------------------------------------------------------------
+
+#: the port's examples (``examples/<name>_torch.py``), as the JAX package's
+EXAMPLES = ("quickstart", "serve_lm", "train_lm", "elastic_cluster", "placement_demo",
+            "observability_demo", "streaming_demo")
+
+
+def example_lines(text: str) -> list:
+    """An example's printed lines, masked by ``examples/example_output.py``
+    (times, the device and the numbers that follow the random weights, drawn
+    from a generator on the run's device), as the CPU tests compare the
+    port's examples with the JAX package's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("example_output",
+                                                  ROOT / "examples" / "example_output.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.normalize(text)
+
+
+def run_example(name: str, device: str) -> tuple[str, float]:
+    """``examples/<name>_torch.py``'s ``main(["--device", device])`` in
+    this process: (what it printed, seconds)."""
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(f"{name}_torch",
+                                                  ROOT / "examples" / f"{name}_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        module.main(["--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def phase_examples(card: str) -> dict:
+    """Each of the seven examples on the card, the kernels' launch counts
+    set to 0 just before it and read just after, then on the CPU: the two
+    outputs equal line for line but for ``example_lines``' masks; the
+    quickstart's kernel must match its plain path -> launches by engine."""
+    from repro_torch.core.registry import BULK_ENGINES
+
+    launches = {engine: {} for engine in ENGINES}
+    for name in EXAMPLES:
+        reset_all_launches()
+        on_card, card_s = run_example(name, "cuda")
+        ran = {engine: {k: n for k, n in BULK_ENGINES[engine].kernels.launches.items() if n}
+               for engine in ENGINES}
+        on_cpu, cpu_s = run_example(name, "cpu")
+        a, b = example_lines(on_card), example_lines(on_cpu)
+        if a != b:
+            diff = [f"{x!r} | {y!r}" for x, y in zip(a, b) if x != y][:4]
+            fail(f"examples: {name} on the card printed {len(a)} lines, on the CPU {len(b)}; "
+                 f"they differ: {diff}")
+        if name == "quickstart" and "cuda kernel     : matches plain path = True" not in on_card:
+            fail("examples: the quickstart's CUDA kernel does not match its plain path")
+        for engine, counts in ran.items():
+            for kind, n in counts.items():
+                launches[engine][kind] = launches[engine].get(kind, 0) + n
+        print(f"phase 3 examples {name}: {len(a)} lines equal on the card and the CPU (times, "
+              f"device and weight-dependent numbers masked); card {card_s:.1f} s, CPU "
+              f"{cpu_s:.1f} s; launches " + json.dumps(
+                  {f"{k}[{e}]": n for e, c in ran.items() for k, n in c.items()}) + f"; on {card}")
+    return launches
+
+
 # --- times and bounds -------------------------------------------------------
 
 
@@ -4096,17 +4187,42 @@ def resolve_bound(keys, base, out, r: int) -> dict:
     algorithm's operations, not the build's SASS."""
     n = keys.numel()
     pairs = r * (r - 1) // 2
-    coll = 0
+    collisions = []  # per column j >= 1: the keys whose column j collides
     for j in range(1, r):
         hit = torch.zeros(n, dtype=torch.bool, device=base.device)
         for k in range(j):
             hit |= base[:, j] == out[:, k]
-        coll += int(hit.sum()) * (12 + j + 4)
-    ops = n * (2 * r + 1 + pairs) + coll
+        collisions.append(int(hit.sum()))
+    ops = n * (2 * r + 1 + pairs) + sum(c * (12 + j + 4) for j, c in enumerate(collisions, 1))
     nbytes = 4 * n + 4 * n * r * 2 + n + 4 * 1024
     t_ops, t_bytes = ops / hw.LANE_INSTR_S * 1e3, nbytes / hw.HBM_BW * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                t_ops=t_ops, t_bytes=t_bytes)
+                t_ops=t_ops, t_bytes=t_bytes, collisions=collisions)
+
+
+def row_rereads(keys, collisions) -> int:
+    """The bytes ``resolve_kernel<false>`` (the row path, r > MAX_R)
+    re-reads of the thread's own row of the output, which it has just
+    written: for column j, the j columns before it once for the collision
+    test and once more for each probe (one probe counted per collision).
+    They come from L1/L2, not HBM, so they are not in the bound; they are
+    printed beside it as the cause of the gap."""
+    return sum(4 * j * (keys.numel() + c) for j, c in enumerate(collisions, 1))
+
+
+def registers(prefix: str) -> int:
+    """The registers ptxas gave the kernel function whose mangled name
+    starts with ``prefix`` (the library's ``-Xptxas -v`` log)."""
+    from repro_torch.kernels import build
+
+    lines = build.build().with_suffix(".log").read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and f"'{prefix}" in line:
+            for after in lines[i + 1:]:
+                m = re.search(r"Used (\d+) registers", after)
+                if m:
+                    return int(m.group(1))
+    fail(f"no register count for {prefix} in the ptxas log")
 
 
 def phase_placement_times(rows: dict, card: str) -> None:
@@ -4282,11 +4398,33 @@ def phase_route_load_times(rows: dict, card: str) -> None:
         fam_ms = time_ms(lambda: kernels.route_family(wide_keys, WIDE_R_TIME, *(
             router._fleet_dev.packed, router._fleet_dev.table, router._fleet_dev.state)))
         place = time_ms(lambda: ops.route_replicas_bulk(wide_keys, router._fleet_dev, pspec))
-        rows[engine, "resolve"].update({f"r{WIDE_R_TIME}_place_keys_2^20_ms": place,
-                                        f"r{WIDE_R_TIME}_route_family_2^20_ms": fam_ms})
+        fleet = router._fleet_dev
+        base = kernels.route_family(wide_keys, WIDE_R_TIME, fleet.packed, fleet.table, fleet.state)
+        resalt = pspec.resolved_max_resalt
+        out, _, _ = kernels.resolve(wide_keys, base, fleet.table, fleet.state, resalt)
+        rows_ms = time_ms(lambda: kernels.resolve(wide_keys, base, fleet.table, fleet.state, resalt))
+        rows_plain = time_ms(lambda: kernels.resolve_plain(wide_keys, base, fleet.table,
+                                                           fleet.state, resalt), 1, 3)
+        rb = resolve_bound(wide_keys, base, out, WIDE_R_TIME)
+        reread = row_rereads(wide_keys, rb["collisions"])
+        regs = registers(FUNCTIONS[engine, "resolve_rows"])
+        rows[engine, "resolve"].update({
+            f"r{WIDE_R_TIME}_place_keys_2^20_ms": place,
+            f"r{WIDE_R_TIME}_route_family_2^20_ms": fam_ms,
+            f"resolve_rows_r{WIDE_R_TIME}_2^20": dict(
+                ms=rows_ms, plain_ms=rows_plain, bound_ms=rb["bound_ms"], bound_by=rb["bound_by"],
+                t_ops=rb["t_ops"], t_bytes=rb["t_bytes"], reread_bytes=reread,
+                registers=regs)})
         print(f"phase 4 place_keys[{engine}] {N_CHECK} keys, r = {WIDE_R_TIME} (resolve's row path), "
               f"1000/1024 with 250 failed: {place:.4f} ms, of which the family route {fam_ms:.4f} ms; "
               f"on {card}")
+        print(f"phase 4 resolve_kernel<false>[{engine}] alone, {N_CHECK} keys x r = {WIDE_R_TIME}, "
+              f"1000/1024 with 250 failed, max_resalt {resalt}: {rows_ms:.4f} ms, bound "
+              f"{rb['bound_ms']:.4f} ms ({rb['bound_by']}; bytes {rb['t_bytes']:.4f} ms, operations "
+              f"{rb['t_ops']:.4f} ms), bound/time {share(rb['bound_ms'], rows_ms)}; beside the bound, "
+              f"{reread} bytes of its own row re-read from L1/L2 (the gap's cause), "
+              f"{regs} registers, plain version "
+              f"{rows_plain:.3f} ms; on {card}")
 
 
 #: SASS instructions of chain_remap_kernel (sm_90a, max_chain > 0),
@@ -4633,12 +4771,17 @@ def main() -> int:
     card = card_line()
     print(f"phase 1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per output, started together
-        lib, ptx, cubin = (pool.submit(f) for f in (build.build, build.ptx, build.cubin))
-        lib, ptx, _ = lib.result(), ptx.result(), cubin.result()
-    print(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({lib.name}); ptxas: "
-          + " | ".join(line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
-                       if "registers" in line))
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per output, started together
+        futures = [pool.submit(f) for f in (build.build, build.ptx, build.cubin, build.counting)]
+        lib, ptx, _, counting = (f.result() for f in futures)
+
+    def ptxas_lines(path):
+        return " | ".join(line.strip() for line in path.with_suffix(".log").read_text().splitlines()
+                          if "registers" in line)
+
+    print(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({lib.name}); ptxas: {ptxas_lines(lib)}")
+    print(f"phase 1 counting build ({counting.name}, -DROUTING_COUNT_TRIPS): ptxas: "
+          f"{ptxas_lines(counting)}")
     text = ptx.read_text()
     if "div.rn.f32" not in text or "div.approx" in text or "div.full" in text:
         fail("the jump step is not compiled to an IEEE round-to-nearest division")
@@ -4688,6 +4831,8 @@ def main() -> int:
     by_path["placement"] = {(e, k): n for e, counts in place_launches.items() for k, n in counts.items()}
     stream_launches, stream_numbers = phase_streaming()
     by_path["streaming"] = {(e, k): n for e, counts in stream_launches.items() for k, n in counts.items()}
+    by_path["examples"] = {(e, k): n for e, counts in phase_examples(card).items()
+                           for k, n in counts.items()}
     from repro_torch.configs import get_config
 
     moe_cfg = get_config(SERVE_ARCH).moe

@@ -100,7 +100,33 @@ class HloGateResult:
 class SassGateResult(HloGateResult):
     """Layer-3 verdicts of the port for one engine's compiled kernels, in
     the HLO gate's shape: ``op_count`` is the static SASS size of the
-    engine's kernel functions (0 where the SASS was not read)."""
+    engine's kernel functions (0 where the SASS was not read).  ``trips``
+    is ``sass-loops-bounded``'s loop table (``sass_gate.trip_table``: per
+    counted loop and fleet, its bound and the healthy and storm runs'
+    largest counts), empty where the counting build did not run."""
+
+    trips: list = dataclasses.field(default_factory=list)
+
+    def to_dict(self) -> dict:
+        out = super().to_dict()
+        if self.trips:
+            out["trips"] = self.trips
+        return out
+
+
+def render_trip_table(rows: list) -> list:
+    """The loop table as text lines."""
+    out = [f"{'loop':<16} {'name':<15} {'tag':<10} {'counts':<6} {'fleet':<30} {'bound':>7} "
+           f"{'healthy':>8} {'storm':>8} {'h/bound':>8} {'s/bound':>8}"]
+    for r in rows:
+        def cell(v, fmt="{}"):
+            return "-" if v is None else fmt.format(v)
+
+        out.append(f"{r['loop']:<16} {r['name']:<15} {r['tag']:<10} {r['counts']:<6} "
+                   f"{r['fleet']:<30} {r['bound']!s:>7} {cell(r['healthy']):>8} "
+                   f"{cell(r['storm']):>8} {cell(r['healthy_ratio'], '{:.4f}'):>8} "
+                   f"{cell(r['storm_ratio'], '{:.4f}'):>8}")
+    return out
 
 
 @dataclasses.dataclass
@@ -178,5 +204,7 @@ class Report:
                     lines.append(
                         f"      {mark[c.status]:>6}  {c.invariant:<22} {c.detail}{note}"
                     )
+                if s.trips:
+                    lines.extend("      " + row for row in render_trip_table(s.trips))
         lines.append(f"== verdict: {'CERTIFIED' if self.ok else 'FAILED'} ==")
         return "\n".join(lines)

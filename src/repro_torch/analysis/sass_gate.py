@@ -8,7 +8,7 @@ kernel library (``kernels.build.library``) is disassembled with
 generation flags, as a ``-cubin -lineinfo`` (``kernels.build.cubin``), is
 disassembled with ``nvdisasm --print-line-info``, and must give the
 library's SASS instruction for instruction, so its line info describes the
-code that launches.  Three checks per engine:
+code that launches.  Four checks per engine:
 
 ``sass-loops-declared``
     Every back edge (``repro_torch.analysis.sass``) of every kernel function
@@ -35,9 +35,28 @@ code that launches.  Three checks per engine:
     ``waived``, with the chain baseline's reason, as in layer 1; a
     ``max_chain`` loop with no reason given fails.
     The check proves that every loop of the compiled code is *declared*:
-    it comes from a source loop whose tag names a bound.  It does not prove
-    the bound: that a loop's trips stay within what its tag names is read
-    from the source, not measured or checked here.
+    it comes from a source loop whose tag names a bound; the next check
+    measures the bound.
+``sass-loops-bounded``
+    The counterpart of the JAX package's ``hlo-while-static``: where the
+    reference proves each loop's trip count static, this proves each
+    loop's trips stay within a bound that is a function of the launch
+    alone (``BOUNDS``' formulas of the key count, the launch's grid and
+    items, ω, the capacity, r, ``max_resalt`` and ``max_chain``; the jump
+    chains' lane-refilling loop has its own, ``jump_chain_trips``).  The
+    counting build of the same sources (``kernels.build.counting``) keeps
+    every counted loop's largest trips of one entry, and for the ``omega``
+    and ``max_chain`` loops the most steps of one key, in a device array;
+    ``analysis.trips`` runs every kernel instance on it over the contract's
+    fleets, the serving fleet, chain-mode fleets up to 90 % failed, r = 3
+    and 16 and a too-small ``max_resalt``, n = 1, 1025 and 2^31 - 1, and
+    capacity 65,536, each launch beside the shipping build's.  It fails on
+    a count over its bound, a loop no run entered, an output that differs
+    from the shipping build's, and a seeded run whose bounds, evaluated at
+    ω = ``SEED_OMEGA``, fail no ``omega`` loop.  The chain remap's walk
+    passes as ``waived`` only while every key's steps stay within
+    ``max_chain``.  ``bounded_check`` gives the loop table the report
+    carries (``SassGateResult.trips``).
 ``sass-severity-flat``
     A healthy fleet and a storm fleet (0 and capacity/2 removals at the
     contract's capacity; on the card also the serving fleet, 1000 of 1024
@@ -48,7 +67,7 @@ code that launches.  Three checks per engine:
     plain versions, and the chain path is left out: its plain walk is the
     waived loop itself.  This holds the host side flat (what is launched,
     and how wide); the trips of a kernel's own loops follow the keys and the
-    fleet within their declared bounds, and no check here counts them.
+    fleet within their bounds, which ``sass-loops-bounded`` counts.
 ``sass-op-budget``
     Each function's static SASS size stays within ``MAX_SASS``.
 
@@ -65,7 +84,7 @@ import functools
 import re
 import subprocess
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -94,18 +113,98 @@ FUNCTIONS = {
     )
 }
 
+#: the kernels' launch constants (routing.cu): threads and warps a block,
+#: keys a lane of a warp's chunk, the resolve's register columns
+THREADS, WARPS, MAX_ITEMS, MAX_R = 256, 8, 8, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """What a counted loop's bound may read: one launch's parameters, never
+    its keys or its fleet's failures.
+
+    n             the launch's keys (a family route: N x r; a router call:
+                  tokens x top_k; resolve: N, one thread a key)
+    grid, items   the launch's shape, as the library logged it (resolve:
+                  items 1)
+    omega         the lookup's unroll bound
+    capacity      the fleet's slot space (the histogram's bins)
+    r, max_resalt the placement's replication factor and probe bound
+    max_chain     the chain walk's rejection bound
+    """
+
+    n: int
+    grid: int
+    items: int
+    omega: int = 0
+    capacity: int = 0
+    r: int = 0
+    max_resalt: int = 0
+    max_chain: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bound:
+    """A ct-loop tag's bound: its text, and the largest count of trips of
+    one entry of such a loop, as a formula of the launch."""
+
+    text: str
+    trips: Callable[[Launch], int]
+
+
 #: what a ``// ct-loop: <bound>`` tag may name: each loop's trips are
-#: bounded by one of these
+#: bounded by one of these.  Each formula is the tightest bound the tag's
+#: loops allow, read from their code in routing.cu / routing.cuh:
+#: - omega: ``Binomial::rest`` runs the lookup's trips 1 .. ω - 1 (the first
+#:   is ``first_trip``), so ω - 1 trips, and a key takes at most ω steps;
+#: - chunk: a warp's chunk holds at most 32 x items keys, and each chunk
+#:   loop walks them (or the queued ones among them) 32 a trip: items trips;
+#: - grid: the warp's chunks of 32 x items keys, one stride of the grid's
+#:   warps apart: ⌈⌈n / (32 items)⌉ / (grid x WARPS)⌉ trips (resolve, one
+#:   key a thread and items 1: ⌈n / (grid x THREADS)⌉);
+#: - capacity: the block's bins, THREADS a trip: ⌈capacity / THREADS⌉;
+#: - r: a key's columns, at most r (``taken_row`` compares at most r - 1);
+#: - max_resalt: at most max_resalt probes a column;
+#: - max_chain: a walked key takes at most max_chain steps (the count held
+#:   is each key's steps; the loop's trips follow its keys' walks);
+#: - static: a compile-time count, unrolled, so no back edge and nothing
+#:   counted; the largest such count in the sources.
 BOUNDS = {
-    "omega": "the lookup's unroll bound ω (per key)",
-    "chunk": "a warp's chunk: at most 32 x MAX_ITEMS keys",
-    "grid": "the launch's grid-stride walk: n over the resident grid",
-    "capacity": "the fleet's capacity (histogram bins)",
-    "r": "the replication factor",
-    "max_resalt": "the placement's probe bound",
-    "max_chain": "the chain walk's rejection bound",
-    "static": "a compile-time count, unrolled",
+    "omega": Bound("the lookup's unroll bound ω (per key)", lambda L: L.omega - 1),
+    "chunk": Bound("a warp's chunk: at most 32 x MAX_ITEMS keys", lambda L: L.items),
+    "grid": Bound("the launch's grid-stride walk: n over the resident grid",
+                  lambda L: _cdiv(_cdiv(L.n, 32 * L.items), L.grid * WARPS)),
+    "capacity": Bound("the fleet's capacity (histogram bins)",
+                      lambda L: _cdiv(L.capacity, THREADS)),
+    "r": Bound("the replication factor", lambda L: L.r),
+    "max_resalt": Bound("the placement's probe bound", lambda L: L.max_resalt),
+    "max_chain": Bound("the chain walk's rejection bound", lambda L: L.max_chain),
+    "static": Bound("a compile-time count, unrolled", lambda L: max(MAX_ITEMS, MAX_R, 4)),
 }
+
+
+def jump_chain_trips(launch: Launch) -> int:
+    """The trips of ``jump_chains``' warp loop (routing.cu), which refills
+    its lanes.  Each lane runs one key's chain, four steps a trip, and
+    takes the chunk's next key in the trip its chain ends; a key takes at
+    most ω steps, so at most P = ⌈ω / 4⌉ trips.  The lanes are 32 machines
+    taking the chunk's keys in order as each frees: the key that ends last
+    started once all 32 lanes had been busy on the other keys' trips, so
+    the loop runs T <= (W - p) / 32 + p trips, W the keys' total trips and
+    p <= P the last key's.  With count <= 32 x items keys, W <= count x P:
+    T <= (count + 31) P / 32 <= (32 items + 31) P / 32."""
+    return (32 * launch.items + 31) * _cdiv(launch.omega, 4) // 32
+
+
+#: counted loops whose trips take a bound of their own, beside their tag's
+LOOP_BOUNDS = {"JUMP_CHAINS": jump_chain_trips}
+
+#: tags whose loops also record each key's steps, and the steps' bound
+KEY_STEPS = {"omega": lambda L: L.omega, "max_chain": lambda L: L.max_chain}
 
 #: bounds that follow the data rather than the launch: passed only as waived
 WAIVED_BOUNDS = {"max_chain"}
@@ -221,6 +320,98 @@ def tag_findings(paths: Iterable[Path]) -> list:
             if no not in tagged and k not in tagged:
                 out.append(f"{path.name}:{no}: ct-loop tag on no loop")
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CountedLoop:
+    """A loop the counting build counts: its ``TripLoop`` name and index
+    (routing.cuh), its source loop's file and line, and its tag."""
+
+    name: str
+    index: int
+    file: str
+    line: int
+    tag: str
+
+    @property
+    def where(self) -> str:
+        return f"{self.file}:{self.line}"
+
+    @property
+    def engine(self) -> str:
+        """Whose kernels hold it: "binomial", "jump", "chain" (the chain
+        remap), or "both"."""
+        head = self.name.split("_")[0]
+        return {"BINOMIAL": "binomial", "JUMP": "jump", "CHAIN": "chain"}.get(head, "both")
+
+
+_ENUM = re.compile(r"enum\s+TripLoop\s*:\s*int\s*\{([^}]*)\}")
+_COUNTS = re.compile(r"\bCT_TRIP\((\w+)\)")
+_DECLARES = re.compile(r"\bCT_TRIPS\((\w+)\)")
+
+
+def trip_loop_names(paths: Iterable[Path]) -> list:
+    """The ``TripLoop`` enumerators in order (the counters' indices), the
+    closing ``TRIP_LOOPS`` left out."""
+    for path in paths:
+        m = _ENUM.search(_blank_comments(path.read_text()))
+        if m:
+            names = [x.strip() for x in m.group(1).split(",") if x.strip()]
+            return names[:-1] if names[-1] == "TRIP_LOOPS" else names
+    raise ValueError("no `enum TripLoop` in the kernel sources")
+
+
+def counted_loops(paths: Iterable[Path]) -> tuple:
+    """``(loops, findings)``: each counted loop (the source loop holding a
+    ``CT_TRIP(<name>)`` as its innermost loop), and what is wrong with the
+    counting: a loop whose tag is not ``static`` with no counter or two, a
+    counted ``static`` loop, a counter on no loop or with no ``CT_TRIPS``
+    declaring it before, a name not in ``TripLoop`` or counted twice, and a
+    ``TripLoop`` name that counts no loop (empty = every bounded loop
+    counted once)."""
+    paths = list(paths)
+    names = trip_loop_names(paths)
+    found, bad = {}, []
+    for path in paths:
+        loops = source_loops(path)
+        rows = _blank_comments(path.read_text()).splitlines()
+        declared = {}
+        sites = collections.defaultdict(list)
+        for no, row in enumerate(rows, 1):
+            if row.lstrip().startswith("#"):
+                continue  # the macros' own definitions
+            for m in _DECLARES.finditer(row):
+                declared.setdefault(m.group(1), no)
+            for m in _COUNTS.finditer(row):
+                name = m.group(1)
+                lp = innermost(loops, path.name, no)
+                if lp is None:
+                    bad.append(f"{path.name}:{no}: CT_TRIP({name}) outside any loop")
+                elif declared.get(name, no) >= no:
+                    bad.append(f"{path.name}:{no}: CT_TRIP({name}) with no CT_TRIPS({name}) "
+                               "before it")
+                else:
+                    sites[lp].append(name)
+        for lp in loops:
+            counted = sites.get(lp, [])
+            if lp.bound == "static":
+                if counted:
+                    bad.append(f"{path.name}:{lp.first}: a static loop counted ({counted})")
+                continue
+            if len(counted) != 1:
+                bad.append(f"{path.name}:{lp.first}: a {lp.bound or 'untagged'} loop with "
+                           f"{len(counted)} CT_TRIP counters")
+                continue
+            (name,) = counted
+            if name not in names:
+                bad.append(f"{path.name}:{lp.first}: CT_TRIP({name}) is not a TripLoop")
+            elif name in found:
+                bad.append(f"{path.name}:{lp.first}: {name} counts a second loop "
+                           f"({found[name].where})")
+            else:
+                found[name] = CountedLoop(name, names.index(name), path.name, lp.first, lp.bound)
+    bad += [f"TripLoop {name} counts no loop" for name in names if name not in found]
+    return sorted(found.values(), key=lambda c: c.index), bad
 
 
 def innermost(loops: list, file: str, line: int) -> Optional[SourceLoop]:
@@ -364,6 +555,145 @@ def _budget_check(table: dict, max_sass: int) -> CheckResult:
 
 
 # ---------------------------------------------------------------------------
+# bounded loops: the counting build's trips against their bounds
+# ---------------------------------------------------------------------------
+
+#: the seeded violation: the ω the bounds are evaluated at while the kernels
+#: launched at the contract's 16, so that every ω loop must fail
+SEED_OMEGA = 4
+
+
+def _held(loop: CountedLoop) -> list:
+    """What is held to a bound for ``loop``: ``(counts, bound(launch))`` for
+    its trips (a data-bounded ``max_chain`` loop's trips are not) and, for
+    the ``omega`` and ``max_chain`` tags, each key's steps."""
+    out = []
+    if loop.tag not in WAIVED_BOUNDS:
+        out.append(("trips", LOOP_BOUNDS.get(loop.name, BOUNDS[loop.tag].trips)))
+    if loop.tag in KEY_STEPS:
+        out.append(("steps", KEY_STEPS[loop.tag]))
+    return out
+
+
+def over_bounds(runs: list, loops: list, omega: Optional[int] = None) -> list:
+    """``(run, loop, counts, count, bound)`` for each count over its bound
+    (``omega``: the bounds evaluated at that ω instead of the launch's); a
+    loop a launch did not enter holds nothing on it."""
+    out = []
+    for run in runs:
+        launch = run.launch if omega is None else dataclasses.replace(run.launch, omega=omega)
+        for lp in loops:
+            for counts, bound in _held(lp):
+                got = getattr(run, counts)[lp.name]
+                most = bound(launch) if got else 0
+                if got > most:
+                    out.append((run, lp, counts, got, most))
+    return out
+
+
+def _side(runs: list, lp: CountedLoop, counts: str, storm: bool) -> Optional[tuple]:
+    """(largest count, bounds, largest count/bound) over one side's runs of
+    a group, or None where the side has no run."""
+    bound = dict(_held(lp))[counts]
+    side = [(getattr(r, counts)[lp.name], bound(r.launch)) for r in runs if r.storm == storm]
+    if not side:
+        return None
+    return (max(c for c, _ in side), sorted({b for _, b in side}),
+            max((c / b if b else float(c > 0)) for c, b in side))
+
+
+def trip_table(runs: list, loops: list) -> list:
+    """The loop table: per counted loop, each count it holds (trips,
+    steps), and each fleet group that entered it, its bound on the group's
+    launches, the healthy and the storm side's largest count and each
+    one's largest ratio to its bound; the kernels that entered it."""
+    rows = []
+    for lp in loops:
+        for counts, _ in _held(lp):
+            for group in dict.fromkeys(r.group for r in runs):
+                # the group's launches of the kernels that entered the loop
+                kinds = {r.kind for r in runs if r.group == group and r.trips[lp.name]}
+                mine = [r for r in runs if r.group == group and r.kind in kinds]
+                if not mine:
+                    continue
+                healthy, storm = _side(mine, lp, counts, False), _side(mine, lp, counts, True)
+                bounds = sorted({b for side in (healthy, storm) if side for b in side[1]})
+                rows.append(dict(
+                    loop=lp.where, name=lp.name, tag=lp.tag, counts=counts, fleet=group,
+                    bound=bounds[0] if len(bounds) == 1 else f"{bounds[0]}-{bounds[-1]}",
+                    healthy=healthy and healthy[0], storm=storm and storm[0],
+                    healthy_ratio=healthy and round(healthy[2], 4),
+                    storm_ratio=storm and round(storm[2], 4),
+                    kernels=sorted({r.kind.split(" ")[0] for r in mine if r.trips[lp.name]})))
+    return rows
+
+
+def bounded_check(runs: list, loops: list, waiver: str = "") -> tuple:
+    """``sass-loops-bounded`` over ``runs`` (``analysis.trips``) for the
+    counted ``loops`` of one engine: ``(CheckResult, loop table)``.
+
+    Fails where a count exceeds its bound on its launch (a ``max_chain``
+    walk's steps too, waiver or not), where a loop records no trip in any
+    run, where a run's outputs differ from the shipping build's, and where
+    the seeded bounds (``SEED_OMEGA``) fail no ``omega`` loop of the runs
+    (the counters would not reach it).  Passes as ``waived`` (with
+    ``waiver``) where a loop is ``max_chain``-tagged and all else holds."""
+    table = trip_table(runs, loops)
+    over = over_bounds(runs, loops)
+    silent = [lp.where + f" {lp.name}" for lp in loops
+              if not any(r.trips[lp.name] for r in runs)]
+    differ = sorted({f"{r.kind} on {r.group}{' storm' if r.storm else ''}"
+                     for r in runs if not r.same})
+    omega_loops = [lp for lp in loops if lp.tag == "omega"]
+    seeded = {lp.name for _, lp, *_ in over_bounds(runs, omega_loops, SEED_OMEGA)}
+    unseeded = [lp.name for lp in omega_loops if lp.name not in seeded]
+    problems = (
+        [f"{r.kind} on {r.group}{' storm' if r.storm else ''}: {lp.where} {lp.name} {counts} "
+         f"{got} > bound {most}" for r, lp, counts, got, most in over[:8]]
+        + [f"never entered: {', '.join(silent)}"] * bool(silent)
+        + [f"outputs differ from the shipping build: {', '.join(differ)}"] * bool(differ)
+        + [f"the seeded omega = {SEED_OMEGA} bounds pass {unseeded}: the counters do not "
+           "reach them"] * bool(unseeded))
+    held = sum(len(_held(lp)) for lp in loops)
+    largest = {}  # per loop and count, its largest count/bound
+    for r in table:
+        key = f"{r['name']} {r['counts']}"
+        ratios = [x for x in (r["healthy_ratio"], r["storm_ratio"]) if x is not None]
+        largest[key] = max(largest.get(key, 0.0), *ratios)
+    summary = (f"{len(loops)} counted loops ({held} counts held) over {len(runs)} launches, "
+               f"outputs bit-exact with the shipping build, every loop entered"
+               + (f"; seeded omega = {SEED_OMEGA} bounds fail {sorted(seeded)}" if omega_loops
+                  else "")
+               + "; largest count/bound "
+               + ", ".join(f"{key} {ratio:.4f}" for key, ratio in largest.items()))
+    if problems:
+        return CheckResult("sass-loops-bounded", FAIL, "; ".join(problems)), table
+    waived = [lp.name for lp in loops if lp.tag in WAIVED_BOUNDS]
+    if waived and not waiver:
+        return CheckResult("sass-loops-bounded", FAIL,
+                           f"data-bounded loops {waived} and no waiver reason; " + summary), table
+    if waived:
+        return CheckResult("sass-loops-bounded", WAIVED,
+                           f"data-bounded loops {waived} within their bounds; " + summary,
+                           waiver=waiver), table
+    return CheckResult("sass-loops-bounded", PASS,
+                       "every counted loop within its bound on every launch: " + summary), table
+
+
+def engine_loops(engine: str) -> list:
+    """The counted loops the kernel functions of ``engine`` hold ("chain":
+    the chain remap's)."""
+    from repro_torch.kernels import build
+
+    loops, bad = counted_loops(build.CSRC / name for name in build.SOURCES)
+    if bad:
+        raise RuntimeError("the kernel sources' trip counters: " + "; ".join(bad))
+    if engine == "chain":
+        return [lp for lp in loops if lp.engine == "chain"]
+    return [lp for lp in loops if lp.engine in (engine, "both")]
+
+
+# ---------------------------------------------------------------------------
 # severity
 # ---------------------------------------------------------------------------
 
@@ -494,28 +824,45 @@ CPU_SKIP = ("needs the CUDA build: --device cpu reads no SASS (nvcc, cuobjdump a
             "nvdisasm run where the kernels are built)")
 
 
+def bounded(engine: str, device, waiver: str = "") -> tuple:
+    """``sass-loops-bounded`` for ``engine`` ("chain": the chain remap) on
+    the card: the counting build's runs (``analysis.trips``) held to their
+    bounds; ``(CheckResult, loop table)``.  A failed build or launch fails
+    the check, naming it."""
+    from repro_torch.analysis import trips
+
+    try:
+        runs = trips.chain_runs(device) if engine == "chain" else trips.engine_runs(engine, device)
+        return bounded_check(runs, engine_loops(engine), waiver)
+    except (RuntimeError, subprocess.CalledProcessError) as exc:
+        return CheckResult("sass-loops-bounded", FAIL, str(exc)), []
+
+
 def gate_engine(engine: str, device="cpu", *, max_sass: int = MAX_SASS) -> SassGateResult:
-    """The three SASS checks on one engine's kernel functions (all but the
+    """The four SASS checks on one engine's kernel functions (all but the
     chain remap, which ``gate_chain`` reports)."""
     contract = contract_for(engine)
     result = SassGateResult(engine=engine)
-    on_card = torch.device(device).type == "cuda"
+    if torch.device(device).type != "cuda":
+        result.checks = [CheckResult("sass-loops-declared", SKIPPED, CPU_SKIP),
+                         CheckResult("sass-loops-bounded", SKIPPED, CPU_SKIP),
+                         severity_check(engine, contract, device),
+                         CheckResult("sass-op-budget", SKIPPED, CPU_SKIP)]
+        return result
     kinds = [(e, k) for e, k in FUNCTIONS if e == engine and k != "chain_remap"]
-    if on_card:
-        try:
-            table = loop_table(kinds)
-        except (RuntimeError, subprocess.CalledProcessError) as exc:
-            result.checks.append(CheckResult("sass-loops-declared", FAIL, str(exc)))
-            result.checks.append(severity_check(engine, contract, device))
-            result.checks.append(CheckResult("sass-op-budget", FAIL, str(exc)))
-            return result
+    try:
+        table = loop_table(kinds)
+    except (RuntimeError, subprocess.CalledProcessError) as exc:
+        table = None
+        result.checks.append(CheckResult("sass-loops-declared", FAIL, str(exc)))
+    else:
         result.op_count = sum(fl.size for fl in table.values())
         result.checks.append(_loops_check(table))
-    else:
-        result.checks.append(CheckResult("sass-loops-declared", SKIPPED, CPU_SKIP))
+    check, result.trips = bounded(engine, device)
+    result.checks.append(check)
     result.checks.append(severity_check(engine, contract, device))
-    result.checks.append(_budget_check(table, max_sass) if on_card
-                         else CheckResult("sass-op-budget", SKIPPED, CPU_SKIP))
+    result.checks.append(_budget_check(table, max_sass) if table is not None
+                         else CheckResult("sass-op-budget", FAIL, result.checks[0].detail))
     return result
 
 
@@ -529,17 +876,22 @@ def gate_chain(device="cpu", *, max_sass: int = MAX_SASS) -> SassGateResult:
     result = SassGateResult(engine="chain")
     if torch.device(device).type != "cuda":
         result.checks += [CheckResult(inv, SKIPPED, CPU_SKIP)
-                          for inv in ("sass-loops-declared", "sass-op-budget")]
+                          for inv in ("sass-loops-declared", "sass-loops-bounded",
+                                      "sass-op-budget")]
         return result
+    waiver = waivers_of(memento_remap)["while-free"]
     try:
         table = loop_table([("binomial", "chain_remap")])
     except (RuntimeError, subprocess.CalledProcessError) as exc:
-        result.checks += [CheckResult(inv, FAIL, str(exc))
-                          for inv in ("sass-loops-declared", "sass-op-budget")]
+        check, result.trips = bounded("chain", device, waiver)
+        result.checks += [CheckResult("sass-loops-declared", FAIL, str(exc)), check,
+                          CheckResult("sass-op-budget", FAIL, str(exc))]
         return result
     table = {"chain_remap": table["chain_remap[binomial]"]}
     result.op_count = table["chain_remap"].size
-    result.checks.append(_loops_check(table, waivers_of(memento_remap)["while-free"]))
+    result.checks.append(_loops_check(table, waiver))
+    check, result.trips = bounded("chain", device, waiver)
+    result.checks.append(check)
     result.checks.append(_budget_check(table, max_sass))
     return result
 

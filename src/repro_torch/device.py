@@ -14,3 +14,12 @@ def resolve_device(device) -> torch.device:
             "device='cpu' to run the kernels' plain torch versions)"
         )
     return device
+
+
+def describe(device) -> str:
+    """One line saying where a run's kernels run: the hand-written CUDA
+    kernels on the card, or their plain torch versions on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return f"[device] {device}: the routing kernels run on the card"
+    return f"[device] {device}: the kernels' plain torch versions (no CUDA kernel runs)"

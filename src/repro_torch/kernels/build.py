@@ -7,6 +7,13 @@ Nothing is compiled when this module is imported.  The first call of
 flags, so an edited source is rebuilt and an unchanged one is loaded as it
 is.  ``nvcc`` is looked up on ``PATH``, then under ``$CUDA_HOME/bin`` and
 ``/usr/local/cuda/bin``.
+
+Beside the library, the same sources give three more outputs, each built
+at its first use: ``ptx()`` and ``cubin()`` (the code the library holds, as
+PTX and as a line-info cubin, for the SASS gate), and ``counting()``, the
+counting build: the library compiled with ``ROUTING_COUNT_TRIPS`` defined,
+so that every counted loop of ``routing.cuh`` keeps its largest trip
+count in a device array (``counting_library()`` loads it).
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ SOURCES = ("routing.cu", "routing.cuh")
 #: never --use_fast_math: the jump step needs IEEE round-to-nearest division
 CODEGEN_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 NVCC_FLAGS = (*CODEGEN_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: the counting build's one added flag (routing.cuh: CT_TRIPS and its kin)
+COUNT_FLAGS = (*NVCC_FLAGS, "-DROUTING_COUNT_TRIPS")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +55,11 @@ SIGNATURES = {
     "routing_route_load_grid": (_I, _N, _I),
     "routing_take_launches": (_P, _I),
 }
+#: the entry points only the counting build has
+TRIP_SIGNATURES = {
+    "routing_trips_reset": (_P,),
+    "routing_trips_read": (_P, _P),
+}
 
 
 def nvcc() -> str:
@@ -62,8 +76,8 @@ def nvcc() -> str:
     )
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -116,6 +130,13 @@ def cubin() -> Path:
                     (*CODEGEN_FLAGS, "-cubin", "-lineinfo"))
 
 
+def counting() -> Path:
+    """The counting build: the library's sources and flags with
+    ``ROUTING_COUNT_TRIPS`` defined, under a name of its own; its outputs
+    are the library's, and each counted loop's trips are kept besides."""
+    return _compile(BUILD_DIR / f"librouting_trips_{_digest(COUNT_FLAGS)}.so", COUNT_FLAGS)
+
+
 def cuda_tool(name: str) -> str:
     """Path of a CUDA toolkit program beside ``nvcc`` (``cuobjdump``,
     ``nvdisasm``); raises naming it if it is absent."""
@@ -128,12 +149,23 @@ def cuda_tool(name: str) -> str:
     raise RuntimeError(f"{name} not found (PATH, beside nvcc at {beside.parent})")
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library with every entry point's signature set."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+def _load(path: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's signature set."""
+    return _load(build(), SIGNATURES)
+
+
+@functools.cache
+def counting_library() -> ctypes.CDLL:
+    """The loaded counting build: the library's entry points and the two
+    that reset and read the trip counts."""
+    return _load(counting(), {**SIGNATURES, **TRIP_SIGNATURES})

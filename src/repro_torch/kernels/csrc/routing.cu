@@ -85,7 +85,9 @@
 // trips (omega, a chunk's keys, the grid's stride, the capacity, r,
 // max_resalt, max_chain, or a static count); the SASS gate
 // (repro_torch.analysis.sass_gate) maps each back edge of the compiled
-// kernels to one of them.
+// kernels to one of them.  Every loop whose bound is not static also
+// counts its trips in the counting build (CT_TRIPS in routing.cuh), and
+// the gate holds each count to its tag's bound for the launch.
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -260,8 +262,10 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     }
   }
   __syncwarp();
+  CT_TRIPS(BINOMIAL_QUEUE);
   // ct-loop: chunk: the chunk's queued keys (at most SEG), 32 a trip
   for (int q = lane; q < front + back; q += 32) {
+    CT_TRIP(BINOMIAL_QUEUE);
     const bool goes_on = q < front;
     const int e = goes_on ? w.queue[q] : w.queue[SEG - 1 - (q - front)];
     const uint32_t key = w.key[e];
@@ -295,8 +299,10 @@ __device__ void jump_chains(WarpArea& w, int count, uint32_t n, int omega) {
   uint32_t b = 0;   // the bucket (general path)
   float b1 = 1.0f;  // the bucket + 1 (kExact)
   int left = omega;
+  CT_TRIPS(JUMP_CHAINS);
   // ct-loop: omega: each of the chunk's keys takes at most omega steps, four a trip
   while (__any_sync(FULL, live)) {
+    CT_TRIP(JUMP_CHAINS);
     bool done = false;
     // ct-loop: static: four steps a trip, unrolled
 #pragma unroll
@@ -318,6 +324,7 @@ __device__ void jump_chains(WarpArea& w, int count, uint32_t n, int omega) {
     }
     // refill without branching: finished lanes store, then take the next keys
     const bool fin = done && live;
+    CT_STEPS(JUMP_CHAINS, fin ? static_cast<uint32_t>(omega - left) : 0u);
     if constexpr (kExact) {
       if (fin) w.out[idx] = __float2uint_rz(b1) - 1u;
     } else {
@@ -344,12 +351,20 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
                            int32_t* __restrict__ out, int64_t base, int count,
                            const C& cnt = C{}) {
   const int lane = threadIdx.x & 31;
+  CT_TRIPS(JUMP_STAGE);
   // ct-loop: chunk: the chunk's keys, 32 a trip
-  for (int e = lane; e < count; e += 32) w.key[e] = src(base + e);
+  for (int e = lane; e < count; e += 32) {
+    CT_TRIP(JUMP_STAGE);
+    w.key[e] = src(base + e);
+  }
   __syncwarp();
   if (p.n <= 1 || p.omega <= 0) {
+    CT_TRIPS(JUMP_ZERO);
     // ct-loop: chunk: the chunk's keys, 32 a trip
-    for (int e = lane; e < count; e += 32) w.out[e] = 0u;
+    for (int e = lane; e < count; e += 32) {
+      CT_TRIP(JUMP_ZERO);
+      w.out[e] = 0u;
+    }
   } else if (p.n <= (1u << 23)) {
     jump_chains<true>(w, count, p.n, p.omega);
   } else {
@@ -359,8 +374,10 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
   if constexpr (D::kDiverts) {
     const unsigned below = lanemask_lt();
     int hits = 0;
+    CT_TRIPS(JUMP_SCAN);
     // ct-loop: chunk: the chunk's keys, 32 a trip
     for (int j = 0; j * 32 < count; ++j) {
+      CT_TRIP(JUMP_SCAN);
       const int e = j * 32 + lane;
       const bool in = e < count;
       const uint32_t b = in ? w.out[e] : 0u;
@@ -374,8 +391,10 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       hits += __popc(m);
     }
     __syncwarp();
+    CT_TRIPS(JUMP_DIVERT);
     // ct-loop: chunk: the chunk's removed buckets, 32 a trip
     for (int q = lane; q < hits; q += 32) {
+      CT_TRIP(JUMP_DIVERT);
       const int e = w.queue[q];
       if constexpr (C::kPerKey || C::kKeeps) {
         const uint32_t b = d.redirect(w.key[e], w.out[e]);
@@ -387,8 +406,12 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       }
     }
   } else {
+    CT_TRIPS(JUMP_COPY);
     // ct-loop: chunk: the chunk's keys, 32 a trip
-    for (int e = lane; e < count; e += 32) out[base + e] = static_cast<int32_t>(w.out[e]);
+    for (int e = lane; e < count; e += 32) {
+      CT_TRIP(JUMP_COPY);
+      out[base + e] = static_cast<int32_t>(w.out[e]);
+    }
   }
   __syncwarp();
 }
@@ -404,8 +427,10 @@ __device__ __forceinline__ void count_chunk(const WarpArea& w, const C& cnt, int
   const int sampled = first < static_cast<uint32_t>(count)
                           ? static_cast<int>(((count - 1 - first) >> cnt.shift) + 1)
                           : 0;
+  CT_TRIPS(COUNT_CHUNK);
   // ct-loop: chunk: the chunk's sampled keys, 32 a trip
   for (int k = threadIdx.x & 31; k < sampled; k += 32) {
+    CT_TRIP(COUNT_CHUNK);
     cnt.add(w.out[first + (static_cast<uint32_t>(k) << cnt.shift)]);
   }
   __syncwarp();
@@ -418,9 +443,11 @@ __device__ __forceinline__ void chunks(WarpArea& w, const Source& src, const D& 
                                        int items, const C& cnt = C{}) {
   const int64_t seg = 32 * items;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * WARPS * seg;
+  CT_TRIPS(CHUNKS);
   // ct-loop: grid: the warp's chunks, one resident grid's stride apart
   for (int64_t base = (static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * seg;
        base < n; base += stride) {
+    CT_TRIP(CHUNKS);
     const int count = static_cast<int>(n - base < seg ? n - base : seg);
     if constexpr (std::is_same_v<Engine, Binomial>) {
       binomial_chunk(w, src, d, p, out, base, count, cnt);
@@ -467,15 +494,21 @@ route_load_kernel(KeySource src, Fleet fleet, const int32_t* __restrict__ state,
   const Divert d{fleet, n_total, n_alive};
   if constexpr (kShared) {
     __shared__ uint32_t hist[SHARED_BINS];
+    CT_TRIPS(HIST_ZERO);
     // ct-loop: capacity: the block's bins, THREADS a trip
-    for (uint32_t b = threadIdx.x; b < cap; b += THREADS) hist[b] = 0u;
+    for (uint32_t b = threadIdx.x; b < cap; b += THREADS) {
+      CT_TRIP(HIST_ZERO);
+      hist[b] = 0u;
+    }
     __syncthreads();
     chunks<Engine>(area[threadIdx.x >> 5], src, d, fold(n_total, omega), out, n, items,
                    SharedCount{static_cast<uint32_t>(__cvta_generic_to_shared(hist)), cap,
                                shift});
     __syncthreads();
+    CT_TRIPS(HIST_FLUSH);
     // ct-loop: capacity: the block's bins, THREADS a trip
     for (uint32_t b = threadIdx.x; b < cap; b += THREADS) {
+      CT_TRIP(HIST_FLUSH);
       const uint32_t v = hist[b];
       if (v) atomicAdd(counts + b, v);
     }
@@ -535,8 +568,12 @@ __device__ __forceinline__ bool taken(const uint32_t (&col)[MAX_R], int j, uint3
 // "taken" past the registers: b equals one of the row's first j columns.
 __device__ __forceinline__ bool taken_row(const int32_t* row, int j, uint32_t b) {
   bool hit = false;
+  CT_TRIPS(TAKEN_ROW);
   // ct-loop: r: the row's settled columns
-  for (int k = 0; k < j; ++k) hit |= static_cast<uint32_t>(row[k]) == b;
+  for (int k = 0; k < j; ++k) {
+    CT_TRIP(TAKEN_ROW);
+    hit |= static_cast<uint32_t>(row[k]) == b;
+  }
   return hit;
 }
 
@@ -548,20 +585,26 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
                uint8_t* __restrict__ exhausted, uint8_t* __restrict__ moved, int64_t n) {
   const uint32_t n_alive = static_cast<uint32_t>(state[1]);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  CT_TRIPS(RESOLVE_GRID);
   // ct-loop: grid: one key a thread, one launch grid's stride apart
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < n; i += stride) {
+    CT_TRIP(RESOLVE_GRID);
     if constexpr (!kRegs) {
       const uint32_t key = keys[i];
       int32_t* row = out + i * r;
       bool ex = false;
+      CT_TRIPS(ROW_COLUMNS);
       // ct-loop: r: the key's columns
       for (int j = 0; j < r; ++j) {
+        CT_TRIP(ROW_COLUMNS);
         uint32_t b = static_cast<uint32_t>(base[i * r + j]);
         if (j > 0) {
           bool coll = taken_row(row, j, b);
           uint32_t q = __umulhi(mix32(mix32(key ^ family_salt(j)) ^ RESALT_SALT), n_alive);
+          CT_TRIPS(ROW_PROBE);
           // ct-loop: max_resalt: the column's probes
           for (int p = 0; coll && p < max_resalt; ++p) {
+            CT_TRIP(ROW_PROBE);
             const uint32_t cand = static_cast<uint32_t>(slots[q]);
             if (!taken_row(row, j, cand)) {
               b = cand;
@@ -577,12 +620,18 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
       exhausted[i] = ex;
       if (old != nullptr) {
         const int32_t* prev = old + i * r;
+        CT_TRIPS(ROW_MOVED);
         // ct-loop: r: the key's columns
         for (int j = 0; j < r; ++j) {
+          CT_TRIP(ROW_MOVED);
           const int32_t b = row[j];
           bool kept = false;
+          CT_TRIPS(ROW_OLD);
           // ct-loop: r: the key's old columns
-          for (int k = 0; k < r; ++k) kept |= prev[k] == b;
+          for (int k = 0; k < r; ++k) {
+            CT_TRIP(ROW_OLD);
+            kept |= prev[k] == b;
+          }
           moved[i * r + j] = !kept;
         }
       }
@@ -599,8 +648,10 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
       if (j > 0) {
         bool coll = taken(col, j, b);
         uint32_t q = __umulhi(mix32(mix32(key ^ family_salt(j)) ^ RESALT_SALT), n_alive);
+        CT_TRIPS(REG_PROBE);
         // ct-loop: max_resalt: the column's probes
         for (int p = 0; coll && p < max_resalt; ++p) {
+          CT_TRIP(REG_PROBE);
           const uint32_t cand = static_cast<uint32_t>(slots[q]);
           if (!taken(col, j, cand)) {
             b = cand;
@@ -739,12 +790,16 @@ chain_remap_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict
   int64_t at = 0;            // bucket, steps left
   uint32_t kacc = 0, b = 0;
   int left = 0;
+  CT_TRIPS(CHAIN_WALK);
   // ct-loop: max_chain: each queued key walks at most max_chain steps (the chain baseline's bound)
   while (true) {
+    CT_TRIP(CHAIN_WALK);
+    CT_TRIPS(CHAIN_SCAN);
     // top up: scan chunks while fewer than CHAIN_LOW keys wait
     // ct-loop: grid: the warp's chunks, scanned while fewer than CHAIN_LOW keys wait
     for (int64_t base = first + scan * stride; queued < CHAIN_LOW && base < n;
          base += stride, ++scan) {
+      CT_TRIP(CHAIN_SCAN);
       const int count = static_cast<int>(n - base < seg ? n - base : seg);
       uint32_t bk[MAX_ITEMS];
       // ct-loop: static: MAX_ITEMS keys a lane, unrolled
@@ -812,6 +867,7 @@ chain_remap_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict
       b = fastmod(hash_pair(mix32(kacc), b), M, n_total);
       const bool alive = !removed_bit(mask, n_words, b);
       if (alive || --left == 0) {
+        CT_STEPS(CHAIN_WALK, static_cast<uint32_t>(max_chain - left + (alive ? 1 : 0)));
         out[at] = static_cast<int32_t>(alive ? b : first_alive);
         live = false;
       }
@@ -1130,3 +1186,37 @@ extern "C" int routing_chain_remap(const void* keys, const void* buckets, const 
 // The chain remap's grid for n keys (the resident blocks, or fewer for a
 // small n), so a caller can reckon the keys and walk steps per lane.
 extern "C" int routing_chain_grid(long long n) { return routing::chain_shape(n).grid; }
+
+#ifdef ROUTING_COUNT_TRIPS
+// The counting build's entry points (routing.cuh's counted loops): zero
+// ct_trips and ct_steps on the stream, and copy them (ct_trips, then
+// ct_steps: TRIP_LOOPS u32 each) into out, a device buffer of 2 *
+// TRIP_LOOPS u32, on the stream.  Each returns TRIP_LOOPS, or -1 after a
+// CUDA error.
+extern "C" int routing_trips_reset(void* stream) {
+  using namespace routing;
+  const auto s = static_cast<cudaStream_t>(stream);
+  void* trips = nullptr;
+  void* steps = nullptr;
+  if (cudaGetSymbolAddress(&trips, ct_trips) || cudaGetSymbolAddress(&steps, ct_steps) ||
+      cudaMemsetAsync(trips, 0, sizeof(ct_trips), s) ||
+      cudaMemsetAsync(steps, 0, sizeof(ct_steps), s)) {
+    return -1;
+  }
+  return TRIP_LOOPS;
+}
+
+extern "C" int routing_trips_read(void* out, void* stream) {
+  using namespace routing;
+  const auto s = static_cast<cudaStream_t>(stream);
+  void* trips = nullptr;
+  void* steps = nullptr;
+  auto* dst = static_cast<uint32_t*>(out);
+  if (cudaGetSymbolAddress(&trips, ct_trips) || cudaGetSymbolAddress(&steps, ct_steps) ||
+      cudaMemcpyAsync(dst, trips, sizeof(ct_trips), cudaMemcpyDeviceToDevice, s) ||
+      cudaMemcpyAsync(dst + TRIP_LOOPS, steps, sizeof(ct_steps), cudaMemcpyDeviceToDevice, s)) {
+    return -1;
+  }
+  return TRIP_LOOPS;
+}
+#endif

@@ -11,6 +11,55 @@
 
 namespace routing {
 
+// The counted loops: every loop whose "// ct-loop:" tag is not `static`
+// declares a counter with CT_TRIPS(<id>) before its tag and counts each
+// trip with CT_TRIP(<id>) at the top of its body.  The shipping build
+// expands the macros to nothing.  The counting build (-DROUTING_COUNT_TRIPS,
+// kernels.build.counting) keeps each trip count in a register and, where
+// the counter goes out of scope (after the loop, or at a `return`), raises
+// the loop's entry of ct_trips to it with atomicMax.  CT_KEY_STEPS(<id>, k)
+// records trips + k as the steps of one key (the binomial loop, a key's
+// first trip being outside it), and CT_STEPS(<id>, v) records v where a
+// loop that walks many keys ends one (the jump chains, the chain walk).
+// routing_trips_reset / routing_trips_read (routing.cu) reset and read
+// both arrays; repro_torch.analysis.sass_gate holds them to their bounds.
+enum TripLoop : int {
+  BINOMIAL_REST, BINOMIAL_QUEUE, JUMP_CHAINS, JUMP_STAGE, JUMP_ZERO, JUMP_SCAN, JUMP_DIVERT,
+  JUMP_COPY, COUNT_CHUNK, CHUNKS, HIST_ZERO, HIST_FLUSH, TAKEN_ROW, RESOLVE_GRID, ROW_COLUMNS,
+  ROW_PROBE, ROW_MOVED, ROW_OLD, REG_PROBE, CHAIN_WALK, CHAIN_SCAN, TRIP_LOOPS
+};
+
+#ifdef ROUTING_COUNT_TRIPS
+__device__ uint32_t ct_trips[TRIP_LOOPS];
+__device__ uint32_t ct_steps[TRIP_LOOPS];
+
+__device__ __forceinline__ void ct_record(uint32_t* at, uint32_t v) {
+  // a plain read first: most exits do not raise the maximum
+  if (v > __ldcg(at)) atomicMax(at, v);
+}
+
+struct TripCount {
+  int id;
+  int key_steps = -1;  // >= 0: also record trips + key_steps as one key's steps
+  uint32_t n = 0;
+  __device__ explicit TripCount(int loop) : id(loop) {}
+  __device__ ~TripCount() {
+    if (n) ct_record(ct_trips + id, n);
+    if (key_steps >= 0) ct_record(ct_steps + id, n + static_cast<uint32_t>(key_steps));
+  }
+};
+
+#define CT_TRIPS(id) ::routing::TripCount ct_##id(::routing::id)
+#define CT_TRIP(id) ++ct_##id.n
+#define CT_KEY_STEPS(id, k) ct_##id.key_steps = (k)
+#define CT_STEPS(id, v) ::routing::ct_record(::routing::ct_steps + ::routing::id, (v))
+#else
+#define CT_TRIPS(id)
+#define CT_TRIP(id)
+#define CT_KEY_STEPS(id, k)
+#define CT_STEPS(id, v)
+#endif
+
 constexpr uint32_t GOLDEN32 = 0x9E3779B9u;
 constexpr uint64_t JUMP_LCG = 2862933555777941757ull;
 
@@ -63,8 +112,11 @@ struct Binomial {
   // 1 .. omega-1 with the original semantics, then blocks A and C.
   __device__ static uint32_t rest(uint32_t key, uint32_t n, uint32_t E, uint32_t M, int omega) {
     uint32_t kacc = key;
+    CT_TRIPS(BINOMIAL_REST);
+    CT_KEY_STEPS(BINOMIAL_REST, 1);
     // ct-loop: omega: the lookup's trips 1 .. omega-1
     for (int i = 1; i < omega; ++i) {
+      CT_TRIP(BINOMIAL_REST);
       kacc += GOLDEN32;
       const uint32_t hi = mix32(kacc);
       const uint32_t c = relocate_within_level(hi & (E - 1u), hi);

@@ -53,8 +53,9 @@ int32 tensor of u32 bit patterns, advanced in place.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -133,7 +134,9 @@ class RoutingKernels:
     ``chain_remap``, each one kernel for both engines, count under the
     engine whose path called them).
     ``fold(n)`` gives the static-n kernel's host constants ``(E, M)`` and
-    raises where the reference does.
+    raises where the reference does.  ``library`` returns the loaded build
+    the kernels launch from (``None``: ``build.library``, the shipping
+    build; ``using`` gives a copy on another build).
     """
 
     def __init__(
@@ -148,10 +151,23 @@ class RoutingKernels:
         self.lookup_dyn_plain = lookup_dyn_plain
         self.lookup_vec_plain = lookup_vec_plain
         self.fold = fold
+        self.library: Optional[Callable[[], ctypes.CDLL]] = None
         self.launches = dict.fromkeys(KINDS, 0)
 
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(KINDS, 0)
+
+    def _library(self) -> ctypes.CDLL:
+        return build.library() if self.library is None else self.library()
+
+    def using(self, library: Callable[[], ctypes.CDLL]) -> "RoutingKernels":
+        """These kernels launched from another build of the library with the
+        same entry points (``library()`` loads it, e.g.
+        ``build.counting_library``), with launch counts of their own."""
+        twin = copy.copy(self)
+        twin.library = library
+        twin.reset_launches()
+        return twin
 
     def route(self, keys, packed, table, state, omega: int = 16, out=None) -> torch.Tensor:
         """Fused lookup + table divert: keys -> int32 replica ids, written
@@ -167,7 +183,7 @@ class RoutingKernels:
             raise ValueError(f"out must be a contiguous int32 tensor of shape {tuple(keys.shape)}")
         if keys.numel():
             with torch.cuda.device(keys.device):
-                rc = build.library().routing_route(
+                rc = self._library().routing_route(
                     self.engine_id, _ptr(keys), _ptr(packed), packed.numel(),
                     _ptr(table), table.numel(), _ptr(state), omega, _ptr(out),
                     keys.numel(), _stream(keys),
@@ -205,7 +221,7 @@ class RoutingKernels:
         out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
         if keys.numel():
             with torch.cuda.device(keys.device):
-                rc = build.library().routing_route_load(
+                rc = self._library().routing_route_load(
                     self.engine_id, _ptr(keys), _ptr(packed), packed.numel(), _ptr(table),
                     table.numel(), _ptr(state), omega, _ptr(out), keys.numel(), _ptr(counts),
                     counts.numel(), sample_shift, _stream(keys),
@@ -228,7 +244,7 @@ class RoutingKernels:
         out = torch.empty(ids_lo.shape, dtype=torch.int32, device=ids_lo.device)
         if ids_lo.numel():
             with torch.cuda.device(ids_lo.device):
-                rc = build.library().routing_ingest(
+                rc = self._library().routing_ingest(
                     self.engine_id, _ptr(ids_lo), _ptr(ids_hi), _ptr(packed),
                     packed.numel(), _ptr(table), table.numel(), _ptr(state),
                     omega, _ptr(out), ids_lo.numel(), _stream(ids_lo),
@@ -246,7 +262,7 @@ class RoutingKernels:
         out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
         if keys.numel():
             with torch.cuda.device(keys.device):
-                rc = build.library().routing_lookup_dyn(
+                rc = self._library().routing_lookup_dyn(
                     self.engine_id, _ptr(keys), _ptr(n), omega, _ptr(out),
                     keys.numel(), _stream(keys),
                 )
@@ -266,7 +282,7 @@ class RoutingKernels:
         out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
         if keys.numel():
             with torch.cuda.device(keys.device):
-                rc = build.library().routing_lookup_vec(
+                rc = self._library().routing_lookup_vec(
                     self.engine_id, _ptr(keys), n, E, M, omega, _ptr(out),
                     keys.numel(), _stream(keys),
                 )
@@ -307,7 +323,7 @@ class RoutingKernels:
             salt0 = (layer_salt * 1000003) & MASK32
             stride = token_ids.element_size() // 4  # the low word of each id
             with torch.cuda.device(token_ids.device):
-                rc = build.library().routing_lookup_router(
+                rc = self._library().routing_lookup_router(
                     self.engine_id, _ptr(token_ids), stride, salt0, top_k, n, E, M,
                     omega, _ptr(out), out.numel(), _stream(token_ids),
                 )
@@ -335,7 +351,7 @@ class RoutingKernels:
             raise ValueError(f"{out.numel()} family keys: the kernel indexes them in u32")
         if out.numel():
             with torch.cuda.device(keys.device):
-                rc = build.library().routing_route_family(
+                rc = self._library().routing_route_family(
                     self.engine_id, _ptr(keys), r, _ptr(packed), packed.numel(), _ptr(table),
                     table.numel(), _ptr(state), omega, _ptr(out), out.numel(), _stream(keys),
                 )
@@ -371,7 +387,7 @@ class RoutingKernels:
         moved = None if old is None else torch.empty((n, r), dtype=torch.bool, device=keys.device)
         if n:
             with torch.cuda.device(keys.device):
-                rc = build.library().routing_resolve(
+                rc = self._library().routing_resolve(
                     _ptr(keys), _ptr(base), _ptr(table), _ptr(state), r, max_resalt,
                     None if old is None else _ptr(old), _ptr(out), _ptr(exhausted),
                     None if moved is None else _ptr(moved), n, _stream(keys),
@@ -403,7 +419,7 @@ class RoutingKernels:
         out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
         if keys.numel():
             with torch.cuda.device(keys.device):
-                rc = build.library().routing_chain_remap(
+                rc = self._library().routing_chain_remap(
                     _ptr(keys), _ptr(buckets), _ptr(packed), packed.numel(), _ptr(state),
                     max_chain, _ptr(out), keys.numel(), _stream(keys),
                 )

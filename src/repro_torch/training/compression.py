@@ -41,6 +41,14 @@ RADIX_ROUNDS = ((21, 11), (10, 11), (0, 10))
 HIST_CHUNK = 1 << 24
 
 
+def init_error_state(params):
+    """The error-feedback residual of a tree: float32 zeros of each leaf's
+    shape, on the leaf's device (``repro.training.compression``'s
+    ``init_error_state``)."""
+    return unflatten(params, [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                              for p in leaves(params)])
+
+
 def _all_reduce(x: torch.Tensor, axes, op: str) -> torch.Tensor:
     for axis in axes:
         x = rules.all_reduce(x, axis) if op == "sum" else rules.all_reduce_max(x, axis)

@@ -97,9 +97,7 @@ def make_train_state(params, optimizer, hp: TrainHparams = TrainHparams()) -> di
     state = {"params": params, "opt": optimizer.init(unflatten(params, blocks)),
              "step": torch.zeros((), dtype=torch.int32, device=flat[0].device)}
     if hp.compression != "none":
-        state["comp_err"] = unflatten(params, [
-            torch.zeros(zero1.block_shape(i), dtype=torch.float32, device=p.device)
-            for i, p in enumerate(flat)])
+        state["comp_err"] = C.init_error_state(unflatten(params, blocks))
     return state
 
 

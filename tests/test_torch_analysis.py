@@ -306,10 +306,12 @@ def test_invariant_names_correspond_to_the_reference():
     assert names(ref_certify, "CheckResult") == set(certify.INVARIANTS)
     from repro.analysis import hlo_gate
 
-    rename = {"hlo-while-static": "sass-loops-declared", "hlo-severity-flat": "sass-severity-flat",
-              "hlo-op-budget": "sass-op-budget"}
+    # hlo-while-static has two counterparts: every loop declared, and every
+    # declared loop's trips within its bound on the card
+    rename = {"hlo-while-static": {"sass-loops-declared", "sass-loops-bounded"},
+              "hlo-severity-flat": {"sass-severity-flat"}, "hlo-op-budget": {"sass-op-budget"}}
     port_sass = {c.invariant for r in sass_gate.gate_all(["jump"], "cpu") for c in r.checks}
-    assert {rename[n] for n in names(hlo_gate, "CheckResult")} == port_sass
+    assert set().union(*(rename[n] for n in names(hlo_gate, "CheckResult"))) == port_sass
 
 
 def _mirror(obj, module):
@@ -346,7 +348,8 @@ def test_report_adds_the_sass_gate_only_when_it_ran():
     rep = report.Report(sass=sass_gate.gate_all(["jump"], "cpu"))
     data = json.loads(rep.to_json())
     assert set(data["sass"]["jump"]["checks"]) == {
-        "sass-loops-declared", "sass-severity-flat", "sass-op-budget"}
+        "sass-loops-declared", "sass-loops-bounded", "sass-severity-flat", "sass-op-budget"}
+    assert "trips" not in data["sass"]["jump"]
     assert "== sass gate ==" in rep.render() and rep.ok
 
 
@@ -503,7 +506,7 @@ def test_gate_on_the_cpu_runs_severity_and_skips_the_sass_checks():
     gate = sass_gate.gate_engine("jump", "cpu")
     assert gate.ok and gate.op_count == 0
     assert _check(gate, "sass-severity-flat").status == PASS
-    for inv in ("sass-loops-declared", "sass-op-budget"):
+    for inv in ("sass-loops-declared", "sass-loops-bounded", "sass-op-budget"):
         res = _check(gate, inv)
         assert res.status == SKIPPED and "--device cpu" in res.detail
 
