@@ -14,7 +14,8 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
 ``src/repro_torch/kernels/csrc`` at first use.  Phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit), the build time and each
-   kernel's registers (``-Xptxas -v``), the PTX check (the jump step's
+   kernel's registers (``-Xptxas -v``; the routing library and the
+   training kernels' library, ``csrc/train.cu``, built in parallel), the PTX check (the jump step's
    ``div.rn.f32``) and the SASS size of each kernel;
    "certify": the constant-time certifier (``repro_torch.analysis``) on
    CUDA for both engines: every graph target at the contract's shapes
@@ -55,7 +56,16 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    keys and sizes around the ring's carry-over from chunk to chunk (one,
    two and three passes of the resident grid), against its plain version
    (one launch per call), and with its ``lookup_dyn`` first pass against
-   the scalar chain oracle;
+   the scalar chain oracle; the training kernels: ``adamw_update`` over
+   every case it takes (gradient and parameter bf16 or float32, master
+   weights on or off, the clip's scale or none) at 2^26 + 12,345 elements,
+   aligned, at one offset and at offsets no index aligns, 0 differing
+   elements in m, v, master and parameter against its plain version; the
+   radix select (three ``radix_hist`` + ``radix_pick`` rounds) against
+   ``torch.topk``'s k-th value and its plain rounds bit for bit, each
+   round's histogram and choice too, at 2^20 values with ties, on NaN,
+   inf, signed zeros, subnormals and an unaligned view, and on a
+   gradient-like leaf of experts_wi's 805,306,368 elements;
 3. the main paths, each with the kernels' launch counts set to 0 just
    before it and read just after:
    - the routing datapath: ``BatchRouter`` on the card, both engines, fused
@@ -147,9 +157,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      recomputation), every expert id equal to the plain lookup's, the
      step-0 loss near ln V and falling, the training forward's
      last-token logits against ``prefill``'s; ms a step, tokens/s, peak
-     memory and the step's floor, one more step under
+     memory and the step's floor, ``adamw_update`` launched once a leaf a
+     step (the clip's scale folded into it), one more step under
      ``repro_torch.roofline.analyze`` (its counted FLOPs beside the
-     floor's reckoned ones), and one profiled step; then the launcher
+     floor's reckoned ones), and one profiled step (the optimizer and clip
+     ranges, the AdamW kernel's device ms a step beside its bound); then,
+     the state freed, ``adamw_update`` on the largest leaf in turns with
+     ``torch._fused_adamw_`` (the gradient's float32 cast and the bf16 copy
+     included) and its plain version; then the launcher
      ``python -m repro_torch.launch.train`` (the 100m preset, 20 steps,
      then resumed to 30 from its checkpoint) and a bf16 checkpoint round
      trip on the card;
@@ -158,7 +173,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
      ZeRO-1 applied, 3 steps over ``ShardedDataPipeline``'s steps 0-2,
      against the same steps unmeshed from the same seed (losses within
      1e-3 and grad norms within 1e-2 relative, peak memory within 5 %,
-     ``lookup_router`` twice a step, ms a step beside the unmeshed); (b)
+     ``lookup_router`` twice a step, ms a step beside the unmeshed; the
+     unmeshed steps also with AdamW's plain version in place of its
+     kernel, within the same tolerances, beside the spread of the unmeshed
+     steps run twice; ``adamw_update`` once a leaf a meshed step); (b)
      4 gloo ranks sharing the card on a (2, 2) mesh with fsdp, float32,
      TF32 off: reduced Qwen3 (``ep``; ``tp`` with the hash router and full
      remat), DeepSeek-V3, StableLM-3B, Mamba2-1.3B and StableLM variants
@@ -168,12 +186,15 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    - "compress", gradient compression under a mesh: (a) per engine the
      train cell with Adafactor, int8 then top-k, 3 steps unmeshed and 3
      under a one-rank NCCL (1, 1) mesh with fsdp and ZeRO-1 (losses within
-     2e-4, grad norms within 1e-3, ``lookup_router`` twice a step); in the
-     first meshed top-k step every leaf's threshold equals ``torch.topk``'s
-     k-th value on the card bit for bit and the kept count is k plus the
-     ties; ms a step, the ``train_step/compress`` range's device ms, the
-     peak memory by part, and the select on the largest leaf against
-     ``torch.topk`` (and without a host synchronisation); (b) 4 gloo ranks
+     2e-4, grad norms within 1e-3, ``lookup_router`` twice a step); the
+     select's kernels three launches each a leaf a top-k step, meshed and
+     unmeshed; in the first top-k step of each every leaf's threshold
+     equals ``torch.topk``'s k-th value on the card bit for bit and the
+     kept count is k plus the ties; ms a step, the ``train_step/compress``
+     range's device ms, the select kernels' device ms over a step's
+     leaves, the peak memory by part, and the select on the largest leaf
+     (each round's launch, the pick) against its bound, ``torch.topk`` and
+     its plain rounds (and without a host synchronisation); (b) 4 gloo ranks
      sharing the card on a (2, 2) mesh with fsdp, reduced Qwen3-MoE (hash
      router) and StableLM-3B, int8 and top-k, 2 AdamW steps, each against
      the unmeshed port's step on the card from the same state: every
@@ -232,7 +253,10 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    its resident grid beside the per-warp-maximum walk that one thread per
    key would issue.
 
-``--baseline DIR [DIR ...]`` also builds each ``DIR/routing.cu`` (another
+``--baseline DIR [DIR ...]`` also builds each ``DIR/train.cu`` there is
+(another build of the training kernels) and times the select's rounds
+and the select against this build's in turns, and each ``DIR/routing.cu``
+(another
 build of the kernels with the same C interface: the parent commit's, or a
 variant of this one) and times it against this one in turns (baseline,
 this, this, baseline), three rounds: every instance at 2^24 keys,
@@ -241,8 +265,9 @@ each of phase 4's cells and the host time of a monitored 64-key
 ``route_keys``, and the router call at the serve path's sizes (a baseline
 without ``routing_lookup_router`` builds its keys with torch).
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+Then a ``{"kernels": [...]}`` line (each routing kernel per engine, then
+``adamw_update``, ``radix_hist`` and ``radix_pick``), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 with no result line; so does a machine with no CUDA device, or a copy of
 this file without the rest of the repository.
 """
@@ -1113,6 +1138,169 @@ def phase_chain_remap(max_err: dict) -> None:
               f"{N_ORACLE}/{N_ORACLE} keys of every case")
 
 
+# --- the training kernels (csrc/train.cu) -------------------------------------
+
+TRAIN_SRC = "src/repro_torch/kernels/csrc/train.cu"
+TRAIN_KINDS = ("adamw_update", "radix_hist", "radix_pick")
+#: the functions the training kernels compute in the JAX package (neither
+#: is a pallas_call there)
+TRAIN_REPLACES = {
+    "adamw_update": "src/repro/training/optimizer.py:63 (AdamW.update: jnp in the JAX package, "
+                    "no pallas_call)",
+    "radix_hist": "src/repro/training/compression.py:43 (compress_topk's threshold: "
+                  "jax.lax.top_k in the JAX package, no pallas_call)",
+    "radix_pick": "src/repro/training/compression.py:43 (compress_topk's threshold: "
+                  "jax.lax.top_k in the JAX package, no pallas_call)",
+}
+#: phase 2's AdamW size: one plain slice (2^26) and a ragged tail past it
+ADAMW_CHECK = (1 << 26) + 12_345
+#: element offsets of the operands into their storage: aligned, one offset
+#: for all (a scalar head), offsets no index aligns together (all scalar)
+ADAMW_OFFSETS = {"aligned": (0, 0), "offset 3": (3, 3), "mixed 1/2": (1, 2)}
+#: the select's check sizes: 2^20 with ties, and the largest leaf of the
+#: full-width train cell, experts_wi (128 experts x 4096 x 1536)
+SELECT_CHECK = 1 << 20
+EXPERTS_WI = 128 * 4096 * 1536
+#: topk compression's share kept (compression.compress_topk's frac)
+TOPK_FRAC = 0.05
+
+
+def bits_of(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+
+def differing(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose bit patterns differ."""
+    return int((bits_of(a) != bits_of(b)).sum())
+
+
+def adamw_operands(n: int, gdtype, pdtype, master: bool, offsets, seed: int) -> dict:
+    """Seeded AdamW operands on the card, each a view ``offsets`` elements
+    into its own storage (the gradient and parameter at the first offset,
+    the float32 state at the second), the gradient's first elements zeros,
+    a signed zero, a subnormal and a large value; the step's scalars."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    og, om = offsets
+
+    def operand(sd, dtype, off):
+        return (torch.randn(n + off, generator=gen, device="cuda") * sd).to(dtype)[off:]
+
+    g = operand(2.0, gdtype, og)
+    g[:4] = torch.tensor([0.0, -0.0, 1e-40, 7e15], device="cuda").to(gdtype)
+    lr = torch.tensor(1e-3, device="cuda")
+    return dict(g=g, m=operand(0.1, torch.float32, om), v=operand(0.1, torch.float32, om).abs_(),
+                ref=operand(0.5, torch.float32, om) if master else None,
+                p=operand(0.5, pdtype, og), lr=lr, c1=torch.tensor(0.19, device="cuda"),
+                c2=torch.tensor(0.0975, device="cuda"), lr_wd=lr * torch.tensor(0.1, device="cuda"))
+
+
+def select_inputs() -> dict:
+    """The select's check inputs on the card: 2^20 values with ties, the
+    edge cases (NaN above inf, signed zeros, subnormals), a view that does
+    not start on a 16-byte boundary, and a gradient-like leaf of
+    experts_wi's size."""
+    rng = np.random.default_rng(42)
+    special = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 1e-39,
+                        3.4e38, -3.4e38, 1.0, -1.0, 1.0, 0.5, 2.0, 7.0], np.float32)
+    zeros = np.zeros(1000, np.float32)
+    zeros[::3] = -0.0
+    host = {
+        "ties 2^20": (rng.integers(-400, 400, size=SELECT_CHECK) / 8).astype(np.float32),
+        "special": special,
+        "subnormal": (rng.integers(1, 1 << 23, size=4099) * np.float32(1e-45)).astype(np.float32),
+        "signed zeros": zeros,
+        "unaligned view": rng.normal(size=SELECT_CHECK + 7).astype(np.float32),
+    }
+    out = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    out["unaligned view"] = out["unaligned view"][1:]
+    gen = torch.Generator("cuda").manual_seed(43)
+    out["experts_wi"] = torch.randn(EXPERTS_WI, generator=gen, device="cuda") * 1e-4
+    return out
+
+
+def phase_train_kernels(max_err: dict) -> None:
+    """The training kernels against their plain versions on the card, bit
+    for bit: ``adamw_update`` over every case it takes (gradient bf16 /
+    float32 x parameter bf16 / float32 x master weights on / off x the
+    clip's scale or none) at ``ADAMW_CHECK`` elements, aligned, at one
+    offset and at offsets no index aligns; the select (``radix_select``:
+    three ``radix_hist`` + ``radix_pick`` rounds) against ``torch.topk``'s
+    k-th value and the plain rounds, each round's histogram and choice
+    against the plain ones, at k = 1, a twentieth, a half and numel."""
+    import itertools
+
+    from repro_torch.kernels import train as T
+
+    dtypes = (torch.bfloat16, torch.float32)
+    cases = differ = 0
+    for (label, offsets), gdtype, pdtype, master, scaled in itertools.product(
+            ADAMW_OFFSETS.items(), dtypes, dtypes, (True, False), (False, True)):
+        ops_ = adamw_operands(ADAMW_CHECK, gdtype, pdtype, master, offsets, 50 + cases)
+        scale = torch.tensor(0.37, device="cuda") if scaled else None
+        kernel = {k: ops_[k] for k in ("m", "v", "ref", "p")}
+        plain = {k: None if t is None else t.clone() for k, t in kernel.items()}
+        args = (ops_["lr"], ops_["c1"], ops_["c2"], ops_["lr_wd"], scale)
+        before = T.launches["adamw_update"]
+        T.adamw_update(ops_["g"], kernel["m"], kernel["v"], kernel["ref"], kernel["p"], *args,
+                       b1=0.9, b2=0.95, eps=1e-8)
+        T.adamw_update_plain(ops_["g"], plain["m"], plain["v"], plain["ref"], plain["p"], *args,
+                             b1=0.9, b2=0.95, eps=1e-8)
+        torch.cuda.synchronize()
+        if T.launches["adamw_update"] != before + 1:
+            fail("adamw_update launched other than once")
+        bad = {k: differing(kernel[k], plain[k]) for k in kernel if kernel[k] is not None}
+        if any(bad.values()):
+            fail(f"adamw_update ({label}, g {gdtype}, p {pdtype}, master {master}, scale "
+                 f"{scaled}) differs from its plain version in {bad} elements")
+        differ += sum(bad.values())
+        cases += 1
+        del ops_, kernel, plain
+    max_err["adamw_update"] = differ
+    print(f"phase 2 adamw_update: {cases} cases (gradient bf16/float32 x parameter bf16/float32 "
+          f"x master weights on/off x clip scale 0.37/none x offsets {list(ADAMW_OFFSETS)}) at "
+          f"{ADAMW_CHECK:,} elements: 0 differing elements in m, v, master and parameter against "
+          f"the plain version, one launch a call")
+    rounds = selects = 0
+    for label, x in select_inputs().items():
+        n = x.numel()
+        # experts_wi at the train path's k (torch.topk at k = numel there
+        # would sort 0.8 G elements); the smaller inputs up to k = numel
+        ks = {1, max(1, int(n * TOPK_FRAC))} if n == EXPERTS_WI else {
+            1, max(1, n // 20), max(1, n // 2), n}
+        for k in sorted(ks):
+            before = dict(T.launches)
+            got = T.radix_select(x, k)
+            if (T.launches["radix_hist"], T.launches["radix_pick"]) != (
+                    before["radix_hist"] + 3, before["radix_pick"] + 3):
+                fail("the select launched other than three rounds of radix_hist and radix_pick")
+            want = torch.topk(x.abs(), k).values[-1]
+            plain = T.radix_select_plain(x, k)
+            if not int(bits_of(got)) == int(bits_of(want)) == int(bits_of(plain)):
+                fail(f"the select on {label} at k = {k}: {float(got)!r} against torch.topk's "
+                     f"{float(want)!r} and the plain rounds' {float(plain)!r}")
+            selects += 1
+        prefix = torch.zeros(1, dtype=torch.int32, device="cuda")
+        sought = torch.full((1,), max(1, int(n * TOPK_FRAC)), dtype=torch.int64, device="cuda")
+        for shift, width in T.RADIX_ROUNDS:
+            hist = T.radix_hist(x, prefix, shift, width)
+            if not torch.equal(hist, T.radix_hist_plain(x, prefix, shift, width)):
+                fail(f"radix_hist on {label}, digit at {shift}: counts differ from the plain ones")
+            s2, p2 = sought.clone(), prefix.clone()
+            T.radix_pick_plain(hist, s2, p2, shift)
+            T.radix_pick(hist, sought, prefix, shift)
+            if not (torch.equal(sought, s2) and torch.equal(prefix, p2)):
+                fail(f"radix_pick on {label}, digit at {shift}: differs from the plain choice")
+            rounds += 1
+        del x
+    max_err["radix_hist"] = max_err["radix_pick"] = 0
+    print(f"phase 2 radix select: {selects} selects (ties at 2^20, NaN/inf/signed zeros, "
+          f"subnormals, an unaligned view: k = 1, n/20, n/2, n; experts_wi's {EXPERTS_WI:,} "
+          f"gradient-like values: k = 1, {int(EXPERTS_WI * TOPK_FRAC):,}) equal to torch.topk's "
+          f"k-th value and the plain rounds bit for "
+          f"bit, three launches of each kernel a select; {rounds} rounds' histograms and choices "
+          f"equal to the plain ones")
+
+
 # --- the main path ----------------------------------------------------------
 
 
@@ -1647,9 +1835,11 @@ def mesh_keys() -> np.ndarray:
 
 def reset_all_launches() -> None:
     from repro_torch.core.registry import BULK_ENGINES
+    from repro_torch.kernels import train as T
 
     for eng in BULK_ENGINES.values():
         eng.kernels.reset_launches()
+    T.reset_launches()
 
 
 def mesh_one_rank(card: str, mesh) -> dict:
@@ -2394,8 +2584,10 @@ def roofline_train_step(tag: str, step, state, batch, floor: dict, card: str):
     capacity buffers (not only the kept assignments).  -> the state after
     the step."""
     from repro_torch.roofline.analysis import analyze
+    from repro_torch.tree import leaves
 
     out = {}
+    opt_gb = adamw_bytes(leaves(state["params"])) / 1e9
     roof = analyze(lambda: out.update(step=step(state, batch)), model_flops_total=floor["flops"])
     torch.cuda.synchronize()
     print(f"phase 3 {tag} roofline (repro_torch.roofline.analyze of one step): "
@@ -2404,7 +2596,8 @@ def roofline_train_step(tag: str, step, state, batch, floor: dict, card: str):
           f"{roof.flops / floor['flops']:.4f} of it (remat full recomputes the forward: 4/3 of "
           f"the reckoned three forwards, plus the full score squares, once more for the "
           f"attention chunks' checkpoint, and the capacity buffers); "
-          f"{roof.hbm_bytes / 1e9:.1f} GB at tensor granularity; compute term "
+          f"{roof.hbm_bytes / 1e9:.1f} GB at tensor granularity (aten operators only: the "
+          f"adamw_update launches' {opt_gb:.1f} GB are not among them); compute term "
           f"{roof.compute_s * 1e3:.2f} ms at {hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s, memory term "
           f"{roof.memory_s * 1e3:.2f} ms at {hw.HBM_BW / 1e12} TB/s ({roof.dominant}) on {card}")
     return out["step"][0]
@@ -2428,9 +2621,12 @@ def check_train_forward(cfg, params, batch) -> float:
     return rel
 
 
-def profile_train_step(tag: str, step, state, batch, floor_ms: float, card: str):
+def profile_train_step(tag: str, step, state, batch, floor_ms: float, card: str,
+                       found: dict | None = None):
     """One more step under ``torch.profiler``: the device's busy share of
-    the wall and the kernels that take it.  -> the state."""
+    the wall and the kernels that take it; ``found`` (when given) gets the
+    device ms by part and of the ``adamw_kernel`` launches.  -> the
+    state."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2458,27 +2654,50 @@ def profile_train_step(tag: str, step, state, batch, floor_ms: float, card: str)
     parts = {e.key.split("/")[1]: e.device_time_total / 1e3 for e in events
              if e.device_type == DeviceType.CPU
              and e.key in ("train_step/clip", "train_step/optimizer")}
+    # the AdamW kernel is launched through ctypes, not by an aten op, so the
+    # profiler leaves its device time out of the range's: it runs inside
+    # the optimizer's range alone
+    adamw = [e for e in kernels if "adamw_kernel" in e.key]
+    if "optimizer" in parts:
+        parts["optimizer"] += sum(e.self_device_time_total for e in adamw) / 1e3
     parts["forward and backward (the rest)"] = busy_ms - sum(parts.values())
+    if found is not None:
+        found.update(parts=parts, adamw_ms=sum(e.self_device_time_total for e in adamw) / 1e3,
+                     adamw_launches=sum(e.count for e in adamw))
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
     print(f"phase 3 {tag} profiled step: wall {wall_ms:.1f} ms, {sum(e.count for e in ops)} "
           f"torch operators, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}; floor "
           f"{floor_ms:.1f} ms) on {card}; device ms by part: " + json.dumps(
               {k: round(v, 2) for k, v in parts.items()}) + "; top operators by device time: "
-          + "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+          + "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top)
+          + "; adamw_kernel " + ", ".join(
+              f"{e.key.split('(')[0]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+              for e in adamw))
     return state
+
+
+def adamw_bytes(leaves_) -> int:
+    """The bytes one AdamW step over these parameter leaves must move with
+    master weights: each gradient read (its dtype), m, v and the master
+    read and written (24 B), each parameter written (its dtype)."""
+    return sum(p.numel() * (2 * p.element_size() + 24) for p in leaves_)
 
 
 def train_full_width(card: str) -> dict:
     """Qwen3-235B-A22B at its published widths, one MoE layer, trained
     ``TRAIN_STEPS`` steps per engine from the same seed, the launch counts
-    set to 0 just before the steps and read just after.  -> launches by
-    engine."""
+    set to 0 just before the steps and read just after; AdamW one
+    ``adamw_update`` launch a leaf a step, its device ms a step from the
+    profiled step beside its bound.  -> launches by engine and the AdamW
+    numbers."""
     from repro_torch.configs import get_config
     from repro_torch.core.registry import BULK_ENGINES
     from repro_torch.data.pipeline import DataConfig, ShardedDataPipeline
+    from repro_torch.kernels import train as T
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import make_optimizer
     from repro_torch.training.train_step import make_train_state, make_train_step
+    from repro_torch.tree import leaves
 
     published = get_config(TRAIN_ARCH)
     base = dataclasses.replace(published, num_layers=TRAIN_LAYERS)
@@ -2493,7 +2712,7 @@ def train_full_width(card: str) -> dict:
           f"{m.top_k} of {m.d_ff_expert}, vocab {base.vocab_size} padded to {base.padded_vocab}), "
           f"{base.param_dtype}, remat {base.remat}, AdamW (lr {TRAIN_LR}, master weights); "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens of ShardedDataPipeline's step 0, every step")
-    launches = {}
+    launches, numbers = {}, {}
     for engine in ENGINES:
         cfg = hash_routed(base, engine)
         kernels = BULK_ENGINES[engine].kernels
@@ -2510,8 +2729,9 @@ def train_full_width(card: str) -> dict:
         del params
         step = make_train_step(cfg, opt)
         state_bytes = tree_bytes(state)
-        for eng in BULK_ENGINES.values():
-            eng.kernels.reset_launches()
+        n_leaves = len(leaves(state["params"]))
+        opt_bytes = adamw_bytes(leaves(state["params"]))
+        reset_all_launches()
         losses, walls = [], []
         with RouteLog() as log:
             for _ in range(TRAIN_STEPS):
@@ -2521,7 +2741,11 @@ def train_full_width(card: str) -> dict:
                 walls.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        launches[engine] = {"lookup_router": kernels.launches["lookup_vec"]}
+        launches[engine] = {"lookup_router": kernels.launches["lookup_vec"],
+                            "adamw_update": T.launches["adamw_update"]}
+        if launches[engine]["adamw_update"] != n_leaves * TRAIN_STEPS:
+            fail(f"train[{engine}]: {launches[engine]['adamw_update']} adamw_update launches, "
+                 f"expected one a leaf a step, {n_leaves} x {TRAIN_STEPS}")
         want = TRAIN_ROUTES_PER_LAYER * n_moe * TRAIN_STEPS
         if launches[engine]["lookup_router"] != want or len(log.calls) != want:
             fail(f"train[{engine}]: {launches[engine]['lookup_router']} lookup_router launches "
@@ -2555,16 +2779,81 @@ def train_full_width(card: str) -> dict:
               f"{launches[engine]['lookup_router'] / TRAIN_STEPS:g} launches a step "
               f"({TRAIN_ROUTES_PER_LAYER} x {n_moe} MoE layer: the forward and remat's "
               f"recomputation), every expert id (2, {TRAIN_SEQ}, {m.top_k}) equal to the plain "
-              f"lookup's; step-0 training forward vs prefill, last-token logits, bf16 relative L2 "
-              f"{rel:.4f} (gate {FAMILY_BF16_TOL}) on {card}")
+              f"lookup's; adamw_update {launches[engine]['adamw_update'] / TRAIN_STEPS:g} "
+              f"launches a step (one a leaf); step-0 training forward vs prefill, last-token "
+              f"logits, bf16 relative L2 {rel:.4f} (gate {FAMILY_BF16_TOL}) on {card}")
         state = roofline_train_step(f"train {TRAIN_ARCH}[{engine}]", step, state, batch, floor,
                                     card)
+        found: dict = {}
         state = profile_train_step(f"train {TRAIN_ARCH}[{engine}]", step, state, batch,
-                                   floor["floor_ms"], card)
+                                   floor["floor_ms"], card, found)
+        opt_bound = opt_bytes / hw.HBM_BW * 1e3
+        numbers[engine] = dict(ms=ms, losses=losses, opt_bound_ms=opt_bound, **found)
+        if found:
+            parts = found["parts"]
+            print(f"phase 3 train {TRAIN_ARCH}[{engine}] AdamW: {ms:.1f} ms a step; the profiled "
+                  f"step's train_step/optimizer range {parts['optimizer']:.2f} ms, "
+                  f"train_step/clip {parts['clip']:.2f} ms (the norm; the scale folded into the "
+                  f"update); adamw_kernel {found['adamw_ms']:.3f} ms over "
+                  f"{found['adamw_launches']} launches (one a leaf) against a bound of "
+                  f"{opt_bound:.3f} ms ({opt_bytes / 1e9:.2f} GB at {hw.HBM_BW / 1e12} TB/s: "
+                  f"bf16 gradient read, float32 m, v and master read and written, bf16 parameter "
+                  f"written), share {share(opt_bound, found['adamw_ms'])} on {card}")
         del state, step, opt
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    return launches, numbers
+
+
+def adamw_times(card: str) -> dict:
+    """``adamw_update`` on the full-width cell's largest leaf (experts_wi,
+    bf16 gradient and parameter, master weights), timed with the train
+    state freed: the kernel beside its bound, its plain version, and
+    ``torch._fused_adamw_`` (what ``torch.optim.AdamW(fused=True)`` calls;
+    the port never calls it) on the same leaf with the gradient cast to
+    float32 and the bf16 copy of the master weight included, as the port's
+    update must do them.  -> the kernel line's row."""
+    from repro_torch.kernels import train as T
+
+    ops_ = adamw_operands(EXPERTS_WI, torch.bfloat16, torch.bfloat16, True, (0, 0), 60)
+    g, m, v, master, p = (ops_[k] for k in ("g", "m", "v", "ref", "p"))
+    args = (ops_["lr"], ops_["c1"], ops_["c2"], ops_["lr_wd"], torch.tensor(0.5, device="cuda"))
+
+    def kernel():
+        T.adamw_update(g, m, v, master, p, *args, b1=0.9, b2=0.95, eps=1e-8)
+
+    def plain():
+        T.adamw_update_plain(g, m, v, master, p, *args, b1=0.9, b2=0.95, eps=1e-8)
+
+    steps = [torch.tensor(1.0, device="cuda")]
+
+    def library():
+        torch._fused_adamw_([master], [g.float()], [m], [v], [], steps, lr=1e-3, beta1=0.9,
+                            beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
+                            maximize=False)
+        p.copy_(master)
+
+    times = {name: [] for name in ("kernel", "plain", "library")}
+    cases = {"kernel": kernel, "plain": plain, "library": library}
+    for which in ("kernel", "library", "plain", "plain", "library", "kernel"):
+        times[which].append(time_ms(cases[which], launches=3 if which == "plain" else 10,
+                                    repeats=3))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    nbytes = adamw_bytes([p])
+    bound_ms = nbytes / hw.HBM_BW * 1e3
+    print(f"phase 3 train adamw_update on experts_wi ({EXPERTS_WI:,} elements, bf16 gradient and "
+          f"parameter, master weights, clip scale 0.5), the train state freed, in turns: kernel "
+          f"{med['kernel']:.3f} ms ({', '.join(f'{t:.3f}' for t in times['kernel'])}) against a "
+          f"bound of {bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB at {hw.HBM_BW / 1e12} TB/s), share "
+          f"{share(bound_ms, med['kernel'])}; torch._fused_adamw_ with the float32 cast of the "
+          f"gradient and the bf16 copy {med['library']:.3f} ms ("
+          f"{', '.join(f'{t:.3f}' for t in times['library'])}); the plain version "
+          f"{med['plain']:.3f} ms ({', '.join(f'{t:.3f}' for t in times['plain'])}) on {card}")
+    del ops_, g, m, v, master, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms=med["kernel"], plain_ms=med["plain"], library_ms=med["library"],
+                bound_ms=bound_ms, bound_by="bytes", elements=EXPERTS_WI)
 
 
 def check_launcher() -> None:
@@ -2647,18 +2936,21 @@ def check_bf16_checkpoint() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_train(card: str) -> dict:
+def phase_train(card: str) -> tuple[dict, dict]:
     """The training slice: the reduced models on the card against the CPU,
-    Qwen3-235B-A22B at full width per engine, the launcher with a resume,
-    a bf16 checkpoint round trip.  -> launches by engine (the full-width
-    steps)."""
+    Qwen3-235B-A22B at full width per engine, ``adamw_update`` timed on its
+    largest leaf, the launcher with a resume, a bf16 checkpoint round trip.
+    -> (launches by engine (the full-width steps), the AdamW row's
+    numbers)."""
     t0 = time.perf_counter()
     check_small_training()
-    launches = train_full_width(card)
+    launches, numbers = train_full_width(card)
+    row = adamw_times(card)
+    row["in_step"] = numbers
     check_launcher()
     check_bf16_checkpoint()
     print(f"phase 3 train: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, row
 
 
 # --- the meshed training path -----------------------------------------------
@@ -2699,19 +2991,36 @@ MESH_TRAIN_TOL = 1e-4
 MESH_TRAIN_RANKS = 4
 
 
+@contextlib.contextmanager
+def plain_adamw():
+    """AdamW's update through its plain version while active (the kernel's
+    wrapper swapped for it), for a run to hold the kernel's against."""
+    from repro_torch.kernels import train as T
+
+    kernel = T.adamw_update
+    T.adamw_update = T.adamw_update_plain
+    try:
+        yield
+    finally:
+        T.adamw_update = kernel
+
+
 def mesh_train_full_width(card: str, engine: str) -> dict:
     """Part (a) for one engine: the full-width state from one seed, 3
-    steps unmeshed, then the same from the same seed under the (1, 1)
+    steps unmeshed (twice, and once more with AdamW's plain version in
+    place of its kernel), then the same from the same seed under the (1, 1)
     mesh; the launch counts set to 0 just before the meshed steps and read
     just after.  -> numbers and launches."""
     from repro_torch.configs import get_config
     from repro_torch.core.registry import BULK_ENGINES
     from repro_torch.data.pipeline import DataConfig, ShardedDataPipeline
+    from repro_torch.kernels import train as T
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import model as M
     from repro_torch.sharding import rules
     from repro_torch.training.optimizer import make_optimizer
     from repro_torch.training.train_step import make_train_state, make_train_step
+    from repro_torch.tree import leaves
 
     cfg = hash_routed(dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS), engine)
     pipe = ShardedDataPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 1, 0)
@@ -2723,14 +3032,14 @@ def mesh_train_full_width(card: str, engine: str) -> dict:
     kernels = BULK_ENGINES[engine].kernels
     mesh = make_local_mesh(1, 1, device_type="cuda")
     runs = {}
-    for run in ("unmeshed", "repeat", "meshed"):
+    for run in ("unmeshed", "repeat", "plain", "meshed"):
         meshed = run == "meshed"
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ctx = rules.mesh_context(mesh, fsdp=True, expert_layout="ep") if meshed else contextlib.nullcontext()
-        with ctx:
+        with ctx, plain_adamw() if run == "plain" else contextlib.nullcontext():
             params = M.init_train_params(torch.Generator("cuda").manual_seed(0), cfg)
             opt = make_optimizer("adamw", lr=TRAIN_LR, warmup=0, total=MESH_TRAIN_STEPS)
             state = make_train_state(params, opt)
@@ -2748,17 +3057,29 @@ def mesh_train_full_width(card: str, engine: str) -> dict:
             torch.cuda.synchronize()
         runs[run] = {"losses": losses, "norms": norms, "ms": statistics.median(walls[1:]) * 1e3,
                         "peak": torch.cuda.max_memory_allocated(),
-                        "lookup_router": kernels.launches["lookup_vec"]}
+                        "lookup_router": kernels.launches["lookup_vec"],
+                        "adamw_update": T.launches["adamw_update"],
+                        "leaves": len(leaves(state["params"]))}
         del state, step, opt
     a, b = runs["unmeshed"], runs["meshed"]
     spread = {k: max(abs(p - q) / abs(p) for p, q in zip(a[k], runs["repeat"][k]))
               for k in ("losses", "norms")}
     depart = {k: max(abs(p - q) / abs(p) for p, q in zip(a[k], b[k])) for k in ("losses", "norms")}
+    plain = {k: max(abs(p - q) / abs(p) for p, q in zip(a[k], runs["plain"][k]))
+             for k in ("losses", "norms")}
     want = TRAIN_ROUTES_PER_LAYER * MESH_TRAIN_STEPS
     if b["lookup_router"] != want:
         fail(f"mesh train (a)[{engine}]: {b['lookup_router']} lookup_router launches, expected {want}")
+    if b["adamw_update"] != b["leaves"] * MESH_TRAIN_STEPS or runs["plain"]["adamw_update"]:
+        fail(f"mesh train (a)[{engine}]: {b['adamw_update']} adamw_update launches meshed (one a "
+             f"leaf a step expected: {b['leaves']} x {MESH_TRAIN_STEPS}), "
+             f"{runs['plain']['adamw_update']} with the plain update")
     for x, y, tol, what in ((a["losses"], b["losses"], MESH_TRAIN_LOSS_TOL, "losses"),
-                            (a["norms"], b["norms"], MESH_TRAIN_NORM_TOL, "grad norms")):
+                            (a["norms"], b["norms"], MESH_TRAIN_NORM_TOL, "grad norms"),
+                            (runs["plain"]["losses"], a["losses"], MESH_TRAIN_LOSS_TOL,
+                             "losses (the kernel's update against the plain one)"),
+                            (runs["plain"]["norms"], a["norms"], MESH_TRAIN_NORM_TOL,
+                             "grad norms (the kernel's update against the plain one)")):
         if not all(np.isfinite(y)) or any(abs(p - q) > tol * abs(p) for p, q in zip(x, y)):
             fail(f"mesh train (a)[{engine}]: {what} meshed {y} vs unmeshed {x} (tolerance {tol})")
     if not b["peak"] <= MESH_TRAIN_PEAK * a["peak"]:
@@ -2776,8 +3097,12 @@ def mesh_train_full_width(card: str, engine: str) -> dict:
           f"{b['lookup_router'] / MESH_TRAIN_STEPS:g} launches a step on {card}; largest relative "
           f"departure meshed vs unmeshed: losses {depart['losses']!r}, grad norms "
           f"{depart['norms']!r}; unmeshed run twice: losses {spread['losses']!r}, grad norms "
-          f"{spread['norms']!r}")
-    return {"launches": b["lookup_router"], "ms": b["ms"], "unmeshed_ms": a["ms"],
+          f"{spread['norms']!r}; AdamW's kernel against its plain version (unmeshed, "
+          f"{a['ms']:.1f} vs {runs['plain']['ms']:.1f} ms a step): losses {plain['losses']!r}, "
+          f"grad norms {plain['norms']!r}; adamw_update {b['adamw_update'] / MESH_TRAIN_STEPS:g} "
+          f"launches a meshed step (one a leaf)")
+    return {"launches": b["lookup_router"], "adamw_update": b["adamw_update"], "ms": b["ms"],
+            "unmeshed_ms": a["ms"], "plain_ms": runs["plain"]["ms"], "plain_depart": plain,
             "peak": b["peak"], "unmeshed_peak": a["peak"], "depart": depart, "spread": spread}
 
 
@@ -2938,7 +3263,8 @@ def phase_mesh_train(card: str) -> dict:
     t0 = time.perf_counter()
     launches = {}
     for engine in ENGINES:
-        launches[engine] = {"lookup_router": mesh_train_full_width(card, engine)["launches"]}
+        got = mesh_train_full_width(card, engine)
+        launches[engine] = {"lookup_router": got["launches"], "adamw_update": got["adamw_update"]}
     dist.destroy_process_group()
     launches["binomial"]["lookup_router"] += mesh_train_ranks(card)
     print(f"phase 3 mesh train: {time.perf_counter() - t0:.1f} s")
@@ -3003,7 +3329,8 @@ def compress_step_parts(step, state, batch):
     part (the counts reset as each part begins: the forward and backward,
     the compression and the clip, the optimizer).  -> (the state, the
     device ms of the kernels launched inside ``train_step/compress``, or
-    None when the profiler recorded no device time, peak bytes by part)."""
+    None when the profiler recorded no device time, peak bytes by part,
+    the device ms of the select's kernels in the step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3036,9 +3363,62 @@ def compress_step_parts(step, state, batch):
         note("optimizer")
     finally:
         C.compress, Adafactor.update = compress, update
-    ms = [e.device_time_total / 1e3 for e in prof.key_averages()
+    events = prof.key_averages()
+    ms = [e.device_time_total / 1e3 for e in events
           if e.device_type == DeviceType.CPU and e.key == "train_step/compress"]
-    return state, (ms[0] if ms and ms[0] > 0 else None), peaks
+    select = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
+                 and ("radix_hist_kernel" in e.key or "radix_pick_kernel" in e.key)) / 1e3
+    # the select's kernels are launched through ctypes, not by aten ops, so
+    # the profiler leaves their device time out of the range's
+    compress = ms[0] + select if ms and ms[0] > 0 else None
+    return state, compress, peaks, select
+
+
+def select_times(gf: torch.Tensor, k: int) -> dict:
+    """The select on one leaf ``gf`` at ``k``, in turns: the kernels
+    (``radix_kth_magnitude``: three ``radix_hist`` + ``radix_pick``
+    rounds), ``torch.topk`` of the magnitudes (the port's select before
+    this on the unmeshed path; never called by the meshed one), and the
+    plain rounds; each round's ``radix_hist`` launch alone (with the
+    prefix its round reads) and ``radix_pick``'s launch (behind a sleeping
+    kernel).  The bound: the leaf read once at ``hw.HBM_BW``."""
+    from repro_torch.kernels import train as T
+    from repro_torch.training import compression as C
+
+    mags = gf.abs().reshape(-1)
+    flat = gf.reshape(-1)
+    cases = {"kernel": lambda: C.radix_kth_magnitude(gf, k),
+             "topk": lambda: torch.topk(mags, k),
+             "plain": lambda: T.radix_select_plain(gf, k)}
+    times = {w: [] for w in cases}
+    for which in ("kernel", "topk", "plain", "plain", "topk", "kernel"):
+        times[which].append(time_ms(cases[which], launches=1, repeats=3))
+    med = {w: statistics.median(v) for w, v in times.items()}
+    final = int(C.radix_kth_magnitude(gf, k).view(torch.int32))
+    hist_ms, hist_plain_ms, hist = [], [], None
+    for shift, width in T.RADIX_ROUNDS:
+        top = shift + width
+        prefix = torch.tensor([final & ~((1 << top) - 1) if top < 32 else 0], dtype=torch.int32,
+                              device=gf.device)
+        hist_ms.append(time_ms(lambda p=prefix, s=shift, w=width: T.radix_hist(flat, p, s, w),
+                               launches=3, repeats=3))
+        hist_plain_ms.append(time_ms(
+            lambda p=prefix, s=shift, w=width: T.radix_hist_plain(flat, p, s, w),
+            launches=1, repeats=3))
+        if hist is None:  # the first round's: every element counted, 2^11 bins
+            hist = T.radix_hist(flat, prefix, shift, width)
+    # each pick leaves a rank within the digit it keeps, so repeated picks
+    # over the first round's histogram always find one
+    sought = torch.full((1,), k, dtype=torch.int64, device=gf.device)
+    prefix = torch.zeros(1, dtype=torch.int32, device=gf.device)
+    pick_ms, _ = small_call_ms(lambda: T.radix_pick(hist, sought, prefix, 0))
+    pick_plain_ms, _ = small_call_ms(lambda: T.radix_pick_plain(hist, sought, prefix, 0), 50)
+    bound_ms = 4 * gf.numel() / hw.HBM_BW * 1e3
+    del mags
+    return {"elements": gf.numel(), "k": k, "ms": med["kernel"], "topk_ms": med["topk"],
+            "plain_ms": med["plain"], "turns": times, "hist_ms": hist_ms,
+            "hist_plain_ms": hist_plain_ms, "pick_ms": pick_ms, "pick_plain_ms": pick_plain_ms,
+            "bound_ms": bound_ms}
 
 
 def compress_full_width(card: str, engine: str) -> dict:
@@ -3052,6 +3432,7 @@ def compress_full_width(card: str, engine: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.registry import BULK_ENGINES
     from repro_torch.data.pipeline import DataConfig, ShardedDataPipeline
+    from repro_torch.kernels import train as T
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import model as M
     from repro_torch.sharding import rules
@@ -3066,10 +3447,10 @@ def compress_full_width(card: str, engine: str) -> dict:
                for i in range(COMPRESS_STEPS)]
     kernels = BULK_ENGINES[engine].kernels
     mesh = make_local_mesh(1, 1, device_type="cuda")
-    out = {"lookup_router": 0}
+    out = {"lookup_router": 0, "radix_hist": 0, "radix_pick": 0}
     for kind in COMPRESS_KINDS:
         hp = TrainHparams(compression=kind)
-        runs = {}
+        runs, checks = {}, []
         for meshed in (False, True):
             gc.collect()
             torch.cuda.empty_cache()
@@ -3090,7 +3471,7 @@ def compress_full_width(card: str, engine: str) -> dict:
                 reset_all_launches()
                 losses, norms, walls = [], [], []
                 for i, batch in enumerate(batches):
-                    check.armed = meshed and kind == "topk" and i == 0
+                    check.armed = kind == "topk" and i == 0
                     t0 = time.perf_counter()
                     state, metrics = step(state, batch)
                     losses.append(float(metrics["loss"]))
@@ -3105,10 +3486,17 @@ def compress_full_width(card: str, engine: str) -> dict:
                 check.armed = False
                 run = {"losses": losses, "norms": norms, "peak": torch.cuda.max_memory_allocated(),
                        "ms": statistics.median(walls[1:]) * 1e3, "walls": walls,
-                       "lookup_router": kernels.launches["lookup_vec"], "sizes": sizes}
+                       "lookup_router": kernels.launches["lookup_vec"], "sizes": sizes,
+                       **{k: T.launches[k] for k in ("radix_hist", "radix_pick")}}
+                want = 3 * n_leaves * COMPRESS_STEPS if kind == "topk" else 0
+                if (run["radix_hist"], run["radix_pick"]) != (want, want):
+                    fail(f"compress (a)[{engine}] {kind}: radix_hist {run['radix_hist']} and "
+                         f"radix_pick {run['radix_pick']} launches, expected three a leaf a "
+                         f"step, {want}")
+                checks.append(check)
                 if meshed:
-                    state, run["compress_ms"], run["parts"] = compress_step_parts(
-                        step, state, batches[0])
+                    state, run["compress_ms"], run["parts"], run["select_ms"] = \
+                        compress_step_parts(step, state, batches[0])
                 runs["meshed" if meshed else "unmeshed"] = run
                 del state, step, opt
         a, b = runs["unmeshed"], runs["meshed"]
@@ -3123,20 +3511,20 @@ def compress_full_width(card: str, engine: str) -> dict:
                      f"(tolerance {tol})")
         select = ""
         if kind == "topk":
-            if check.bad or check.checked != n_leaves:
-                fail(f"compress (a)[{engine}]: the select checked {check.checked} of {n_leaves} "
-                     f"leaves; against torch.topk: {check.bad[:4]}")
+            for c, what in zip(checks, ("unmeshed", "meshed")):
+                if c.bad or c.checked != n_leaves:
+                    fail(f"compress (a)[{engine}] {what}: the select checked {c.checked} of "
+                         f"{n_leaves} leaves; against torch.topk: {c.bad[:4]}")
             gf, k = check.largest
             gf = gf.cuda()
-            check.largest = None
-            mine = time_ms(lambda: C.radix_kth_magnitude(gf, k), launches=1, repeats=3)
-            mags = gf.abs().reshape(-1)
-            lib = time_ms(lambda: torch.topk(mags, k), launches=1, repeats=3)
+            checks[0].largest = check.largest = None
+            numbers = select_times(gf, k)
             torch.cuda.synchronize()
             previous = torch.cuda.get_sync_debug_mode()  # a synchronising call raises
             torch.cuda.set_sync_debug_mode("error")
             try:
                 C.radix_kth_magnitude(gf, k)
+                C.kth_magnitude(gf, k)
             except RuntimeError as e:
                 import traceback
 
@@ -3144,12 +3532,25 @@ def compress_full_width(card: str, engine: str) -> dict:
                 fail(f"compress (a)[{engine}]: the select waits for the device: {e}")
             finally:
                 torch.cuda.set_sync_debug_mode(previous)
-            select = (f"; every leaf's threshold ({check.checked}) equal to torch.topk's k-th value "
-                      f"bit for bit, kept = k + ties; the select on the largest leaf "
-                      f"({gf.numel():,} elements, k = {k:,}) {mine:.3f} ms against torch.topk's "
-                      f"{lib:.3f} ms, no host synchronisation")
-            out[engine, "select"] = {"elements": gf.numel(), "k": k, "ms": mine, "topk_ms": lib}
-            del gf, mags
+            gap = b["ms"] - a["ms"]
+            select = (f"; every leaf's threshold ({checks[0].checked} unmeshed, "
+                      f"{checks[1].checked} meshed) equal to torch.topk's k-th value bit for bit, "
+                      f"kept = k + ties; radix_hist and radix_pick 3 launches each a leaf a step; "
+                      f"the select's kernels {b['select_ms']:.3f} ms over the profiled meshed "
+                      f"step's {n_leaves} leaves, beside the meshed step's {gap:.1f} ms over the "
+                      f"unmeshed; on the largest leaf ({gf.numel():,} elements, k = {k:,}) the "
+                      f"select {numbers['ms']:.3f} ms (rounds' radix_hist "
+                      + ", ".join(f"{t:.3f}" for t in numbers["hist_ms"])
+                      + " ms, plain " + ", ".join(f"{t:.3f}" for t in numbers["hist_plain_ms"])
+                      + f" ms; radix_pick {numbers['pick_ms'] * 1e3:.2f} us, plain "
+                      f"{numbers['pick_plain_ms'] * 1e3:.2f} us) against a bound of "
+                      f"{numbers['bound_ms']:.3f} ms (the leaf read once at {hw.HBM_BW / 1e12} "
+                      f"TB/s; the design's three reads {3 * numbers['bound_ms']:.3f} ms), share "
+                      f"{share(numbers['bound_ms'], numbers['ms'])}; torch.topk "
+                      f"{numbers['topk_ms']:.3f} ms; the plain rounds {numbers['plain_ms']:.3f} "
+                      f"ms; no host synchronisation")
+            out[engine, "select"] = {**numbers, "step_select_ms": b["select_ms"], "gap_ms": gap}
+            del gf
         comp = b.get("compress_ms")
         print(f"phase 3 compress (a)[{engine}] {kind}: {TRAIN_ARCH} at published widths, "
               f"{TRAIN_LAYERS} layer, bf16, hash router, Adafactor (lr {TRAIN_LR}), "
@@ -3172,6 +3573,8 @@ def compress_full_width(card: str, engine: str) -> dict:
         out[engine, kind] = {"ms": b["ms"], "unmeshed_ms": a["ms"], "compress_ms": comp,
                              "peak": b["peak"], "unmeshed_peak": a["peak"], "parts": b["parts"]}
         out["lookup_router"] += b["lookup_router"]
+        out["radix_hist"] += b["radix_hist"]
+        out["radix_pick"] += b["radix_pick"]
     gc.collect()
     torch.cuda.empty_cache()  # the ranks of part (b) share the card
     return out
@@ -3403,7 +3806,7 @@ def phase_compress(card: str) -> tuple[dict, dict]:
     launches, numbers = {}, {}
     for engine in ENGINES:
         got = compress_full_width(card, engine)
-        launches[engine] = {"lookup_router": got.pop("lookup_router")}
+        launches[engine] = {k: got.pop(k) for k in ("lookup_router", "radix_hist", "radix_pick")}
         numbers.update(got)
     dist.destroy_process_group()
     launches["binomial"]["lookup_router"] += compress_ranks(card)
@@ -4567,6 +4970,59 @@ def phase_chain_times(rows: dict, card: str) -> None:
             bound_by=head["bound_by"], failed_share=0.25, by_share=by_share)
 
 
+def train_baseline(src_dir: Path, card: str, rounds: int = 3) -> None:
+    """Another build of the training kernels (``src_dir/train.cu``, the same
+    C interface) against this one on the select, in turns (baseline, this,
+    this, baseline) for ``rounds`` rounds, medians: each round's
+    ``radix_hist`` launch and the whole select on a gradient-like leaf of
+    experts_wi's size at the train path's k, both builds' thresholds equal
+    to ``torch.topk``'s."""
+    import hashlib
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import train as T
+
+    name = src_dir.resolve().name
+    digest = hashlib.sha256((src_dir / "train.cu").read_bytes()).hexdigest()[:16]
+    out = build.BUILD_DIR / f"baseline_train_{digest}.so"
+    if not out.is_file():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                               str(src_dir / "train.cu")], capture_output=True, text=True)
+        if proc.returncode:
+            fail(f"the baseline build of {src_dir}/train.cu failed:\n{proc.stdout}{proc.stderr}")
+    libs = {"baseline": build._load(out, build.TRAIN_SIGNATURES), "this": build.train_library()}
+    loaded = build.train_library
+    gen = torch.Generator("cuda").manual_seed(44)
+    x = torch.randn(EXPERTS_WI, generator=gen, device="cuda") * 1e-4
+    k = int(EXPERTS_WI * TOPK_FRAC)
+    want = int(bits_of(torch.topk(x.abs(), k).values[-1]))
+    final = int(bits_of(T.radix_select(x, k)))
+    times = {w: {r: [] for r in ("select", *range(len(T.RADIX_ROUNDS)))} for w in libs}
+    for _ in range(rounds):
+        for which in ("baseline", "this", "this", "baseline"):
+            build.train_library = lambda lib=libs[which]: lib
+            try:
+                if int(bits_of(T.radix_select(x, k))) != want:
+                    fail(f"the select of the {which} build ({name}) differs from torch.topk's")
+                for r, (shift, width) in enumerate(T.RADIX_ROUNDS):
+                    top = shift + width
+                    prefix = torch.tensor([final & ~((1 << top) - 1) if top < 32 else 0],
+                                          dtype=torch.int32, device="cuda")
+                    times[which][r].append(time_ms(
+                        lambda p=prefix, sh=shift, w=width: T.radix_hist(x, p, sh, w), 3, 3))
+                times[which]["select"].append(time_ms(lambda: T.radix_select(x, k), 1, 3))
+            finally:
+                build.train_library = loaded
+    med = {w: {r: statistics.median(v) for r, v in t.items()} for w, t in times.items()}
+    print(f"phase 4 baseline {name} train kernels, the select on {EXPERTS_WI:,} gradient-like "
+          f"values at k = {k:,}, in turns x{rounds}: " + "; ".join(
+              f"{w} radix_hist rounds " + ", ".join(f"{med[w][r]:.4f}" for r in range(3))
+              + f" ms, select {med[w]['select']:.4f} ms" for w in ("baseline", "this"))
+          + f"; both equal to torch.topk's k-th value, on {card}")
+    del x
+
+
 def baseline_library(src_dir: Path):
     """Another build of the kernels (``src_dir/routing.cu``, the same C
     interface), compiled with this build's flags and loaded."""
@@ -4756,11 +5212,51 @@ def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
                   f"{hmed['this'] * 1e3:.2f} us")
 
 
+def train_kernel_rows(by_path: dict, max_err: dict, adamw_row: dict, compress: dict) -> list:
+    """The kernels line's rows of the training kernels: their launches on
+    the main paths (both engines' runs summed), phase 2's differing
+    elements, and the times phases 3 "train" (``adamw_update`` on the
+    largest leaf) and "compress" (the select on the largest leaf, binomial
+    engine's run) measured; ``radix_hist``'s time is a launch's mean over
+    the three rounds, ``radix_pick``'s one launch, and the whole select's
+    numbers ride along."""
+    select = compress["binomial", "select"]
+    hist_ms = statistics.mean(select["hist_ms"])
+    n = select["elements"]
+    rows = {
+        "adamw_update": {k: adamw_row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_by", "elements")},
+        "radix_hist": dict(ms=hist_ms, plain_ms=statistics.mean(select["hist_plain_ms"]),
+                           library_ms=None, bound_ms=select["bound_ms"], bound_by="bytes",
+                           elements=n, round_ms=select["hist_ms"],
+                           round_plain_ms=select["hist_plain_ms"], select_ms=select["ms"],
+                           select_topk_ms=select["topk_ms"], select_plain_ms=select["plain_ms"],
+                           select_bound_ms=select["bound_ms"],
+                           select_design_bound_ms=3 * select["bound_ms"],
+                           step_select_ms=select["step_select_ms"]),
+        # the pick reads a 2^11-bin int64 histogram and writes two words
+        "radix_pick": dict(ms=select["pick_ms"], plain_ms=select["pick_plain_ms"], library_ms=None,
+                           bound_ms=(8 * 2048 + 24) / hw.HBM_BW * 1e3, bound_by="bytes"),
+    }
+    rows["adamw_update"]["in_step"] = adamw_row["in_step"]
+    out = []
+    for kind in TRAIN_KINDS:
+        paths = {}
+        for path, counts in by_path.items():
+            got = sum(counts.get((e, kind), 0) for e in ENGINES)
+            if got:
+                paths[path] = got
+        out.append(dict(name=kind, route="cuda", source=TRAIN_SRC, replaces=TRAIN_REPLACES[kind],
+                        launches=sum(paths.values()), launches_by_path=paths,
+                        max_abs_err=max_err[kind], bit_exact=max_err[kind] == 0, **rows[kind]))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", type=Path, nargs="+", default=[],
-                        help="directories each holding another build's routing.cu/.cuh to time "
-                             "against")
+                        help="directories each holding another build's routing.cu/.cuh or "
+                             "train.cu to time against")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4771,9 +5267,10 @@ def main() -> int:
     card = card_line()
     print(f"phase 1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per output, started together
-        futures = [pool.submit(f) for f in (build.build, build.ptx, build.cubin, build.counting)]
-        lib, ptx, _, counting = (f.result() for f in futures)
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per output, started together
+        futures = [pool.submit(f) for f in (build.build, build.ptx, build.cubin, build.counting,
+                                            build.build_train)]
+        lib, ptx, _, counting, train_lib = (f.result() for f in futures)
 
     def ptxas_lines(path):
         return " | ".join(line.strip() for line in path.with_suffix(".log").read_text().splitlines()
@@ -4782,6 +5279,7 @@ def main() -> int:
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({lib.name}); ptxas: {ptxas_lines(lib)}")
     print(f"phase 1 counting build ({counting.name}, -DROUTING_COUNT_TRIPS): ptxas: "
           f"{ptxas_lines(counting)}")
+    print(f"phase 1 training kernels' build ({train_lib.name}): ptxas: {ptxas_lines(train_lib)}")
     text = ptx.read_text()
     if "div.rn.f32" not in text or "div.approx" in text or "div.full" in text:
         fail("the jump step is not compiled to an IEEE round-to-nearest division")
@@ -4796,6 +5294,7 @@ def main() -> int:
         fail(f"the SASS of {stale} differs from the build the SASS table was counted "
              "from: recount the table")
     build.library()
+    build.train_library()
     phase_certify(card)
 
     max_err: dict = {}
@@ -4806,6 +5305,7 @@ def main() -> int:
     phase_placement_wide(max_err)
     phase_route_load(max_err)
     phase_chain_remap(max_err)
+    phase_train_kernels(max_err)
     by_path = {"router": phase_router(), "chain": phase_chain_path()}
     mesh_launches, mesh = phase_mesh(card)
     by_path["mesh"] = {(e, k): n for e, counts in mesh_launches.items() for k, n in counts.items()}
@@ -4821,10 +5321,12 @@ def main() -> int:
                              for k, n in counts.items()}
     for arch, counts in phase_serve_families(card).items():
         by_path[f"serve_{arch}"] = {(e, k): n for e, c in counts.items() for k, n in c.items()}
-    by_path["train"] = {(e, k): n for e, counts in phase_train(card).items() for k, n in counts.items()}
+    train_launches, adamw_row = phase_train(card)
+    by_path["train"] = {(e, k): n for e, counts in train_launches.items()
+                        for k, n in counts.items()}
     by_path["mesh_train"] = {(e, k): n for e, counts in phase_mesh_train(card).items()
                              for k, n in counts.items()}
-    compress_launches, _ = phase_compress(card)
+    compress_launches, compress_numbers = phase_compress(card)
     by_path["compress"] = {(e, k): n for e, counts in compress_launches.items()
                            for k, n in counts.items()}
     place_launches, place_host = phase_placement()
@@ -4849,7 +5351,10 @@ def main() -> int:
              if k in ("sync_targets_s", "quiesce_s", "storm_copies", "storm_tick_s", "moved_fraction",
                       "delta_over_n", "lost_keys")})
     for src_dir in args.baseline:
-        phase_baseline(src_dir, rows, serve_calls, moe_cfg)
+        if (src_dir / "routing.cu").is_file():
+            phase_baseline(src_dir, rows, serve_calls, moe_cfg)
+        if (src_dir / "train.cu").is_file():
+            train_baseline(src_dir, card)
     kernels = []
     for engine in ENGINES:
         for kind in ROWS:
@@ -4859,6 +5364,7 @@ def main() -> int:
                 launches=sum(paths.values()), launches_by_path=paths,
                 max_abs_err=max_err[engine, kind], bit_exact=max_err[engine, kind] == 0,
                 **{"library_ms": None, **rows[engine, kind]}))
+    kernels.extend(train_kernel_rows(by_path, max_err, adamw_row, compress_numbers))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,5 @@
-"""The routing datapath's CUDA kernels (``csrc/``), their build
-(``build``), wrappers with plain versions and launch counts (``fused``) and
-the spec-level entry points (``ops``)."""
+"""The port's CUDA kernels (``csrc/``: the routing datapath's in
+``routing.cu``, the training path's in ``train.cu``), their build
+(``build``), wrappers with plain versions and launch counts (``fused`` for
+routing, ``train`` for training) and the spec-level entry points
+(``ops``)."""

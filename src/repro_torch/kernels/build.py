@@ -1,5 +1,8 @@
-"""Build and bind the routing kernels: ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes``.
+"""Build and bind the kernels: ``nvcc`` into shared libraries with a plain C
+interface, loaded with ``ctypes``.  Two libraries: the routing kernels
+(``csrc/routing.cu``, ``library()``) and the training kernels
+(``csrc/train.cu``: the fused AdamW update and the radix select's two
+kernels, ``train_library()``), each keyed on its own sources and flags.
 
 Nothing is compiled when this module is imported.  The first call of
 ``library()`` compiles ``csrc/routing.cu`` for ``sm_90a`` into
@@ -13,7 +16,9 @@ at its first use: ``ptx()`` and ``cubin()`` (the code the library holds, as
 PTX and as a line-info cubin, for the SASS gate), and ``counting()``, the
 counting build: the library compiled with ``ROUTING_COUNT_TRIPS`` defined,
 so that every counted loop of ``routing.cuh`` keeps its largest trip
-count in a device array (``counting_library()`` loads it).
+count in a device array (``counting_library()`` loads it).  The training
+library is built the same way, at its own first use, into the same
+directory (``libtrain_<hash>.so``).
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("routing.cu", "routing.cuh")
+#: the training kernels' library: its own sources, the same flags
+TRAIN_SOURCES = ("train.cu",)
 
 #: never --use_fast_math: the jump step needs IEEE round-to-nearest division
 CODEGEN_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
@@ -40,6 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _N = ctypes.c_longlong
+_F = ctypes.c_float
 #: C signatures of the entry points (every pointer and the stream as void*)
 SIGNATURES = {
     "routing_route": (_I, _P, _P, _I, _P, _I, _P, _I, _P, _N, _P),
@@ -54,6 +62,13 @@ SIGNATURES = {
     "routing_chain_grid": (_N,),
     "routing_route_load_grid": (_I, _N, _I),
     "routing_take_launches": (_P, _I),
+}
+#: C signatures of the training library's entry points
+TRAIN_SIGNATURES = {
+    "train_adamw_update": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _F, _F, _F, _F, _F, _N, _P),
+    "train_radix_hist": (_P, _N, _I, _I, _P, _P, _P),
+    "train_radix_pick": (_P, _I, _I, _P, _P, _P),
 }
 #: the entry points only the counting build has
 TRIP_SIGNATURES = {
@@ -76,18 +91,18 @@ def nvcc() -> str:
     )
 
 
-def _digest(flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+def _digest(flags: tuple[str, ...] = NVCC_FLAGS, sources: tuple[str, ...] = SOURCES) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for name in SOURCES:
+    for name in sources:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path, flags: tuple[str, ...]) -> Path:
-    """Run nvcc on routing.cu into ``out`` unless it exists.  Concurrent
-    builds each write a temporary file and rename it into place, so a
-    reader never sees a partial output; the compiler's report goes to a
-    ``.log`` beside it."""
+def _compile(out: Path, flags: tuple[str, ...], source: str = SOURCES[0]) -> Path:
+    """Run nvcc on ``source`` (routing.cu unless named) into ``out`` unless
+    it exists.  Concurrent builds each write a temporary file and rename it
+    into place, so a reader never sees a partial output; the compiler's
+    report goes to a ``.log`` beside it."""
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -95,7 +110,7 @@ def _compile(out: Path, flags: tuple[str, ...]) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *flags, "-o", tmp, str(CSRC / "routing.cu")],
+            [nvcc(), *flags, "-o", tmp, str(CSRC / source)],
             capture_output=True, text=True, check=False,
         )
         if proc.returncode:
@@ -114,6 +129,13 @@ def build() -> Path:
     """Compile the kernel library unless this exact build exists; returns
     its path."""
     return _compile(BUILD_DIR / f"librouting_{_digest()}.so", NVCC_FLAGS)
+
+
+def build_train() -> Path:
+    """Compile the training kernels' library unless this exact build
+    exists; returns its path."""
+    digest = _digest(NVCC_FLAGS, TRAIN_SOURCES)
+    return _compile(BUILD_DIR / f"libtrain_{digest}.so", NVCC_FLAGS, TRAIN_SOURCES[0])
 
 
 def ptx() -> Path:
@@ -162,6 +184,13 @@ def _load(path: Path, signatures: dict) -> ctypes.CDLL:
 def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's signature set."""
     return _load(build(), SIGNATURES)
+
+
+@functools.cache
+def train_library() -> ctypes.CDLL:
+    """The loaded training kernels' library with every entry point's
+    signature set."""
+    return _load(build_train(), TRAIN_SIGNATURES)
 
 
 @functools.cache

@@ -21,24 +21,19 @@ magnitude all-reduced (MAX) over those axes, ``topk``'s threshold from
 ``kth_magnitude``, an exact radix select whose histograms are all-reduced
 (SUM) over them.  A copy replicated over an axis that does not cut the
 leaf is counted once, as ``Zero1.global_norm`` counts it.  With no mesh
-the axes are empty, nothing is reduced, the block is the leaf, and
-``topk``'s threshold is ``torch.topk``'s k-th value.
+the axes are empty, nothing is reduced and the block is the leaf.  On the
+card the select is the radix select's kernels
+(``repro_torch.kernels.train.radix_select``), with or without a mesh; on
+the CPU an unmeshed threshold is ``torch.topk``'s k-th value, the same
+value bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import train as T
 from repro_torch.sharding import rules
 from repro_torch.tree import leaves, unflatten
-
-#: the radix select's rounds: (shift, width) of each digit of the
-#: magnitudes' bit patterns, high digit first (bit 31 is the sign, 0)
-RADIX_ROUNDS = ((21, 11), (10, 11), (0, 10))
-
-#: the most elements one chunk of a histogram reads: its temporaries stay
-#: a few chunks however large the block (a full-width MoE layer's experts
-#: are one leaf of 0.8 G elements)
-HIST_CHUNK = 1 << 24
 
 
 def init_error_state(params):
@@ -60,53 +55,25 @@ def kth_magnitude(gf: torch.Tensor, k: int, axes=()) -> torch.Tensor:
     whose block on this rank is ``gf`` (float32) and whose other blocks lie
     on the ranks of the mesh ``axes`` (every rank of them calls this with
     the same ``k``): a float32 0-dim tensor, equal bit for bit to
-    ``torch.topk(|leaf|, k).values[-1]``.  With no axes the block is the
-    leaf and this is that ``torch.topk`` call; otherwise
-    ``radix_kth_magnitude``."""
+    ``torch.topk(|leaf|, k).values[-1]``.  On the card, and under a mesh,
+    ``radix_kth_magnitude``; on the CPU with no axes (the block is the
+    leaf) that ``torch.topk`` call."""
     if not 1 <= k:
         raise ValueError(f"k must be >= 1, got {k}")
-    if not axes:
+    if not axes and gf.device.type != "cuda":
         return torch.topk(gf.abs().reshape(-1), k).values[-1]
     return radix_kth_magnitude(gf, k, axes)
 
 
 def radix_kth_magnitude(gf: torch.Tensor, k: int, axes=()) -> torch.Tensor:
-    """``kth_magnitude`` by an exact radix select whose histograms are
-    summed over ``axes``.
-
-    Non-negative float32 values order as their bit patterns do (``-0.0``
-    has the magnitude ``0.0``), so the select runs on ``|gf|.view(int32)``:
-    each round of ``RADIX_ROUNDS`` counts one digit of the patterns that
-    match the digits found so far (a histogram built ``HIST_CHUNK``
-    elements at a time; the others left out), sums the histogram over
-    ``axes``, and keeps the digit at which the count from the top reaches
-    the rank still sought.  The histogram is ``torch.histc`` over the
-    digits as floats with unit bins (exact: a digit and a count per chunk
-    stay below 2^24), which counts in shared memory and, given its range,
-    never waits for the device (``torch.bincount`` reads its input's range
-    on the host); the whole select leaves nothing to the host."""
-    flat = gf.reshape(-1)
-    device = flat.device
-    # (1,) tensors made on the device, indexed by index_select: a scalar
-    # copied from the host or an index read back would wait for the device
-    prefix = torch.zeros(1, dtype=torch.int32, device=device)
-    sought = torch.full((1,), k, dtype=torch.int64, device=device)
-    for shift, width in RADIX_ROUNDS:
-        bins = 1 << width
-        top = shift + width  # the bits above this digit are known
-        hist = torch.zeros(bins, dtype=torch.int64, device=device)
-        for lo in range(0, flat.numel(), HIST_CHUNK):
-            bits = flat[lo:lo + HIST_CHUNK].abs().view(torch.int32)
-            digit = (bits >> shift) & (bins - 1)
-            if top < 32:  # an element off the prefix falls outside the range
-                digit = torch.where((bits >> top) == (prefix >> top), digit, -1)
-            hist += torch.histc(digit.float(), bins, -0.5, bins - 0.5).long()
-        hist = _all_reduce(hist, axes, "sum")
-        from_top = hist.flip(0).cumsum(0).flip(0)  # elements at or above each digit
-        d = (from_top >= sought).sum().view(1) - 1  # the highest digit whose count reaches it
-        sought = sought - (from_top.index_select(0, d) - hist.index_select(0, d))
-        prefix = prefix | (d.to(torch.int32) << shift)
-    return prefix.view(torch.float32)[0]
+    """``kth_magnitude`` by the exact radix select
+    (``repro_torch.kernels.train.radix_select``: three rounds over
+    ``|gf|.view(int32)``, each a histogram of one digit of the patterns
+    that match the digits found so far and the choice of the digit at
+    which the count from the top reaches the rank still sought), each
+    round's histogram summed over ``axes`` between its two launches; the
+    whole select leaves nothing to the host."""
+    return T.radix_select(gf, k, lambda hist: _all_reduce(hist, axes, "sum"))
 
 
 def compress_int8(g: torch.Tensor, err: torch.Tensor, axes=()):

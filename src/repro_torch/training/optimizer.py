@@ -4,13 +4,17 @@ on one device.
 
 Each update works leaf by leaf and **in place**: ``update`` writes the new
 moments, master weights and parameters into the tensors it is given and
-returns the same trees (the reference returns new ones).  AdamW walks each
-leaf in flat slices of at most ``SLICE`` elements, so its float32
+returns the same trees (the reference returns new ones).  AdamW updates
+each leaf through ``repro_torch.kernels.train.adamw_update``: one kernel
+launch a leaf on the card, and on the CPU its plain version, which walks
+the leaf in flat slices of at most ``SLICE`` elements, so its float32
 temporaries never exceed a few slices however large a leaf is (a
 full-width MoE layer's experts are one leaf of 0.8 G elements); the update
-is elementwise, so slicing changes no number.  Adafactor's factored
-moments and its update clip are per stacked leaf, as the reference's are,
-so it takes each leaf whole.
+is elementwise, so slicing changes no number.  AdamW also takes the
+global-norm clip's scale (``grad_scale``) and applies it to each gradient
+inside the same pass, rounding as the clip's own pass rounds.  Adafactor's
+factored moments and its update clip are per stacked leaf, as the
+reference's are, so it takes each leaf whole.
 
 Scalars (the learning rate, the bias corrections) are float32 0-dim
 tensors on the parameters' device, computed as the reference's ``jnp``
@@ -36,25 +40,17 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels import train as T
+from repro_torch.kernels.train import flat_slices
 from repro_torch.sharding import rules
 from repro_torch.sharding.rules import P, current_mesh, layout
 from repro_torch.tree import leaves, tree_map, unflatten
 
-#: the most elements of one leaf that one slice of an AdamW update holds
-SLICE = 1 << 26
-
 
 def _f32(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
-
-
-def flat_slices(*tensors: torch.Tensor, size: int = SLICE):
-    """Yield matching flat slices (views) of same-shaped contiguous
-    tensors, ``size`` elements at a time."""
-    flat = [t.view(-1) for t in tensors]
-    n = flat[0].numel()
-    for lo in range(0, n, size):
-        yield tuple(f[lo:lo + size] for f in flat)
+    """``value`` as a float32 0-dim tensor on ``like``'s device, filled
+    there (no copy from the host, which would wait for the device)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -101,9 +97,13 @@ class AdamW:
             st["master"] = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
         return st
 
-    def update(self, grads, state, params, step, cuts=None):
+    def update(self, grads, state, params, step, cuts=None, grad_scale=None):
         """One step, in place: -> (params, state).  Elementwise, so the
-        blocks of a ZeRO-1 layout update as they are (``cuts`` unused)."""
+        blocks of a ZeRO-1 layout update as they are (``cuts`` unused).
+        ``grad_scale`` (a float32 0-dim tensor on the parameters' device,
+        the clip's ``min(1, max_norm / norm)``) scales every gradient first,
+        each rounded to its own dtype as the clip's pass would write it;
+        the gradients themselves are left as they are."""
         flat_p = leaves(params)
         lr = self.lr_fn(step).to(flat_p[0].device)
         t = torch.as_tensor(step, device=lr.device).to(torch.float32) + 1.0
@@ -114,17 +114,8 @@ class AdamW:
         with torch.no_grad():
             for g, m, v, ref, p in zip(leaves(grads), leaves(state["m"]), leaves(state["v"]),
                                        refs, flat_p):
-                pieces = (g, m, v, p) if ref is None else (g, m, v, p, ref)
-                for sl in flat_slices(*(x.contiguous() if x is g else x for x in pieces)):
-                    g_s, m_s, v_s, p_s = sl[:4]
-                    r_s = p_s.float() if ref is None else sl[4]
-                    g_s = g_s.float()
-                    m_s.mul_(self.b1).add_(g_s * (1 - self.b1))
-                    v_s.mul_(self.b2).add_(g_s.square().mul_(1 - self.b2))
-                    u = (m_s / c1).mul_(lr).div_((v_s / c2).sqrt_().add_(self.eps))
-                    decay = r_s * lr_wd
-                    r_s.sub_(u).sub_(decay)
-                    p_s.copy_(r_s)
+                T.adamw_update(g.contiguous(), m, v, ref, p, lr, c1, c2, lr_wd, grad_scale,
+                               b1=self.b1, b2=self.b2, eps=self.eps)
         return params, state
 
 

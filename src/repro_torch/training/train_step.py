@@ -19,7 +19,9 @@ accumulation, in both packages.  The parts of a step run under
 ``torch.profiler.record_function`` ranges (``train_step/grads``,
 ``train_step/clip``, ``train_step/optimizer``; with compression
 ``train_step/compress`` inside the clip's range), which a profiler reads and which cost nothing
-measurable otherwise.
+measurable otherwise.  The clip computes the global norm and its scale;
+AdamW applies the scale inside its update (so the clip's range holds the
+norm alone), Adafactor is handed gradients the clip scaled in place.
 
 Under a mesh (the state made and the step called inside
 ``rules.mesh_context`` with a ``DeviceMesh``) ``make_train_state`` takes the
@@ -55,7 +57,7 @@ from repro_torch.models import model as M
 from repro_torch.training import compression as C
 from repro_torch.models.layers.common import MetaGenerator
 from repro_torch.sharding import rules
-from repro_torch.training.optimizer import Zero1, flat_slices
+from repro_torch.training.optimizer import AdamW, Zero1, flat_slices
 from repro_torch.tree import flatten_with_path, leaves, unflatten
 
 
@@ -66,11 +68,17 @@ class TrainHparams:
     compression: str = "none"  # none | int8 | topk
 
 
+def _clip_scale(max_norm: float, gn: torch.Tensor) -> torch.Tensor:
+    """The clip's scale, min(1, max_norm / gn): a float32 0-dim tensor on
+    ``gn``'s device."""
+    return (torch.full((), max_norm, dtype=torch.float32, device=gn.device)
+            / gn.clamp(min=1e-12)).clamp(max=1.0)
+
+
 def _scale_to(flat, max_norm: float, gn: torch.Tensor) -> None:
     """Scale every gradient of ``flat`` by min(1, max_norm / gn), in place
     (through float32 for a narrower dtype)."""
-    scale = (torch.tensor(max_norm, dtype=torch.float32, device=gn.device)
-             / gn.clamp(min=1e-12)).clamp(max=1.0)
+    scale = _clip_scale(max_norm, gn)
     with torch.no_grad():
         for g in flat:
             for (s,) in flat_slices(g):
@@ -169,6 +177,9 @@ def make_train_step(cfg: ArchConfig, optimizer, hp: TrainHparams = TrainHparams(
     raises under another context."""
     made_in = (rules.current_mesh(), rules.fsdp(), rules.expert_layout())
     zero1 = zero1_layout(cfg)
+    # AdamW applies the clip's scale inside its own pass over the gradients
+    # (one read of each, no scaled copy written); Adafactor gets them scaled
+    fold = isinstance(optimizer, AdamW)
 
     def train_step(state, batch):
         now = (rules.current_mesh(), rules.fsdp(), rules.expert_layout())
@@ -185,11 +196,13 @@ def make_train_step(cfg: ArchConfig, optimizer, hp: TrainHparams = TrainHparams(
                 with record_function("train_step/compress"):
                     blocks = _compress(blocks, state)
             gn = zero1.global_norm(blocks)
-            _scale_to(blocks, hp.clip_norm, gn)
+            if not fold:
+                _scale_to(blocks, hp.clip_norm, gn)
         with record_function("train_step/optimizer"):
             p_blocks = [zero1.param_block(i, p) for i, p in enumerate(flat)]
+            scale = {"grad_scale": _clip_scale(hp.clip_norm, gn)} if fold else {}
             optimizer.update(unflatten(params, blocks), state["opt"], unflatten(params, p_blocks),
-                             state["step"], cuts=zero1.cuts)
+                             state["step"], cuts=zero1.cuts, **scale)
             with torch.no_grad():
                 for i, (p, b) in enumerate(zip(flat, p_blocks)):
                     zero1.put_back(i, p, b)

@@ -155,6 +155,7 @@ def test_lint_scans_the_c_entry_points():
 
     root = Path(repro_torch.__file__).parent
     scanned = sorted(p.name for p in (root / "kernels").rglob("*") if p.suffix in (".cu", ".cuh"))
-    assert scanned == ["routing.cu", "routing.cuh"]
-    tree = (root / "kernels" / "csrc" / "routing.cu").read_text()
-    assert 'extern "C"' in tree and lint_cuda_source(tree) == []
+    assert scanned == ["routing.cu", "routing.cuh", "train.cu"]
+    for name in ("routing.cu", "train.cu"):
+        tree = (root / "kernels" / "csrc" / name).read_text()
+        assert 'extern "C"' in tree and lint_cuda_source(tree) == []

@@ -17,8 +17,11 @@ hash router, shared experts) on the card against the same tier on the CPU,
 and the reduced Starcoder2, RecurrentGemma and Mamba2 tiers and the
 MusicGen and Qwen2-VL embeds models on the card against the CPU, one
 train step of the reduced hash-routed Qwen3 on the card against the CPU,
-a bf16 checkpoint round trip on the card, and the constant-time
-certifier's graph targets and SASS gate on the card.
+a bf16 checkpoint round trip on the card, the constant-time
+certifier's graph targets and SASS gate on the card, and the training
+kernels (the fused AdamW update over every dtype case and alignment, the
+radix select's rounds against ``torch.topk`` on edge cases) against their
+plain versions bit for bit.
 Needs a CUDA card and ``nvcc``; skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
@@ -855,3 +858,175 @@ def test_meshed_train_step_on_one_nccl_rank(cuda, engine):
             assert abs(l1 - l0) <= 1e-5 * abs(l0) and abs(g1 - g0) <= 1e-4 * abs(g0)
     finally:
         dist.destroy_process_group()
+
+
+# -- the training kernels (csrc/train.cu) ---------------------------------------
+
+
+def _bits(t):
+    t = t.detach()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+
+#: element offsets of each operand into its own storage: aligned, one
+#: offset for all (a scalar head before the 16-byte groups), and offsets
+#: that no index aligns together (every element scalar)
+ADAMW_OFFSETS = {"aligned": (0, 0), "offset 3": (3, 3), "mixed": (1, 2)}
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["no-scale", "scale"])
+@pytest.mark.parametrize("master", [True, False], ids=["master", "no-master"])
+@pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32], ids=["p-bf16", "p-f32"])
+@pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32], ids=["g-bf16", "g-f32"])
+@pytest.mark.parametrize("offsets", sorted(ADAMW_OFFSETS))
+def test_adamw_update_matches_plain_on_card(cuda, offsets, gdtype, pdtype, master, scaled):
+    """``adamw_update``'s kernel against its plain version on the card, on
+    seeded data with zeros, signed zeros, subnormals and a large gradient:
+    0 differing bits in m, v, the master weight and the parameter, one
+    launch."""
+    from repro_torch.kernels import train as T
+
+    n = (1 << 20) + 12345
+    og, om = ADAMW_OFFSETS[offsets]
+    rng = np.random.default_rng(31)
+
+    def operand(scale_, dtype, off):
+        x = torch.from_numpy(rng.normal(0, scale_, n + off).astype(np.float32)).to(cuda)
+        return x.to(dtype)[off:]
+
+    g = operand(2.0, gdtype, og)
+    g[:4] = torch.tensor([0.0, -0.0, 1e-40, 7e15], device=cuda).to(gdtype)
+    m, v = operand(0.1, torch.float32, om), operand(0.1, torch.float32, om).abs()
+    ref = operand(0.5, torch.float32, om) if master else None
+    p = operand(0.5, pdtype, og)
+    lr, c1, c2 = (torch.tensor(x, device=cuda) for x in (1e-3, 0.19, 0.0975))
+    lr_wd = lr * torch.tensor(0.1, device=cuda)
+    scale = torch.tensor(0.37, device=cuda) if scaled else None
+    plain = [t.clone() for t in (m, v, p) + (() if ref is None else (ref,))]
+    T.adamw_update_plain(g, *plain[:2], None if ref is None else plain[3], plain[2], lr, c1, c2,
+                         lr_wd, scale, b1=0.9, b2=0.95, eps=1e-8)
+    before = T.launches["adamw_update"]
+    T.adamw_update(g, m, v, ref, p, lr, c1, c2, lr_wd, scale, b1=0.9, b2=0.95, eps=1e-8)
+    torch.cuda.synchronize()
+    assert T.launches["adamw_update"] == before + 1
+    for name, got, want in zip(("m", "v", "p", "master"), (m, v, p, ref), plain):
+        assert int((_bits(got) != _bits(want)).sum()) == 0, name
+
+
+RADIX_CASES = ("ties", "normal", "special", "subnormal", "zeros", "unaligned")
+
+
+def _radix_input(case, cuda):
+    rng = np.random.default_rng(32)
+    if case == "ties":
+        x = (rng.integers(-400, 400, size=1 << 20) / 8).astype(np.float32)
+    elif case == "special":
+        x = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 1e-39,
+                      3.4e38, -3.4e38, 1.0, -1.0, 1.0, 0.5, 2.0, 7.0], np.float32)
+    elif case == "subnormal":
+        x = (rng.integers(1, 1 << 23, size=4099) * np.float32(1e-45)).astype(np.float32)
+    elif case == "zeros":
+        x = np.zeros(1000, np.float32)
+        x[::3] = -0.0
+    else:
+        x = rng.normal(size=(1 << 20) + 7).astype(np.float32)
+    t = torch.from_numpy(x).to(cuda)
+    return t[1:] if case == "unaligned" else t
+
+
+@pytest.mark.parametrize("case", RADIX_CASES)
+def test_radix_select_matches_topk_on_card(cuda, case):
+    """The select's kernels against ``torch.topk``'s k-th value and the
+    plain rounds on the card, bit for bit, at k = 1, a twentieth, a half
+    and numel; each round's histogram equal to the plain one; three
+    launches of each kernel a select."""
+    from repro_torch.kernels import train as T
+
+    x = _radix_input(case, cuda)
+    n = x.numel()
+    for k in sorted({1, max(1, n // 20), max(1, n // 2), n}):
+        before = dict(T.launches)
+        got = T.radix_select(x, k)
+        assert T.launches["radix_hist"] == before["radix_hist"] + 3
+        assert T.launches["radix_pick"] == before["radix_pick"] + 3
+        want = torch.topk(x.abs(), k).values[-1]
+        plain = T.radix_select_plain(x, k)
+        assert int(_bits(got)) == int(_bits(want)) == int(_bits(plain)), (case, k)
+    prefix = torch.zeros(1, dtype=torch.int32, device=cuda)
+    sought = torch.full((1,), max(1, n // 20), dtype=torch.int64, device=cuda)
+    for shift, width in T.RADIX_ROUNDS:
+        hist = T.radix_hist(x, prefix, shift, width)
+        assert torch.equal(hist, T.radix_hist_plain(x, prefix, shift, width)), (case, shift)
+        s2, p2 = sought.clone(), prefix.clone()
+        T.radix_pick_plain(hist, s2, p2, shift)
+        T.radix_pick(hist, sought, prefix, shift)
+        assert torch.equal(sought, s2) and torch.equal(prefix, p2), (case, shift)
+
+
+def test_select_and_update_wait_for_nothing_on_card(cuda):
+    """Neither the select (kth_magnitude, with and without axes' reduce)
+    nor AdamW's update synchronises with the host."""
+    from repro_torch.training import compression as C
+    from repro_torch.training.optimizer import AdamW, warmup_cosine
+
+    x = torch.randn(1 << 20, device=cuda)
+    opt = AdamW(warmup_cosine(1e-3, 0, 10))
+    params = {"w": torch.randn(4096, device=cuda).to(torch.bfloat16)}
+    state = opt.init(params)
+    step = torch.zeros((), dtype=torch.int32, device=cuda)
+    scale = torch.tensor(0.5, device=cuda)
+    torch.cuda.synchronize()
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        C.kth_magnitude(x, 1000)
+        C.radix_kth_magnitude(x, 1000)
+        opt.update({"w": params["w"].clone()}, state, params, step, grad_scale=scale)
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+
+
+def test_training_entry_points_launch_the_kernels_on_card(cuda):
+    """On the card ``kth_magnitude`` (no axes too) runs the select's
+    kernels and ``AdamW.update`` one ``adamw_update`` launch a leaf: neither
+    reaches its plain code."""
+    from repro_torch.kernels import train as T
+    from repro_torch.training import compression as C
+    from repro_torch.training.optimizer import AdamW, warmup_cosine
+
+    x = torch.randn(5000, device=cuda)
+    T.reset_launches()
+    got = C.kth_magnitude(x, 17)
+    assert int(_bits(got)) == int(_bits(torch.topk(x.abs(), 17).values[-1]))
+    opt = AdamW(warmup_cosine(1e-3, 0, 10))
+    params = {"a": torch.randn(33, device=cuda), "b": torch.randn(4, 5, device=cuda)}
+    state = opt.init(params)
+    grads = {k: torch.randn_like(p) for k, p in params.items()}
+    opt.update(grads, state, params, torch.zeros((), dtype=torch.int32, device=cuda))
+    assert T.launches == {"adamw_update": 2, "radix_hist": 3, "radix_pick": 3}
+
+
+def test_training_kernel_wrappers_refuse_on_card(cuda):
+    """A CPU tensor among card tensors, a non-contiguous view and a wrong
+    dtype raise before any launch."""
+    from repro_torch.kernels import train as T
+
+    n = 64
+    args = dict(g=torch.zeros(n, device=cuda), m=torch.zeros(n, device=cuda),
+                v=torch.zeros(n, device=cuda), ref=None, p=torch.zeros(n, device=cuda),
+                lr=torch.tensor(1e-3, device=cuda), c1=torch.tensor(0.1, device=cuda),
+                c2=torch.tensor(0.1, device=cuda), lr_wd=torch.tensor(1e-4, device=cuda))
+    bad = [dict(m=torch.zeros(n)), dict(lr=torch.tensor(1e-3)),
+           dict(v=torch.zeros(2 * n, device=cuda)[::2]),
+           dict(g=torch.zeros(n, dtype=torch.float16, device=cuda))]
+    T.reset_launches()
+    for over in bad:
+        with pytest.raises(ValueError):
+            T.adamw_update(**{**args, **over}, b1=0.9, b2=0.95, eps=1e-8)
+    prefix = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for x in (torch.zeros(2 * n, device=cuda)[::2], torch.zeros(n, dtype=torch.float64, device=cuda)):
+        with pytest.raises(ValueError):
+            T.radix_hist(x, prefix, 21, 11)
+    with pytest.raises(ValueError):
+        T.radix_hist(torch.zeros(n, device=cuda), torch.zeros(1, dtype=torch.int32), 21, 11)
+    assert T.launches == dict.fromkeys(T.KINDS, 0)

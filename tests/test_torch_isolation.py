@@ -35,6 +35,7 @@ def _env() -> dict:
 def test_every_submodule_imports_without_jax_or_repro():
     mods = _submodules()
     assert {"repro_torch.serving.batch_router", "repro_torch.kernels.fused",
+            "repro_torch.kernels.train",
             "repro_torch.interop", "repro_torch.serving.engine", "repro_torch.models.model",
             "repro_torch.launch.serve", "repro_torch.serving.lifecycle.journal",
             "repro_torch.serving.lifecycle.detector", "repro_torch.serving.lifecycle.manager",
