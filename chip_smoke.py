@@ -43,14 +43,19 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    against their plain versions at 2^20 keys over the same fleets at
    r = 1, 3 and 5, with a too-small ``max_resalt`` where keys exhaust, at
    the ragged sizes, and a 4,096-key sample against a scalar placement
-   computed on the host from the ``FailureDomain``; the same at r = 9, 16
-   and 32 (resolve's row path past its register columns); the
+   computed on the host from the ``FailureDomain``; the same at r = 9, 16,
+   17, 32, 33 and 64 (resolve's row path past its register columns), and
+   the row path at its launch's edges (sizes around a warp's round of 32
+   keys, ``max_resalt`` r, 0 and 1, n_alive above and below r, r = 2000
+   whose 32 rows outgrow a block's shared memory and r = 30000 whose rows
+   are staged in the output; each launch's grid and keys a warp as the
+   library reckons them); the
    instrumented route ``route_load`` over the fleets and capacities 4,096
-   and 4,097 (either side of its shared histogram) at sample shifts 0, 3
-   and 6 and ragged sizes up to a pass of its resident grid (one tile,
-   seven and fourteen tiles among them), from accumulators near 2^32,
-   against its plain version and ``route`` (capacity 65,536 takes its
-   global-atomic instance); the chain-mode remap ``chain_remap`` over the
+   and 4,097 (either side of its shared histogram), 8,192 and 2^20, at
+   sample shifts 0, 3 and 6 and ragged sizes up to a pass of its resident
+   grid (one tile, seven and fourteen tiles among them), from accumulators
+   near 2^32, against its plain version and ``route`` (capacities past
+   4,096 take its global-count instance); the chain-mode remap ``chain_remap`` over the
    seven fleets and 1000/1024 at 6, 50 and 90 % failed (chain-mode control
    planes), ``max_chain`` 0, 1, 2, 8 and 4096, at the ragged sizes, 2^20
    keys and sizes around the ring's carry-over from chunk to chunk (one,
@@ -241,12 +246,13 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    ``BatchRouter.route_keys`` at 2^24 keys on the healthy fleet and with
    250 failed (the storm/steady ratio); ``route_load`` at 2^24 and 2^20
    keys, shifts 6 and 0, on that fleet and on 40000/65536 (its
-   global-atomic instance), against ``route`` in turns (instrumented/bare
+   global-count instance), against ``route`` in turns (instrumented/bare
    and the extra us), beside its bound, its plain version and ``route`` +
-   ``torch.bincount`` at 2^24;
+   ``torch.bincount`` at 2^24, and route alone there against its own
+   bound (the route body's share);
    ``place_keys`` at 2^20 keys, r = 16, and ``resolve_kernel<false>`` (its
-   row path) alone there beside its bound (the function's own bytes; its
-   own row's re-reads are printed beside it) and its plain version; and
+   row path) alone there with and without ``old`` beside each bound (the
+   function's own bytes) and its plain version; and
    the storm cliff: the chain-mode two-pass path against ``route``
    (table) at 2^24 keys in turns at 0, 6, 25 and 50 % failed,
    ``chain_remap`` alone beside its bound, with the walk steps per lane of
@@ -260,6 +266,8 @@ and the select against this build's in turns, and each ``DIR/routing.cu``
 build of the kernels with the same C interface: the parent commit's, or a
 variant of this one) and times it against this one in turns (baseline,
 this, this, baseline), three rounds: every instance at 2^24 keys,
+resolve's register path (r = 3) there and its row path at 2^20 keys x
+r = 16 with and without ``old`` (both builds' answers equal),
 ``chain_remap`` at each failed share of the storm sweep, ``route_load`` in
 each of phase 4's cells and the host time of a monitored 64-key
 ``route_keys``, and the router call at the serve path's sizes (a baseline
@@ -380,10 +388,11 @@ SASS_STATIC = {
     ("binomial", "route_family"): 1904, ("jump", "route_family"): 1328,
     ("binomial", "resolve"): 664, ("jump", "resolve"): 664,
     # resolve's row path (r > MAX_R), and the instrumented route with its
-    # histogram in shared memory (capacity <= 4,096) and with global atomics
-    ("binomial", "resolve_rows"): 800, ("jump", "resolve_rows"): 800,
+    # histogram in shared memory (capacity <= 4,096) and with the global
+    # count (read back after each chunk, or at shift 0 added in the loop)
+    ("binomial", "resolve_rows"): 1768, ("jump", "resolve_rows"): 1768,
     ("binomial", "route_load"): 1848, ("jump", "route_load"): 1464,
-    ("binomial", "route_load_global"): 1816, ("jump", "route_load_global"): 1072,
+    ("binomial", "route_load_global"): 3000, ("jump", "route_load_global"): 2304,
     # the chain-mode remap, one function for both engines
     ("binomial", "chain_remap"): 768, ("jump", "chain_remap"): 768,
 }
@@ -903,9 +912,12 @@ def load_fleets(engine: str) -> dict:
     """``fleets`` and the two sides of the shared-histogram threshold:
     capacity 4,096, and 4,097 (no fleet has it, as a capacity is a power of
     two: 4,097 bins of the 8,192-slot fleet's table and its mask words for
-    them, which route as the whole do, since n = 3000)."""
+    them, which route as the whole do, since n = 3000); then the global
+    instance's capacities 8,192 and 2^20."""
     cases = fleets(engine)
     cases["3000/4096 750 failed"] = make_fleet(engine, 3000, 4096, 750, 8)
+    cases["6000/8192 1500 failed"] = make_fleet(engine, 6000, 8192, 1500, 10)
+    cases["600000/1048576 1000 failed"] = make_fleet(engine, 600000, 1 << 20, 1000, 11)
     plane, fleet = make_fleet(engine, 3000, 8192, 750, 8)
     cases["3000/4097 750 failed"] = (plane, dataclasses.replace(
         fleet, packed=fleet.packed[:(SHARED_BINS + 32) // 32], table=fleet.table[:SHARED_BINS + 1]))
@@ -927,7 +939,7 @@ def u32_err(got, want) -> int:
 
 
 def phase_route_load(max_err: dict) -> None:
-    """``route_load`` over ``load_fleets`` (capacity 64 to 65,536, either
+    """``route_load`` over ``load_fleets`` (capacity 64 to 2^20, either
     side of the shared-histogram threshold) at every shift of
     ``LOAD_SHIFTS`` and size of ``load_sizes``, from an accumulator near
     2^32: its replica ids bit-exact with ``route`` and its plain version,
@@ -978,7 +990,7 @@ def phase_route_load(max_err: dict) -> None:
                     if size == N_CHECK:
                         oracle_ok += int((reps[:N_ORACLE].cpu().numpy() == expect).all())
         max_err[engine, "route_load"] = worst
-        print(f"phase 2 route_load[{engine}]: {len(cases)} fleets (capacity 64 to 65,536, and 4,096 / "
+        print(f"phase 2 route_load[{engine}]: {len(cases)} fleets (capacity 64 to 2^20, and 4,096 / "
               f"4,097 either side of the shared histogram's {SHARED_BINS} bins) x shifts {LOAD_SHIFTS} x "
               f"{', '.join(map(str, LOAD_SIZES))} keys and a resident pass (and one key more) from "
               f"accumulators within 2^10 of 2^32: {calls} calls of one launch each, max |kernel - plain| "
@@ -991,15 +1003,15 @@ def phase_route_load(max_err: dict) -> None:
 
 #: replication factors past resolve's register columns (MAX_R = 8), and
 #: their fleets: n_alive above and below r
-WIDE_RS = (9, 16, 32)
+WIDE_RS = (9, 16, 17, 32, 33, 64)
 WIDE_FLEETS = {"40/64": (40, 64, 0), "40/64 10 failed": (40, 64, 10),
                "1000/1024 250 failed": (1000, 1024, 250)}
 WIDE_ORACLE = 1024
 
 
 def phase_placement_wide(max_err: dict) -> None:
-    """``route_family`` and ``resolve`` at r = 9, 16 and 32 (resolve's row
-    path) on ``WIDE_FLEETS`` at 2^20 keys, with and without ``old``, against
+    """``route_family`` and ``resolve`` at r = 9 to 64 (``WIDE_RS``: resolve's
+    row path, odd and even row strides) on ``WIDE_FLEETS`` at 2^20 keys, with and without ``old``, against
     their plain versions, bit-exact; a 1,024-key sample against
     ``scalar_placement``; every row on min(r, n_alive) distinct shards."""
     from repro_torch.core.registry import make_bulk
@@ -1032,6 +1044,99 @@ def phase_placement_wide(max_err: dict) -> None:
                     fail(f"placement[{engine}] on fleet {label} at r = {r} disagrees")
         print(f"phase 2 placement wide[{engine}], {N_CHECK} keys, r > 8 (resolve's row path), with and "
               f"without old; max |kernel - plain|: " + "; ".join(report))
+
+
+#: the row path's edges: ragged sizes around a warp's round of 32 keys, r
+#: past the registers with odd and even strides, and two r whose rows do not
+#: fit: ``ROWS_UNFIT_R``'s 32 rows outgrow a block's shared memory (a warp
+#: takes fewer keys), and ``ROWS_OUT_R``'s one row with ``old`` does (the
+#: rows are staged in the output); both only at ``max_resalt`` 0 and 1 and
+#: small sizes, as the plain version runs a Python loop a column and probe
+ROWS_EDGE_RS = (9, 16, 17, 32, 33, 64)
+ROWS_EDGE_SIZES = (1, 31, 32, 33, 257, 4097)
+ROWS_EDGE_FLEETS = {"1000/1024 250 failed": (1000, 1024, 250), "3/64 1 failed": (3, 64, 1)}
+ROWS_UNFIT_R = 2000
+ROWS_OUT_R = 30000
+
+
+def rows_shape(r: int, with_old: bool, n: int) -> tuple:
+    """resolve_rows_kernel's launch for r columns over n keys, from the
+    library: (keys a warp, warps a block, row stride, grid); stride 0 =
+    rows staged in the output."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    out = (ctypes.c_int * 4)()
+    rc = build.library().routing_resolve_rows_shape(r, int(with_old), n, out)
+    if rc:
+        fail(f"routing_resolve_rows_shape({r}, {with_old}, {n}) failed ({rc})")
+    return tuple(out)
+
+
+def check_rows_launch(kernels, keys, base, fleet, max_resalt: int, old) -> int:
+    """One row-path resolve against its plain version, with its one launch's
+    logged (grid, keys a warp) held to ``rows_shape`` -> max |kernel - plain|."""
+    from repro_torch.analysis.sass_gate import clear_launches, take_launches
+
+    r = base.shape[1]
+    per_warp, _, _, grid = rows_shape(r, old is not None, keys.numel())
+    clear_launches()
+    got = kernels.resolve(keys, base, fleet.table, fleet.state, max_resalt, old)
+    shapes = take_launches()
+    want = kernels.resolve_plain(keys, base, fleet.table, fleet.state, max_resalt, old)
+    torch.cuda.synchronize()
+    if shapes != [(grid, per_warp)]:
+        fail(f"resolve at r = {r}, {keys.numel()} keys launched {shapes}, not [({grid}, {per_warp})]")
+    return max(u32_err(g.to(torch.int32), w.to(torch.int32)) for g, w in zip(got, want)
+               if g is not None)
+
+
+def phase_rows_edges(max_err: dict) -> None:
+    """resolve's row path at its edges, against the plain version bit for
+    bit, each call one launch of the shape ``rows_shape`` gives: r in
+    ``ROWS_EDGE_RS`` x ``ROWS_EDGE_SIZES`` x ``ROWS_EDGE_FLEETS`` (n_alive
+    above r, and below it) x ``max_resalt`` r, 0 and 1, with and without
+    ``old``; ``ROWS_UNFIT_R`` (fewer keys a warp) at 1, 33 and 257 keys and
+    ``ROWS_OUT_R`` (with ``old`` staged in the output) at 33 keys, on the
+    first fleet.  resolve is one function for both engines, so it runs on
+    the binomial engine's kernels."""
+    from repro_torch.core.registry import make_bulk
+
+    kernels = make_bulk("binomial").kernels
+    keys = u32_tensor(np.random.default_rng(12), max(ROWS_EDGE_SIZES)).cuda()
+    worst, calls = 0, 0
+    t0 = time.perf_counter()
+    for label, (n, cap, n_fail) in ROWS_EDGE_FLEETS.items():
+        _, fleet = make_fleet("binomial", n, cap, n_fail, 13)
+        _, healthy = make_fleet("binomial", n, cap, 0, 13)
+        cases = [(r, size, mr) for r in ROWS_EDGE_RS for size in ROWS_EDGE_SIZES for mr in (r, 0, 1)]
+        if label == "1000/1024 250 failed":
+            cases += [(ROWS_UNFIT_R, size, mr) for size in (1, 33, 257) for mr in (0, 1)]
+            cases += [(ROWS_OUT_R, 33, 0)]
+        for r, size, mr in cases:
+            k = keys[:size]
+            base = kernels.route_family(k, r, fleet.packed, fleet.table, fleet.state)
+            prev = kernels.resolve(k, kernels.route_family(k, r, healthy.packed, healthy.table,
+                                                           healthy.state), healthy.table,
+                                   healthy.state, 0)[0]
+            for old in (None, prev):
+                err = check_rows_launch(kernels, k, base, fleet, mr, old)
+                worst, calls = max(worst, err), calls + 1
+                if err:
+                    fail(f"resolve's row path at r = {r}, {size} keys, max_resalt {mr}, fleet {label}"
+                         f"{'' if old is None else ' with old'}: max |kernel - plain| = {err}")
+    for engine in ENGINES:
+        max_err[engine, "resolve"] = max(max_err.get((engine, "resolve"), 0), worst)
+    shapes = {f"r={r}{' old' if o else ''}": rows_shape(r, o, N_CHECK)
+              for r in (16, 64, ROWS_UNFIT_R, ROWS_OUT_R) for o in (False, True)}
+    print(f"phase 2 resolve row path edges: r {ROWS_EDGE_RS} x {ROWS_EDGE_SIZES} keys x "
+          f"max_resalt r/0/1 x fleets {list(ROWS_EDGE_FLEETS)}, r = {ROWS_UNFIT_R} and {ROWS_OUT_R}, "
+          f"with and without old: {calls} calls of one launch each, max |kernel - plain| = {worst}; "
+          f"launch at {N_CHECK} keys (keys a warp, warps a block, stride, grid) {shapes}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if shapes[f"r={ROWS_UNFIT_R}"][0] >= 32 or shapes[f"r={ROWS_OUT_R} old"][2] != 0:
+        fail("the row path's unfit r did not take its smaller rounds or the output")
 
 
 # --- the chain-mode remap ---------------------------------------------------
@@ -4578,7 +4683,7 @@ def phase_times(serve_calls: dict, moe_cfg) -> dict:
     return rows
 
 
-def resolve_bound(keys, base, out, r: int) -> dict:
+def resolve_bound(keys, base, out, r: int, with_old: bool = False) -> dict:
     """The least time the card could take for ``resolve`` on these inputs:
     bytes (keys, the routed columns and the table read once, the columns
     and the exhausted flags written once, at the HBM rate) against a floor
@@ -4586,8 +4691,10 @@ def resolve_bound(keys, base, out, r: int) -> dict:
     and one compare per pair of columns, and per collision (a column equal
     to an earlier one in ``base``) the re-salt hash (two fmix32 and a
     multiply-high, 12 operations) and one probe (a load, j compares, an
-    add and a wrap, j + 4), at the issue rate.  The floor counts the
-    algorithm's operations, not the build's SASS."""
+    add and a wrap, j + 4), at the issue rate.  With ``old`` (the migration
+    diff) also the old columns read and the moved bytes written once, and
+    per key a load and a store a column and r compares a column.  The floor
+    counts the algorithm's operations, not the build's SASS."""
     n = keys.numel()
     pairs = r * (r - 1) // 2
     collisions = []  # per column j >= 1: the keys whose column j collides
@@ -4598,19 +4705,12 @@ def resolve_bound(keys, base, out, r: int) -> dict:
         collisions.append(int(hit.sum()))
     ops = n * (2 * r + 1 + pairs) + sum(c * (12 + j + 4) for j, c in enumerate(collisions, 1))
     nbytes = 4 * n + 4 * n * r * 2 + n + 4 * 1024
+    if with_old:
+        ops += n * r * (2 + r)
+        nbytes += (4 + 1) * n * r
     t_ops, t_bytes = ops / hw.LANE_INSTR_S * 1e3, nbytes / hw.HBM_BW * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 t_ops=t_ops, t_bytes=t_bytes, collisions=collisions)
-
-
-def row_rereads(keys, collisions) -> int:
-    """The bytes ``resolve_kernel<false>`` (the row path, r > MAX_R)
-    re-reads of the thread's own row of the output, which it has just
-    written: for column j, the j columns before it once for the collision
-    test and once more for each probe (one probe counted per collision).
-    They come from L1/L2, not HBM, so they are not in the bound; they are
-    printed beside it as the cause of the gap."""
-    return sum(4 * j * (keys.numel() + c) for j, c in enumerate(collisions, 1))
 
 
 def registers(prefix: str) -> int:
@@ -4705,7 +4805,7 @@ WIDE_R_TIME = 16
 
 
 #: the route_load timings' fleets (n, capacity, failed, seed): phase 4's
-#: fleet (the shared-histogram instance) and the global-atomic one
+#: fleet (the shared-histogram instance) and the global-count one
 LOAD_TIME_FLEETS = {"1000/1024 250 failed": (1000, 1024, 250, 2),
                     "40000/65536 10000 failed": (40000, 65536, 10000, 3)}
 #: the route_load timings' batches: phase 4's and the reference's gated one
@@ -4719,10 +4819,12 @@ def load_time(fn, size: int) -> float:
     shorter than its host enqueue, launches queued behind a sleeping kernel."""
     if size >= N_TIME:
         return time_ms(fn)
-    ms, held = small_call_ms(fn)
-    if not held:
-        fail(f"route_load timing at {size} keys: the launches outlasted the sleep")
-    return ms
+    # a host stall during the enqueue voids a reading; take it again
+    for _ in range(3):
+        ms, held = small_call_ms(fn)
+        if held:
+            return ms
+    fail(f"route_load timing at {size} keys: the launches outlasted the sleep three times")
 
 
 def load_bound(engine, keys, fleet, shift: int) -> dict:
@@ -4735,7 +4837,7 @@ def load_bound(engine, keys, fleet, shift: int) -> dict:
     t_ops = route_b["t_ops"] + 2 * counted / hw.LANE_INSTR_S * 1e3
     t_bytes = route_b["t_bytes"] + 8 * fleet.table.numel() / hw.HBM_BW * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                counted=counted)
+                counted=counted, route=route_b)
 
 
 def phase_route_load_times(rows: dict, card: str) -> None:
@@ -4778,14 +4880,18 @@ def phase_route_load_times(rows: dict, card: str) -> None:
                                            1, 3)
                         lib_ms = time_ms(lambda: torch.bincount(
                             kernels.route(k, *args)[:: 1 << shift], minlength=cap), 3, 5)
+                        route_b = b["route"]
                         cell.update(plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b["bound_ms"],
-                                    bound_by=b["bound_by"])
+                                    bound_by=b["bound_by"], route_bound_ms=route_b["bound_ms"],
+                                    route_share=route_b["bound_ms"] / bare)
                         extra = (f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {b['counted']} "
-                                 f"counted), bound/time {share(b['bound_ms'], ms)}; route + "
+                                 f"counted), bound/time {share(b['bound_ms'], ms)}; route alone "
+                                 f"against its own bound {route_b['bound_ms']:.4f} ms "
+                                 f"({route_b['bound_by']}): {share(route_b['bound_ms'], bare)}; route + "
                                  f"torch.bincount {lib_ms:.4f} ms; plain version {plain_ms:.3f} ms")
                     cells[f"{cap}_{size}_s{shift}"] = cell
                     print(f"phase 4 route_load[{engine}] {size} keys, shift {shift}, {label} "
-                          f"({'shared histogram' if cap <= SHARED_BINS else 'global atomics'}): {ms:.4f} ms "
+                          f"({'shared histogram' if cap <= SHARED_BINS else 'global count'}): {ms:.4f} ms "
                           f"against route {bare:.4f} ms in turns, instrumented/bare {ms / bare:.4f}, "
                           f"fixed cost {(ms - bare) * 1e3:.2f} us (route_load "
                           f"{', '.join(f'{t:.4f}' for t in readings['route_load'])}; route "
@@ -4804,30 +4910,39 @@ def phase_route_load_times(rows: dict, card: str) -> None:
         fleet = router._fleet_dev
         base = kernels.route_family(wide_keys, WIDE_R_TIME, fleet.packed, fleet.table, fleet.state)
         resalt = pspec.resolved_max_resalt
-        out, _, _ = kernels.resolve(wide_keys, base, fleet.table, fleet.state, resalt)
-        rows_ms = time_ms(lambda: kernels.resolve(wide_keys, base, fleet.table, fleet.state, resalt))
-        rows_plain = time_ms(lambda: kernels.resolve_plain(wide_keys, base, fleet.table,
-                                                           fleet.state, resalt), 1, 3)
-        rb = resolve_bound(wide_keys, base, out, WIDE_R_TIME)
-        reread = row_rereads(wide_keys, rb["collisions"])
+        _, healthy = make_fleet(engine, 1000, 1024, 0, 2)
+        prev = kernels.resolve(wide_keys, kernels.route_family(
+            wide_keys, WIDE_R_TIME, healthy.packed, healthy.table, healthy.state), healthy.table,
+            healthy.state, resalt)[0]
         regs = registers(FUNCTIONS[engine, "resolve_rows"])
+        cells = {}
+        for tag, old in (("", None), ("_old", prev)):
+            out = kernels.resolve(wide_keys, base, fleet.table, fleet.state, resalt, old)[0]
+            ms = time_ms(lambda old=old: kernels.resolve(wide_keys, base, fleet.table, fleet.state,
+                                                         resalt, old))
+            plain = time_ms(lambda old=old: kernels.resolve_plain(wide_keys, base, fleet.table,
+                                                                  fleet.state, resalt, old), 1, 3)
+            rb = resolve_bound(wide_keys, base, out, WIDE_R_TIME, with_old=old is not None)
+            per_warp, warps, stride, grid = rows_shape(WIDE_R_TIME, old is not None, N_CHECK)
+            cells[f"resolve_rows_r{WIDE_R_TIME}_2^20{tag}"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=rb["bound_ms"], bound_by=rb["bound_by"],
+                t_ops=rb["t_ops"], t_bytes=rb["t_bytes"], registers=regs,
+                keys_a_warp=per_warp, warps_a_block=warps, grid=grid,
+                shared_bytes_a_block=4 * stride * per_warp * warps * (2 if old is not None else 1))
+            print(f"phase 4 resolve_kernel<false>[{engine}] alone, {N_CHECK} keys x r = {WIDE_R_TIME}, "
+                  f"1000/1024 with 250 failed, max_resalt {resalt}"
+                  f"{', with old (the migration diff)' if old is not None else ''}: {ms:.4f} ms, bound "
+                  f"{rb['bound_ms']:.4f} ms ({rb['bound_by']}; bytes {rb['t_bytes']:.4f} ms, operations "
+                  f"{rb['t_ops']:.4f} ms), bound/time {share(rb['bound_ms'], ms)}; {per_warp} keys a "
+                  f"warp, {warps} warps a block, a grid of {grid}, "
+                  f"{cells[f'resolve_rows_r{WIDE_R_TIME}_2^20{tag}']['shared_bytes_a_block']} B of "
+                  f"shared memory a block, {regs} registers, plain version {plain:.3f} ms; on {card}")
         rows[engine, "resolve"].update({
             f"r{WIDE_R_TIME}_place_keys_2^20_ms": place,
-            f"r{WIDE_R_TIME}_route_family_2^20_ms": fam_ms,
-            f"resolve_rows_r{WIDE_R_TIME}_2^20": dict(
-                ms=rows_ms, plain_ms=rows_plain, bound_ms=rb["bound_ms"], bound_by=rb["bound_by"],
-                t_ops=rb["t_ops"], t_bytes=rb["t_bytes"], reread_bytes=reread,
-                registers=regs)})
+            f"r{WIDE_R_TIME}_route_family_2^20_ms": fam_ms, **cells})
         print(f"phase 4 place_keys[{engine}] {N_CHECK} keys, r = {WIDE_R_TIME} (resolve's row path), "
               f"1000/1024 with 250 failed: {place:.4f} ms, of which the family route {fam_ms:.4f} ms; "
               f"on {card}")
-        print(f"phase 4 resolve_kernel<false>[{engine}] alone, {N_CHECK} keys x r = {WIDE_R_TIME}, "
-              f"1000/1024 with 250 failed, max_resalt {resalt}: {rows_ms:.4f} ms, bound "
-              f"{rb['bound_ms']:.4f} ms ({rb['bound_by']}; bytes {rb['t_bytes']:.4f} ms, operations "
-              f"{rb['t_ops']:.4f} ms), bound/time {share(rb['bound_ms'], rows_ms)}; beside the bound, "
-              f"{reread} bytes of its own row re-read from L1/L2 (the gap's cause), "
-              f"{regs} registers, plain version "
-              f"{rows_plain:.3f} ms; on {card}")
 
 
 #: SASS instructions of chain_remap_kernel (sm_90a, max_chain > 0),
@@ -5158,6 +5273,30 @@ def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
         if hasattr(libs["baseline"], "routing_route_family"):
             cases["route_family", "ms"] = lambda: kernels.route_family(
                 keys, PLACE_R, fleet.packed, fleet.table, fleet.state)
+        if hasattr(libs["baseline"], "routing_resolve"):
+            # resolve's register path at phase 4's r = 3, and its row path at
+            # 2^20 keys x r = 16 with and without old; both builds' answers equal
+            args = (fleet.packed, fleet.table, fleet.state)
+            base3 = kernels.route_family(keys, PLACE_R, *args)
+            wide = keys[:N_CHECK]
+            base16 = kernels.route_family(wide, WIDE_R_TIME, *args)
+            _, healthy = make_fleet(engine, 1000, 1024, 0, 2)
+            old16 = kernels.resolve(wide, kernels.route_family(
+                wide, WIDE_R_TIME, healthy.packed, healthy.table, healthy.state), healthy.table,
+                healthy.state, WIDE_R_TIME)[0]
+            resolves = {
+                "ms": lambda: kernels.resolve(keys, base3, fleet.table, fleet.state, PLACE_R),
+                f"rows_r{WIDE_R_TIME}_2^20_ms": lambda: kernels.resolve(
+                    wide, base16, fleet.table, fleet.state, WIDE_R_TIME),
+                f"rows_r{WIDE_R_TIME}_2^20_old_ms": lambda: kernels.resolve(
+                    wide, base16, fleet.table, fleet.state, WIDE_R_TIME, old16),
+            }
+            for field, fn in resolves.items():
+                outs = in_turns(libs, {"baseline": fn, "this": fn}, lambda f: f(), 1)
+                if not all(torch.equal(a, b) for a, b in zip(outs["baseline"][0], outs["this"][0])
+                           if a is not None):
+                    fail(f"resolve[{engine}] ({field}) of {name} and of this build differ")
+                cases["resolve", field] = fn
         if fused:
             cases["lookup_router", "ms"] = lambda: kernels.lookup_router(
                 tokens_big, 3, moe_cfg.top_k, moe_cfg.num_experts, moe_cfg.router_hash_omega)
@@ -5180,8 +5319,10 @@ def phase_baseline(src_dir: Path, rows: dict, serve_calls: dict, moe_cfg,
             turns = rows[engine, kind].setdefault("in_turns", {}).setdefault(name, {})
             turns[field] = {"baseline": med["baseline"], "this": med["this"]}
             label = kind + (f" n={VEC_N_HALF}" if field == "n1025_ms" else "") + (
-                f" {field[:-3]} failed" if kind == "chain_remap" else "")
-            print(f"phase 4 baseline {name} {label}[{engine}] {N_TIME} keys, in turns x{rounds}: "
+                f" {field[:-3]} failed" if kind == "chain_remap" else "") + (
+                f" {field[:-3]}" if kind == "resolve" and field != "ms" else "")
+            print(f"phase 4 baseline {name} {label}[{engine}] "
+                  f"{N_CHECK if '2^20' in field else N_TIME} keys, in turns x{rounds}: "
                   f"baseline {med['baseline']:.4f} ms, this build {med['this']:.4f} ms "
                   f"({med['baseline'] / med['this']:.3f}x); baseline "
                   f"{', '.join(f'{t:.4f}' for t in times['baseline'])}; this "
@@ -5303,6 +5444,7 @@ def main() -> int:
     phase_lookup_router(max_err)
     phase_placement_kernels(max_err)
     phase_placement_wide(max_err)
+    phase_rows_edges(max_err)
     phase_route_load(max_err)
     phase_chain_remap(max_err)
     phase_train_kernels(max_err)

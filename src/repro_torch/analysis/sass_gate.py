@@ -105,8 +105,8 @@ FUNCTIONS = {
         ("lookup_vec", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_9KeySourceEEEv"),
         ("lookup_router", "_ZN7routing17lookup_vec_kernelINS_{E}ENS_15RouterKeySourceEEEv"),
         ("route_family", "_ZN7routing12route_kernelINS_{E}ENS_15FamilyKeySourceEEEv"),
-        ("resolve", "_ZN7routing14resolve_kernelILb1EEEv"),
-        ("resolve_rows", "_ZN7routing14resolve_kernelILb0EEEv"),
+        ("resolve", "_ZN7routing14resolve_kernelE"),
+        ("resolve_rows", "_ZN7routing19resolve_rows_kernelE"),
         ("route_load", "_ZN7routing17route_load_kernelINS_{E}ELb1EEEv"),
         ("route_load_global", "_ZN7routing17route_load_kernelINS_{E}ELb0EEEv"),
         ("chain_remap", "_ZN7routing18chain_remap_kernelE"),
@@ -126,7 +126,7 @@ class Launch:
     n             the launch's keys (a family route: N x r; a router call:
                   tokens x top_k; resolve: N, one thread a key)
     grid, items   the launch's shape, as the library logged it (resolve:
-                  items 1)
+                  items 1; its row path, r > 8: the keys a warp takes)
     omega         the lookup's unroll bound
     capacity      the fleet's slot space (the histogram's bins)
     r, max_resalt the placement's replication factor and probe bound
@@ -168,6 +168,8 @@ class Bound:
 #:   key a thread and items 1: ⌈n / (grid x THREADS)⌉);
 #: - capacity: the block's bins, THREADS a trip: ⌈capacity / THREADS⌉;
 #: - r: a key's columns, at most r (``taken_row`` compares at most r - 1);
+#:   the row path's staging and write-back walk a round's span of at most
+#:   32 rows, 32 words a trip: ⌈32 r / 32⌉ = r trips;
 #: - max_resalt: at most max_resalt probes a column;
 #: - max_chain: a walked key takes at most max_chain steps (the count held
 #:   is each key's steps; the loop's trips follow its keys' walks);

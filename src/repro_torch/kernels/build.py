@@ -61,6 +61,7 @@ SIGNATURES = {
     "routing_chain_remap": (_P, _P, _P, _I, _P, _I, _P, _N, _P),
     "routing_chain_grid": (_N,),
     "routing_route_load_grid": (_I, _N, _I),
+    "routing_resolve_rows_shape": (_I, _I, _N, _P),
     "routing_take_launches": (_P, _I),
 }
 #: C signatures of the training library's entry points

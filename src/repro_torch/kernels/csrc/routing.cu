@@ -20,16 +20,16 @@
 //       key families (src/repro/placement/store.py:87, route_replicas_impl,
 //       whose family route is the fused route, pallas_call at fused.py:202):
 //       the same chunk loop, all r columns in one launch;
-//   resolve_kernel<kRegs>             the distinct-resolution pass of
+//   resolve_kernel / resolve_rows_kernel the distinct-resolution pass of
 //       route_replicas_impl (store.py:131-178), which the reference runs as
-//       elementwise jnp outside any Pallas kernel; one thread per key, its
-//       columns in registers up to r = MAX_R and re-read from its own row of
-//       the output beyond;
+//       elementwise jnp outside any Pallas kernel; one thread per key with
+//       its columns in registers up to r = MAX_R, and beyond, a warp's rows
+//       staged in shared memory and resolved there, a lane a key;
 //   route_load_kernel<Engine, kShared> the instrumented route of
 //       src/repro/observability/load.py:71-118 (route_with_load_impl, jnp in
 //       the reference, one jitted dispatch): route_kernel's chunk loop with
 //       the sampled replicas also counted into a (capacity,) u32
-//       accumulator, in the same launch;
+//       accumulator after each chunk, in the same launch;
 //   chain_remap_kernel                the Memento rejection chain of
 //       src/repro/core/memento_jax.py:101-145 (memento_remap: a jnp
 //       lax.while_loop over the whole batch, no Pallas kernel), the port's
@@ -153,25 +153,34 @@ struct Keep {
   __device__ __forceinline__ uint32_t redirect(uint32_t, uint32_t b) const { return b; }
 };
 
-// What else happens to a settled replica b of flat index i, beside its store:
+// What else happens to a settled replica of flat index i, beside its store:
 // nothing (every kernel but route_load), or the load count's sample (i a
-// multiple of 2^shift, weight 2^shift, wrapping as u32), in one of two ways.
-// GlobalCount adds each sampled key to the (capacity,) accumulator from
-// inside the lookup loop (kPerKey).  SharedCount keeps every key's replica
-// in the warp's w.out (kKeeps), and the warp adds the chunk's sampled keys
-// to the block's histogram in shared memory after the chunk (count_chunk):
-// counted inside the loop, a key paid an index test and a branch, and
-// binomial 61 registers against route's 48, ~15 us at 2^24 keys on the H100
-// (PERF.md §5).  b < n_total <= capacity; an id past the accumulator is not
-// counted.
+// multiple of 2^shift, weight 2^shift, wrapping as u32).  A sampled count
+// is added after each chunk (count_chunk) from the chunk's sampled
+// positions alone, which base and the shift give: SharedCount keeps every
+// key's replica in the warp's w.out (kKeeps) and adds the sampled ones to
+// the block's histogram in shared memory; GlobalCount (kReads) keeps
+// nothing and reads the sampled replicas back from `out`, where the chunk
+// has just stored them, adding each to the (capacity,) accumulator with one
+// global reduction.  Counted inside the loop instead, a key paid an index
+// test and a branch, and binomial 61 registers against route's 48: ~15 us
+// at 2^24 keys on the H100 for the shared histogram (PERF.md §5), 10.7 us
+// at shift 6 for the global one (PERF.md §6).  Every key counted (shift 0,
+// DenseCount, kPerKey) needs no index test, and there each key's reduction
+// goes out where the loop settles it, spread over the chunk's work: after
+// each chunk the same reductions came as a burst behind the read-back,
+// 4.4 us slower at 2^20 keys and 12 at 2^24 on 40000/65536 (PERF.md §6).
+// b < n_total <= capacity; an id past the accumulator is not counted.
 struct NoCount {
-  static constexpr bool kPerKey = false;
   static constexpr bool kKeeps = false;
+  static constexpr bool kReads = false;
+  static constexpr bool kPerKey = false;
 };
 
 struct SharedCount {
-  static constexpr bool kPerKey = false;
   static constexpr bool kKeeps = true;
+  static constexpr bool kReads = false;
+  static constexpr bool kPerKey = false;
   uint32_t hist;  // the block's bins: their shared-memory address
   uint32_t cap;
   int shift;
@@ -184,14 +193,27 @@ struct SharedCount {
 };
 
 struct GlobalCount {
-  static constexpr bool kPerKey = true;
   static constexpr bool kKeeps = false;
+  static constexpr bool kReads = true;
+  static constexpr bool kPerKey = false;
   uint32_t* counts;
   uint32_t cap;
-  uint32_t smask;
-  uint32_t weight;
-  __device__ __forceinline__ void add(int64_t i, uint32_t b) const {
-    if ((static_cast<uint32_t>(i) & smask) == 0 && b < cap) atomicAdd(counts + b, weight);
+  int shift;
+  __device__ __forceinline__ void add(uint32_t b) const {
+    if (b < cap) {
+      asm volatile("red.global.add.u32 [%0], %1;" ::"l"(counts + b), "r"(1u << shift) : "memory");
+    }
+  }
+};
+
+struct DenseCount {
+  static constexpr bool kKeeps = false;
+  static constexpr bool kReads = false;
+  static constexpr bool kPerKey = true;
+  uint32_t* counts;
+  uint32_t cap;
+  __device__ __forceinline__ void add(uint32_t b) const {
+    if (b < cap) asm volatile("red.global.add.u32 [%0], %1;" ::"l"(counts + b), "r"(1u) : "memory");
   }
 };
 
@@ -240,7 +262,7 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     const bool hit = in && !more && d.removed(c);
     if (in && !more && !hit) out[base + e] = static_cast<int32_t>(c);
     if constexpr (C::kPerKey) {
-      if (in && !more && !hit) cnt.add(base + e, c);
+      if (in && !more && !hit) cnt.add(c);
     }
     if constexpr (C::kKeeps) {
       if (in) w.out[e] = c;  // the queue loop below rewrites the keys it settles
@@ -272,7 +294,7 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     uint32_t b = goes_on ? Binomial::rest(key, p.n, p.E, p.M, p.omega) : w.out[e];
     if (!goes_on || d.removed(b)) b = d.redirect(key, b);
     out[base + e] = static_cast<int32_t>(b);
-    if constexpr (C::kPerKey) cnt.add(base + e, b);
+    if constexpr (C::kPerKey) cnt.add(b);
     if constexpr (C::kKeeps) w.out[e] = b;
   }
   __syncwarp();
@@ -384,7 +406,7 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       const bool hit = in && d.removed(b);
       if (in && !hit) out[base + e] = static_cast<int32_t>(b);
       if constexpr (C::kPerKey) {
-        if (in && !hit) cnt.add(base + e, b);
+        if (in && !hit) cnt.add(b);
       }
       const unsigned m = __ballot_sync(FULL, hit);
       if (hit) w.queue[hits + __popc(m & below)] = static_cast<uint8_t>(e);
@@ -396,11 +418,11 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
     for (int q = lane; q < hits; q += 32) {
       CT_TRIP(JUMP_DIVERT);
       const int e = w.queue[q];
-      if constexpr (C::kPerKey || C::kKeeps) {
+      if constexpr (C::kKeeps || C::kPerKey) {
         const uint32_t b = d.redirect(w.key[e], w.out[e]);
         out[base + e] = static_cast<int32_t>(b);
-        if constexpr (C::kPerKey) cnt.add(base + e, b);
         if constexpr (C::kKeeps) w.out[e] = b;
+        if constexpr (C::kPerKey) cnt.add(b);
       } else {
         out[base + e] = static_cast<int32_t>(d.redirect(w.key[e], w.out[e]));
       }
@@ -416,13 +438,16 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
   __syncwarp();
 }
 
-// The count of a routed chunk (C::kKeeps): its sampled indices base + e
-// (multiples of 2^shift, e < count: at shift 6 at most 4 of a chunk's 256)
-// are known from base, so the warp's lanes add just those replicas, read
-// from w.out.  The __syncwarp() keeps w.out until every lane has read it.
+// The count of a routed chunk (C::kKeeps or C::kReads): its sampled indices
+// base + e (multiples of 2^shift, e < count: at shift 6 at most 4 of a
+// chunk's 256) are known from base, so the warp's lanes add just those
+// replicas, read from w.out (kKeeps; the closing __syncwarp() keeps w.out
+// until every lane has read it) or from `out` through L2 (kReads; the
+// chunk's own closing __syncwarp() orders its lanes' stores before these
+// loads).
 template <class C>
-__device__ __forceinline__ void count_chunk(const WarpArea& w, const C& cnt, int64_t base,
-                                            int count) {
+__device__ __forceinline__ void count_chunk(const WarpArea& w, const int32_t* out, const C& cnt,
+                                            int64_t base, int count) {
   const uint32_t first = (0u - static_cast<uint32_t>(base)) & ((1u << cnt.shift) - 1u);
   const int sampled = first < static_cast<uint32_t>(count)
                           ? static_cast<int>(((count - 1 - first) >> cnt.shift) + 1)
@@ -431,9 +456,14 @@ __device__ __forceinline__ void count_chunk(const WarpArea& w, const C& cnt, int
   // ct-loop: chunk: the chunk's sampled keys, 32 a trip
   for (int k = threadIdx.x & 31; k < sampled; k += 32) {
     CT_TRIP(COUNT_CHUNK);
-    cnt.add(w.out[first + (static_cast<uint32_t>(k) << cnt.shift)]);
+    const uint32_t e = first + (static_cast<uint32_t>(k) << cnt.shift);
+    if constexpr (C::kKeeps) {
+      cnt.add(w.out[e]);
+    } else {
+      cnt.add(static_cast<uint32_t>(__ldcg(out + base + e)));
+    }
   }
-  __syncwarp();
+  if constexpr (C::kKeeps) __syncwarp();
 }
 
 // Every warp of the grid walks the chunks of 32 * items keys.
@@ -454,7 +484,7 @@ __device__ __forceinline__ void chunks(WarpArea& w, const Source& src, const D& 
     } else {
       jump_chunk(w, src, d, p, out, base, count, cnt);
     }
-    if constexpr (C::kKeeps) count_chunk(w, cnt, base, count);
+    if constexpr (C::kKeeps || C::kReads) count_chunk(w, out, cnt, base, count);
   }
 }
 
@@ -470,15 +500,17 @@ route_kernel(Source src, Fleet fleet, const int32_t* __restrict__ state, int ome
 }
 
 // The instrumented route: route_kernel's loop over u32 keys, the sampled
-// replicas also counted (SharedCount / GlobalCount say how).  With kShared
-// (capacity <= SHARED_BINS) a block counts into its own histogram in shared
-// memory and, once every warp has left the chunk loop (a warp with no chunk
-// reaches the barrier at once), adds its nonzero bins to `counts` with one
-// global atomic each; above SHARED_BINS the histogram would cost occupancy
-// (the WarpAreas already take 18 KB a block), so every counted key is one
-// global atomic, added from inside the loop (GlobalCount): counted after
-// each chunk instead, it ran slower in 7 of chip_smoke.py's 8 timed cells
-// (PERF.md §6).  Unsigned adds wrap as the reference's u32 sums do.
+// replicas also counted after each chunk (SharedCount / GlobalCount say
+// how).  With kShared (capacity <= SHARED_BINS) a block counts into its own
+// histogram in shared memory and, once every warp has left the chunk loop (a
+// warp with no chunk reaches the barrier at once), adds its nonzero bins to
+// `counts` with one global atomic each; above SHARED_BINS the histogram would
+// cost occupancy (the WarpAreas already take 18 KB a block), so every
+// counted key is one global reduction, its replica read back from `out`
+// (GlobalCount): the lookup loop carries no count, and a chunk costs its
+// sampled positions alone (4 loads and reductions at shift 6); with every
+// key counted (shift 0) each key's reduction goes out from the loop
+// (DenseCount).  Unsigned adds wrap as the reference's u32 sums do.
 constexpr int SHARED_BINS = 4096;  // 16 KB of u32 bins
 
 template <class Engine, bool kShared>
@@ -489,8 +521,6 @@ route_load_kernel(KeySource src, Fleet fleet, const int32_t* __restrict__ state,
   __shared__ WarpArea area[WARPS];
   const uint32_t n_total = static_cast<uint32_t>(state[0]);
   const uint32_t n_alive = static_cast<uint32_t>(state[1]);
-  const uint32_t smask = (1u << shift) - 1u;
-  const uint32_t weight = 1u << shift;
   const Divert d{fleet, n_total, n_alive};
   if constexpr (kShared) {
     __shared__ uint32_t hist[SHARED_BINS];
@@ -512,9 +542,12 @@ route_load_kernel(KeySource src, Fleet fleet, const int32_t* __restrict__ state,
       const uint32_t v = hist[b];
       if (v) atomicAdd(counts + b, v);
     }
+  } else if (shift == 0) {
+    chunks<Engine>(area[threadIdx.x >> 5], src, d, fold(n_total, omega), out, n, items,
+                   DenseCount{counts, cap});
   } else {
     chunks<Engine>(area[threadIdx.x >> 5], src, d, fold(n_total, omega), out, n, items,
-                   GlobalCount{counts, cap, smask, weight});
+                   GlobalCount{counts, cap, shift});
   }
 }
 
@@ -536,24 +569,21 @@ lookup_dyn_kernel(KeySource src, const int32_t* __restrict__ n_ptr, int omega,
   chunks<Engine>(area[threadIdx.x >> 5], src, Keep{}, fold(n_buckets, omega), out, n, items);
 }
 
-// The distinct-resolution pass of an R-way placement, one thread per key with
-// its routed columns in registers (kRegs: r <= MAX_R): column j keeps its routed shard
-// unless an earlier settled column holds it; then a re-salt hash picks a
-// position in the table's alive prefix and up to max_resalt linear probes
-// take the first slots[q] no earlier column holds.  The reference tests
-// "taken" with a per-lane bitmask of n_words u32 words set through select
-// cascades (store.py:140-153); that mask only ever holds the columns settled
-// before j, and every shard id is below 32 * n_words, so "bit b set" is
-// exactly "b equals an earlier settled column", which is what taken()
-// compares.  A probe that finds a free shard ends the chain: later probes of
-// the reference change nothing then.  n_alive <= j leaves the defined
-// duplicate and is no exhaustion.  With `old` (the placement before a
-// membership change) the launch also writes moved[i, j] = out[i, j] not in
-// old[i, :].  exhausted and moved are bool tensors (one byte each).  Past
-// MAX_R columns (!kRegs) the thread compares against the columns it has
-// already written to its own row of `out` (its own stores, visible to its
-// loads; mostly L1 hits), and the moved mask against its row of `old`: the
-// same semantics, in the same launch.
+// The distinct-resolution pass of an R-way placement: column j keeps its
+// routed shard unless an earlier settled column holds it; then a re-salt
+// hash picks a position in the table's alive prefix and up to max_resalt
+// linear probes take the first slots[q] no earlier column holds.  The
+// reference tests "taken" with a per-lane bitmask of n_words u32 words set
+// through select cascades (store.py:140-153); that mask only ever holds the
+// columns settled before j, and every shard id is below 32 * n_words, so
+// "bit b set" is exactly "b equals an earlier settled column", which is what
+// taken() compares.  A probe that finds a free shard ends the chain: later
+// probes of the reference change nothing then.  n_alive <= j leaves the
+// defined duplicate and is no exhaustion.  With `old` (the placement before
+// a membership change) the launch also writes moved[i, j] = out[i, j] not in
+// old[i, :].  exhausted and moved are bool tensors (one byte each).
+// resolve_kernel runs one thread per key with its routed columns in
+// registers (r <= MAX_R); resolve_rows_kernel, below it, takes r > MAX_R.
 constexpr int MAX_R = 8;
 constexpr uint32_t RESALT_SALT = 0x7F4A7C15u;
 
@@ -566,10 +596,14 @@ __device__ __forceinline__ bool taken(const uint32_t (&col)[MAX_R], int j, uint3
 }
 
 // "taken" past the registers: b equals one of the row's first j columns.
+// Unrolled by eight: the compiler's own sixteen left r <= 16 in a ladder of
+// remainder branches; eight ran 4 % faster than four at r = 16 and 11-19 %
+// at r = 33 and 64 on the H100 (PERF.md §6).
 __device__ __forceinline__ bool taken_row(const int32_t* row, int j, uint32_t b) {
   bool hit = false;
   CT_TRIPS(TAKEN_ROW);
   // ct-loop: r: the row's settled columns
+#pragma unroll 8
   for (int k = 0; k < j; ++k) {
     CT_TRIP(TAKEN_ROW);
     hit |= static_cast<uint32_t>(row[k]) == b;
@@ -577,7 +611,6 @@ __device__ __forceinline__ bool taken_row(const int32_t* row, int j, uint32_t b)
   return hit;
 }
 
-template <bool kRegs>
 __global__ void __launch_bounds__(THREADS)
 resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ base,
                const int32_t* __restrict__ slots, const int32_t* __restrict__ state, int r,
@@ -589,54 +622,6 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
   // ct-loop: grid: one key a thread, one launch grid's stride apart
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < n; i += stride) {
     CT_TRIP(RESOLVE_GRID);
-    if constexpr (!kRegs) {
-      const uint32_t key = keys[i];
-      int32_t* row = out + i * r;
-      bool ex = false;
-      CT_TRIPS(ROW_COLUMNS);
-      // ct-loop: r: the key's columns
-      for (int j = 0; j < r; ++j) {
-        CT_TRIP(ROW_COLUMNS);
-        uint32_t b = static_cast<uint32_t>(base[i * r + j]);
-        if (j > 0) {
-          bool coll = taken_row(row, j, b);
-          uint32_t q = __umulhi(mix32(mix32(key ^ family_salt(j)) ^ RESALT_SALT), n_alive);
-          CT_TRIPS(ROW_PROBE);
-          // ct-loop: max_resalt: the column's probes
-          for (int p = 0; coll && p < max_resalt; ++p) {
-            CT_TRIP(ROW_PROBE);
-            const uint32_t cand = static_cast<uint32_t>(slots[q]);
-            if (!taken_row(row, j, cand)) {
-              b = cand;
-              coll = false;
-            }
-            q += 1u;
-            if (q >= n_alive) q -= n_alive;
-          }
-          ex |= coll && static_cast<uint32_t>(j) < n_alive;
-        }
-        row[j] = static_cast<int32_t>(b);
-      }
-      exhausted[i] = ex;
-      if (old != nullptr) {
-        const int32_t* prev = old + i * r;
-        CT_TRIPS(ROW_MOVED);
-        // ct-loop: r: the key's columns
-        for (int j = 0; j < r; ++j) {
-          CT_TRIP(ROW_MOVED);
-          const int32_t b = row[j];
-          bool kept = false;
-          CT_TRIPS(ROW_OLD);
-          // ct-loop: r: the key's old columns
-          for (int k = 0; k < r; ++k) {
-            CT_TRIP(ROW_OLD);
-            kept |= prev[k] == b;
-          }
-          moved[i * r + j] = !kept;
-        }
-      }
-      continue;
-    }
     const uint32_t key = keys[i];
     uint32_t col[MAX_R];
     bool ex = false;
@@ -682,6 +667,163 @@ resolve_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ ba
         moved[i * r + j] = !kept;
       }
     }
+  }
+}
+
+// The row path (r > MAX_R).  A key's r columns are a row-major row of r
+// int32, so one thread per key reading its row from device memory (this
+// path's first design) sent each warp load of column j to 32 rows 4r bytes
+// apart, 32 sectors a request, and re-read its row's settled columns from
+// its own stores for every column and probe: ~r^2/2 uncoalesced loads a key,
+// 3.7x the function's own bytes at r = 16, for 0.11 of its bound (PERF.md
+// §6).  Here a warp takes up to 32 consecutive keys, whose rows are one
+// contiguous span of keys * r int32 in `base` (and in `old`): it stages the
+// span in its shared memory with coalesced 4-byte cp.async copies, at an
+// odd row stride (r | 1 words, so a lane-per-key access is free of bank
+// conflicts); each lane resolves its own key there in place, column by
+// column, as the register path does; and the warp writes the rows back to
+// `out` as one coalesced span, each word's moved byte computed against the
+// staged `old` row as it goes (lanes on one row read the same word, lanes on
+// rows 1-3 apart other banks).  One round a warp and a grid of every round:
+// a resident grid whose warps walked their rounds with two buffers, the
+// next round's copies in flight over the current one's work, ran 1.37x
+// slower at r = 16, and cheaper index walks (pointer steps for the copies)
+// 1.16x slower (PERF.md §6).  The launch sizes the shared memory from r
+// (keys * (r | 1) * 4 bytes a warp, twice that with `old`), in blocks of
+// ROW_WARPS warps (eight ran 1.35x slower at r = 64 with `old`: 133 KB
+// blocks, one an SM), and gives a warp fewer keys, and a block fewer warps,
+// where 32 rows do not fit.  A row
+// longer than a block's shared memory holds (r | 1 > 29,056 with `old`,
+// 58,112 without, on the H100) is staged in its own row of `out` instead
+// (stride 0 at launch): the same code over device memory.
+__device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// One warp's round: keys first .. first + cnt - 1 (cnt <= 32), their rows at
+// `rows`, `stride` words apart.  kStaged: rows is the warp's shared memory,
+// the old rows `area` words past it, both filled here; otherwise rows is the
+// round's span of `out` (stride r) and the old rows are read from `old`.
+template <bool kStaged>
+__device__ __forceinline__ void resolve_round(
+    const uint32_t* __restrict__ keys, const int32_t* __restrict__ base,
+    const int32_t* __restrict__ slots, uint32_t n_alive, int r, int max_resalt,
+    const int32_t* __restrict__ old, int32_t* __restrict__ out, uint8_t* __restrict__ exhausted,
+    uint8_t* __restrict__ moved, int64_t first, int cnt, int32_t* rows, int stride, int area) {
+  const int lane = threadIdx.x & 31;
+  const int64_t span = first * r;
+  const int words = cnt * r;
+  const int32_t* olds = kStaged ? rows + area : (old != nullptr ? old + span : nullptr);
+  // word t of the span is column t % r of row t / r; a lane's words are 32
+  // apart, so its (row, column) steps by (32 / r, 32 % r) with one carry
+  const int drow = 32 / r;
+  const int dcol = 32 - drow * r;
+  const int row0 = lane / r;
+  const int col0 = lane - row0 * r;
+  const uint32_t key = lane < cnt ? keys[first + lane] : 0u;
+  {
+    int row = row0, col = col0;
+    CT_TRIPS(ROW_STAGE);
+    // ct-loop: r: the round's cnt * r words (cnt <= 32), 32 a trip
+    for (int t = lane; t < words; t += 32) {
+      CT_TRIP(ROW_STAGE);
+      if constexpr (kStaged) {
+        cp_async4(rows + row * stride + col, base + span + t);
+        if (old != nullptr) cp_async4(rows + area + row * stride + col, old + span + t);
+      } else {
+        rows[t] = base[span + t];
+      }
+      row += drow;
+      col += dcol;
+      if (col >= r) {
+        col -= r;
+        ++row;
+      }
+    }
+  }
+  if constexpr (kStaged) asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncwarp();
+  if (lane < cnt) {
+    int32_t* row = rows + lane * stride;
+    bool ex = false;
+    CT_TRIPS(ROW_COLUMNS);
+    // ct-loop: r: the key's columns
+    for (int j = 1; j < r; ++j) {
+      CT_TRIP(ROW_COLUMNS);
+      if (taken_row(row, j, static_cast<uint32_t>(row[j]))) {
+        bool coll = true;
+        uint32_t q = __umulhi(mix32(mix32(key ^ family_salt(j)) ^ RESALT_SALT), n_alive);
+        CT_TRIPS(ROW_PROBE);
+        // ct-loop: max_resalt: the column's probes
+        for (int p = 0; coll && p < max_resalt; ++p) {
+          CT_TRIP(ROW_PROBE);
+          const uint32_t cand = static_cast<uint32_t>(slots[q]);
+          if (!taken_row(row, j, cand)) {
+            row[j] = static_cast<int32_t>(cand);
+            coll = false;
+          }
+          q += 1u;
+          if (q >= n_alive) q -= n_alive;
+        }
+        ex |= coll && static_cast<uint32_t>(j) < n_alive;
+      }
+    }
+    exhausted[first + lane] = ex;
+  }
+  __syncwarp();
+  if (kStaged || old != nullptr) {
+    int row = row0, col = col0;
+    CT_TRIPS(ROW_WRITE);
+    // ct-loop: r: the round's cnt * r words (cnt <= 32), 32 a trip
+    for (int t = lane; t < words; t += 32) {
+      CT_TRIP(ROW_WRITE);
+      const int32_t b = rows[row * stride + col];
+      if constexpr (kStaged) out[span + t] = b;
+      if (old != nullptr) {
+        const int32_t* prev = olds + row * stride;
+        bool kept = false;
+        CT_TRIPS(ROW_OLD);
+        // ct-loop: r: the key's old columns
+        for (int k = 0; k < r; ++k) {
+          CT_TRIP(ROW_OLD);
+          kept |= prev[k] == b;
+        }
+        moved[span + t] = !kept;
+      }
+      row += drow;
+      col += dcol;
+      if (col >= r) {
+        col -= r;
+        ++row;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+resolve_rows_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ base,
+                    const int32_t* __restrict__ slots, const int32_t* __restrict__ state, int r,
+                    int max_resalt, const int32_t* __restrict__ old, int32_t* __restrict__ out,
+                    uint8_t* __restrict__ exhausted, uint8_t* __restrict__ moved, int64_t n,
+                    int per_warp, int stride) {
+  extern __shared__ int32_t row_area[];
+  const uint32_t n_alive = static_cast<uint32_t>(state[1]);
+  const int warp = threadIdx.x >> 5;
+  const int64_t first =
+      (static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp) * per_warp;
+  if (first >= n) return;  // the whole warp: first is the warp's
+  const int cnt = static_cast<int>(n - first < per_warp ? n - first : per_warp);
+  if (stride > 0) {
+    const int area = per_warp * stride;
+    int32_t* rows = row_area + static_cast<int64_t>(warp) * area * (old != nullptr ? 2 : 1);
+    resolve_round<true>(keys, base, slots, n_alive, r, max_resalt, old, out, exhausted, moved,
+                        first, cnt, rows, stride, area);
+  } else {
+    resolve_round<false>(keys, base, slots, n_alive, r, max_resalt, old, out, exhausted, moved,
+                         first, cnt, out + first * r, r, 0);
   }
 }
 
@@ -1008,20 +1150,76 @@ int launch_lookup_vec(Source src, unsigned n_buckets, unsigned E, unsigned M, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// The row path's launch for r columns (with or without `old`) over n keys:
+// keys a warp takes (up to 32), warps a block, the staged rows' stride
+// (r | 1, or 0 for rows staged in `out`), the block's shared memory, and the
+// grid: one round a warp.  The kernel is granted the card's opt-in shared
+// memory once per device.
+struct RowsShape {
+  int per_warp, warps, stride, grid;
+  int64_t smem;
+};
+
+constexpr int ROW_WARPS = 4;  // warps a block of the row path, at most
+
+int rows_shape(int r, bool with_old, int64_t n, RowsShape* shape) {
+  static int optin[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int slot = dev >= 0 && dev < 64 ? dev : 0;
+  if (!optin[slot]) {
+    int limit = 0;
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(resolve_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 limit);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    optin[slot] = limit;
+  }
+  const int64_t row_bytes = int64_t{4} * (r | 1) * (with_old ? 2 : 1);
+  const int64_t fit = optin[slot] / row_bytes;  // rows a block's shared memory holds
+  if (fit < 1) {  // rows staged in `out`; a round's words stay an int
+    *shape = {r <= (1 << 25) ? 32 : 1, ROW_WARPS, 0, 0, 0};
+  } else {
+    const int per_warp = static_cast<int>(fit < 32 ? fit : 32);
+    const int64_t warps = fit / per_warp;
+    *shape = {per_warp, static_cast<int>(warps < ROW_WARPS ? warps : ROW_WARPS), r | 1, 0, 0};
+    shape->smem = shape->warps * per_warp * row_bytes;
+  }
+  const int64_t rounds = (n + shape->per_warp - 1) / shape->per_warp;
+  const int64_t blocks = (rounds + shape->warps - 1) / shape->warps;
+  if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  shape->grid = static_cast<int>(blocks);
+  return 0;
+}
+
 int launch_resolve(const void* keys, const void* base, const void* slots, const void* state,
                    int r, int max_resalt, const void* old, void* out, void* exhausted,
                    void* moved, int64_t n, cudaStream_t stream) {
   if (r < 1) return -1;
-  const int64_t blocks = (n + THREADS - 1) / THREADS;
-  const int grid = static_cast<int>(blocks < (1 << 30) ? blocks : (1 << 30));
-  // the register path for r <= MAX_R, the row path beyond
-  auto* kernel = r <= MAX_R ? resolve_kernel<true> : resolve_kernel<false>;
-  log_launch({grid, 1});
-  kernel<<<grid, THREADS, 0, stream>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(base),
-      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(state), r, max_resalt,
-      static_cast<const int32_t*>(old), static_cast<int32_t*>(out),
-      static_cast<uint8_t*>(exhausted), static_cast<uint8_t*>(moved), n);
+  const auto* k = static_cast<const uint32_t*>(keys);
+  const auto* b = static_cast<const int32_t*>(base);
+  const auto* t = static_cast<const int32_t*>(slots);
+  const auto* st = static_cast<const int32_t*>(state);
+  const auto* o = static_cast<const int32_t*>(old);
+  auto* dst = static_cast<int32_t*>(out);
+  auto* ex = static_cast<uint8_t*>(exhausted);
+  auto* mv = static_cast<uint8_t*>(moved);
+  if (r <= MAX_R) {  // the register path
+    const int64_t blocks = (n + THREADS - 1) / THREADS;
+    const int grid = static_cast<int>(blocks < (1 << 30) ? blocks : (1 << 30));
+    log_launch({grid, 1});
+    resolve_kernel<<<grid, THREADS, 0, stream>>>(k, b, t, st, r, max_resalt, o, dst, ex, mv, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  RowsShape shape{};
+  const int err = rows_shape(r, old != nullptr, n, &shape);
+  if (err) return err;
+  log_launch({shape.grid, shape.per_warp});
+  resolve_rows_kernel<<<shape.grid, shape.warps * 32, shape.smem, stream>>>(
+      k, b, t, st, r, max_resalt, o, dst, ex, mv, n, shape.per_warp, shape.stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1158,6 +1356,24 @@ extern "C" int routing_resolve(const void* keys, const void* base, const void* s
                                void* stream) {
   return routing::launch_resolve(keys, base, slots, state, r, max_resalt, old, out, exhausted,
                                  moved, n, static_cast<cudaStream_t>(stream));
+}
+
+// The row path's launch for r > 8 columns (with or without the old rows)
+// over n keys on the current device: writes keys a warp takes, warps a
+// block, the staged rows' stride (0: staged in the output) and the grid to
+// out (4 ints); returns 0, -1 for r <= 8, or a cudaError_t.
+extern "C" int routing_resolve_rows_shape(int r, int with_old, long long n, void* out) {
+  using namespace routing;
+  if (r <= MAX_R) return -1;
+  RowsShape shape{};
+  const int err = rows_shape(r, with_old != 0, n, &shape);
+  if (err) return err;
+  int* dst = static_cast<int*>(out);
+  dst[0] = shape.per_warp;
+  dst[1] = shape.warps;
+  dst[2] = shape.stride;
+  dst[3] = shape.grid;
+  return 0;
 }
 
 // Takes this host thread's launch log: writes the (grid, items) of up to

@@ -25,8 +25,8 @@ namespace routing {
 // both arrays; repro_torch.analysis.sass_gate holds them to their bounds.
 enum TripLoop : int {
   BINOMIAL_REST, BINOMIAL_QUEUE, JUMP_CHAINS, JUMP_STAGE, JUMP_ZERO, JUMP_SCAN, JUMP_DIVERT,
-  JUMP_COPY, COUNT_CHUNK, CHUNKS, HIST_ZERO, HIST_FLUSH, TAKEN_ROW, RESOLVE_GRID, ROW_COLUMNS,
-  ROW_PROBE, ROW_MOVED, ROW_OLD, REG_PROBE, CHAIN_WALK, CHAIN_SCAN, TRIP_LOOPS
+  JUMP_COPY, COUNT_CHUNK, CHUNKS, HIST_ZERO, HIST_FLUSH, TAKEN_ROW, RESOLVE_GRID, ROW_STAGE,
+  ROW_COLUMNS, ROW_PROBE, ROW_WRITE, ROW_OLD, REG_PROBE, CHAIN_WALK, CHAIN_SCAN, TRIP_LOOPS
 };
 
 #ifdef ROUTING_COUNT_TRIPS

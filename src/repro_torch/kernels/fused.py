@@ -366,8 +366,9 @@ class RoutingKernels:
         columns ``base`` (N, r) -> ``(replicas (N, r) int32, exhausted (N,)
         bool, moved (N, r) bool or None)``, as ``resolve_columns`` says;
         with ``old`` (N, r) the same launch computes the moved mask.  The
-        kernel keeps a key's columns in registers up to ``MAX_R`` and reads
-        them back from its row of the output beyond: any ``r >= 1``."""
+        kernel keeps a key's columns in registers up to ``MAX_R``; beyond,
+        a warp stages its keys' rows in shared memory (in the output where
+        one row outgrows it): any ``r >= 1``."""
         operands = (keys, base, table, state) + (() if old is None else (old,))
         if _on_cpu(*operands):
             return self.resolve_plain(keys, base, table, state, max_resalt, old)

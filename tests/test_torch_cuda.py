@@ -6,10 +6,13 @@ with n rewritten on the device, the MoE router's fused key build
 ``BatchRouter`` on the card against the plain-version router, a 2-layer
 hash-routed MoE ``ServingTier`` on the card against the same tier on the CPU,
 the R-way placement kernels (the family route and ``resolve``, also past
-the register columns at r = 9, 16 and 32) against their plain versions, the
+the register columns at r = 9, 16 and 32) against their plain versions,
+resolve's row path (r = 9 to 64, odd and even row strides, and two r whose
+rows outgrow a block's shared memory) at its launch's edges, the
 placement tier with its lifecycle and repairer on the card against the same
 tier on the CPU, the instrumented route (``route_load``) against its plain
-version on both sides of its shared-histogram threshold, the streaming
+version on both sides of its shared-histogram threshold and up to 2^20
+bins, at its global-count launch's edges, the streaming
 front end over a monitored router on the card against the same on the CPU,
 the chain-mode remap (``chain_remap``) against its plain version and the
 scalar chain oracle, a reduced DeepSeek-V3 ``ServingTier`` (MLA, the
@@ -312,6 +315,108 @@ def test_placement_kernels_match_plain(cuda, engine, r, max_resalt):
             assert k.launches["resolve"] - before["resolve"] == 3
 
 
+def _rows_shape(r, with_old, n):
+    """The row path's launch for r columns over n keys: (keys a warp, warps
+    a block, row stride (0 = staged in the output), grid), from the
+    library."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    out = (ctypes.c_int * 4)()
+    assert build.library().routing_resolve_rows_shape(r, int(with_old), n, out) == 0
+    return tuple(out)
+
+
+def _expected_rows(r, with_old, device):
+    """(keys a warp, warps a block, stride) as the launch reckons them from
+    the card's opt-in shared memory: up to 32 rows a warp and 4 warps a
+    block, else the rows staged in the output."""
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    fit = limit // (4 * (r | 1) * (2 if with_old else 1))
+    if fit < 1:
+        return 32, 4, 0
+    return min(32, fit), min(4, fit // min(32, fit)), r | 1
+
+
+def _check_rows(k, keys, base, f, max_resalt, old):
+    """One row-path resolve against its plain version, bit for bit, in one
+    launch of the grid and keys a warp that ``_rows_shape`` gives."""
+    from repro_torch.analysis.sass_gate import clear_launches, take_launches
+
+    r = base.shape[1]
+    per_warp, warps, stride, grid = _rows_shape(r, old is not None, keys.numel())
+    assert (per_warp, warps, stride) == _expected_rows(r, old is not None, keys.device)
+    assert grid == -(-(-(-keys.numel() // per_warp)) // warps)
+    before = k.launches["resolve"]
+    clear_launches()
+    got = k.resolve(keys, base, f.table, f.state, max_resalt, old)
+    assert take_launches() == [(grid, per_warp)]
+    assert k.launches["resolve"] == before + 1
+    want = k.resolve_plain(keys, base, f.table, f.state, max_resalt, old)
+    assert (got[2] is None) == (old is None)
+    for g, w in zip(got, want):
+        if g is not None:
+            assert g.is_cuda and torch.equal(g, w)
+
+
+#: sizes around a warp's round of 32 keys, a block's 256 and past them
+ROWS_SIZES = (1, 31, 32, 33, 257, 4097, 1 << 14)
+
+
+@pytest.mark.parametrize("max_resalt", [None, 0, 1])
+@pytest.mark.parametrize("r", [9, 16, 17, 32, 33, 64])
+def test_resolve_row_path_matches_plain(cuda, r, max_resalt):
+    """resolve's row path (r past the register columns; rows staged in
+    shared memory at stride r | 1: 9, 17, 17, 33, 33, 65) against its plain
+    version on ``PLACEMENT_FLEETS`` (n_alive above and below r) at sizes
+    around a warp's round, with and without ``old``, one launch each."""
+    k = BULK_ENGINES["binomial"].kernels
+    assert _rows_shape(r, False, 1 << 20)[:3] == (32, 4, r | 1) == _rows_shape(r, True, 1 << 20)[:3]
+    for fleet in PLACEMENT_FLEETS:
+        f = _fleet("binomial", *fleet, seed=fleet[2] + 5)
+        old = _fleet("binomial", fleet[0], fleet[1], 0, 0)
+        mr = r if max_resalt is None else max_resalt
+        for size in ROWS_SIZES:
+            keys = _u32(size + 3 * r, size, cuda)
+            base = k.route_family(keys, r, f.packed, f.table, f.state)
+            prev = k.resolve(keys, k.route_family(keys, r, old.packed, old.table, old.state),
+                             old.table, old.state, mr)[0]
+            for with_old in (None, prev):
+                _check_rows(k, keys, base, f, mr, with_old)
+
+
+@pytest.mark.parametrize("with_old", [False, True], ids=["alone", "old"])
+@pytest.mark.parametrize("r", [2000, 30000])
+def test_resolve_row_path_where_rows_do_not_fit(cuda, r, with_old):
+    """Rows that outgrow a block's shared memory: at r = 2000 32 rows do
+    not fit, so a warp takes fewer keys and a block one warp; at r = 30000
+    one row fits alone and with ``old`` not even that, so the rows are then
+    staged in the output.
+    Bit-exact with the plain version at ``max_resalt`` 0 and 1 (the plain
+    version loops in Python over columns and probes)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    per_warp, warps, stride = _expected_rows(r, with_old, cuda)
+    if r < 10000:
+        assert per_warp < 32 and warps == 1 and stride == r | 1
+    else:
+        assert (per_warp, warps, stride) == ((32, 4, 0) if with_old else (1, 1, r | 1))
+    k = BULK_ENGINES["binomial"].kernels
+    f = _fleet("binomial", 1000, 1024, 250, 7)
+    old = _fleet("binomial", 1000, 1024, 0, 0)
+    for size in ((1, 33, 257) if r < 10000 else (33,)):
+        keys = _u32(size + r, size, cuda)
+        base = k.route_family(keys, r, f.packed, f.table, f.state)
+        prev = k.resolve(keys, k.route_family(keys, r, old.packed, old.table, old.state),
+                         old.table, old.state, 0)[0] if with_old else None
+        for mr in ((0, 1) if r < 10000 else (0,)):
+            _check_rows(k, keys, base, f, mr, prev)
+    assert build.library().routing_resolve_rows_shape(8, 0, 1, (ctypes.c_int * 4)()) == -1
+
+
 @pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
 def test_placement_entry_points_launch_as_documented(cuda, engine):
     k = BULK_ENGINES[engine].kernels
@@ -374,9 +479,10 @@ def test_placement_tier_on_card_matches_cpu(cuda, engine, r):
 
 
 #: (n, capacity, failed) of the route_load cases: below the shared-histogram
-#: threshold (4,096 bins), at it, one bin past it, and above it
+#: threshold (4,096 bins), at it, one bin past it, and above it (the global
+#: count) up to 2^20 bins
 LOAD_FLEETS = ((1000, 1024, 250), (3, 64, 0), (3000, 4096, 750), (3000, 4097, 750),
-               (6000, 8192, 1500), (40000, 65536, 10000))
+               (6000, 8192, 1500), (40000, 65536, 10000), (600000, 1 << 20, 1000))
 
 
 def _load_fleet(engine, n, capacity, n_fail, seed):
@@ -403,7 +509,7 @@ def _check_route_load(k, keys, fl, capacity, shift, rng):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("shift", [0, 3, 6])
 @pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
 def test_route_load_matches_plain(cuda, engine, shift):
     """The instrumented route against its plain version: replica ids
@@ -454,6 +560,25 @@ def test_route_load_launch_edges(cuda, engine, shift, edge):
     assert _load_grid(engine, size, 1024) == grid
     fl = _load_fleet(engine, 1000, 1024, 250, seed=253)
     _check_route_load(k, _u32(size, size, cuda), fl, 1024, shift, np.random.default_rng(size))
+
+
+@pytest.mark.parametrize("edge", ["resident_pass", "resident_pass_and_one"])
+@pytest.mark.parametrize("capacity", [4097, 8192, 65536, 1 << 20])
+@pytest.mark.parametrize("shift", [0, 3, 6])
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_route_load_global_count_launch_edges(cuda, engine, shift, capacity, edge):
+    """The global-count instance (capacity past 4,096 bins: each chunk's
+    sampled replicas read back from the output) at a full pass of its
+    resident grid and one key past it (a warp takes a second chunk),
+    bit-exact with the plain version and route, from accumulators near
+    2^32."""
+    k = BULK_ENGINES[engine].kernels
+    grid = _load_grid(engine, 1 << 40, capacity)
+    size = grid * 256 * 8 + (edge == "resident_pass_and_one")
+    n = {4097: 3000, 8192: 6000, 65536: 40000, 1 << 20: 600000}[capacity]
+    fl = _load_fleet(engine, n, capacity, n // 4 if capacity < (1 << 20) else 1000, seed=capacity)
+    _check_route_load(k, _u32(size, size, cuda), fl, capacity, shift,
+                      np.random.default_rng(size + shift))
 
 
 @pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
