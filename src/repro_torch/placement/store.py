@@ -54,6 +54,17 @@ from repro_torch.core.placement_torch import (  # noqa: F401  (re-exported)
     resolve_columns,
 )
 from repro_torch.kernels import ops
+from repro_torch.observability.trace import (
+    SPAN_PLACE_COERCE,
+    SPAN_PLACE_GUARD,
+    SPAN_PLACE_KEYS,
+    SPAN_PLACE_LAUNCH,
+    SPAN_PLAN,
+    SPAN_PLAN_COPY_BACK,
+    SPAN_PLAN_DIFF,
+    SPAN_PLAN_FLEET_UP,
+    SPAN_PLAN_KEYS_UP,
+)
 from repro_torch.placement.assignment import MovementPlan
 from repro_torch.serving.lifecycle.errors import (
     MODE_DEGRADED,
@@ -211,7 +222,10 @@ class StorePlacement:
     placement tier: guarded R-way ``place``, a registry of placed keys with
     their physical *holders* (which lag the target placement until repair
     completes), degraded reads, and the one-device-pass migration diff.
-    Placement runs on the router's device.
+    Placement runs on the router's device, and records its stages into the
+    router's ``tracer`` when it has one (``place_keys``: guard, coercion,
+    launch; ``plan_migration``: the keys up, the fleets up, the diff, the
+    copy back).
     """
 
     def __init__(self, router, r: int = 3, *, max_resalt: int | None = None,
@@ -279,8 +293,27 @@ class StorePlacement:
         bool)`` on the router's device, no degradation typing (the expert
         path; ``place`` wraps it).  Routability (``n_alive >= 1``) is still
         enforced."""
+        router = self.router
+        tr = router.tracer
+        if tr is None:
+            return self._place_keys(keys, None)
+        router.traced_calls += 1
+        root = tr.open(SPAN_PLACE_KEYS, router.traced_calls)
+        try:
+            return self._place_keys(keys, tr)
+        finally:
+            tr.close(root)
+
+    def _place_keys(self, keys, tr) -> tuple[torch.Tensor, torch.Tensor]:
+        if tr is not None:
+            tr.open(SPAN_PLACE_GUARD)
         fleet = self._fleet_dev()
-        return ops.route_replicas_bulk(self.router._coerce_keys(keys), fleet, self.spec)
+        if tr is not None:
+            tr.next(SPAN_PLACE_COERCE)
+        keys = self.router._coerce_keys(keys)
+        if tr is not None:
+            tr.next(SPAN_PLACE_LAUNCH)  # closed with its root, at one clock reading
+        return ops.route_replicas_bulk(keys, fleet, self.spec)
 
     def place(self, keys) -> PlacedBatch:
         """Place keys on ``r`` distinct alive shards, typed and epoch-
@@ -379,11 +412,29 @@ class StorePlacement:
         ``FleetState``; default: the snapshot captured at the last
         register/sync) and the CURRENT fleet — one device pass over both
         placements (DESIGN.md §13)."""
+        tr = self.router.tracer
+        if tr is None:
+            return self._plan_migration(old_fleet, None)
+        root = tr.open(SPAN_PLAN, self.epoch)
+        try:
+            return self._plan_migration(old_fleet, tr)
+        finally:
+            tr.close(root)
+
+    def _plan_migration(self, old_fleet, tr) -> MigrationPlan:
         old = old_fleet if old_fleet is not None else self._synced_fleet
+        if tr is not None:
+            tr.open(SPAN_PLAN_KEYS_UP)
+        keys = self.router._coerce_keys(self._keys)
+        if tr is not None:
+            tr.next(SPAN_PLAN_FLEET_UP)
+        old = old.to(self.router.device)
         new = self._fleet_dev()
-        o, n, moved, _ = ops.placement_diff_bulk(
-            self.router._coerce_keys(self._keys), old.to(self.router.device), new, self.spec
-        )
+        if tr is not None:
+            tr.next(SPAN_PLAN_DIFF)
+        o, n, moved, _ = ops.placement_diff_bulk(keys, old, new, self.spec)
+        if tr is not None:
+            tr.next(SPAN_PLAN_COPY_BACK)  # closed with its root, at one clock reading
         return MigrationPlan(
             keys=self._keys, old=o.cpu().numpy(), new=n.cpu().numpy(),
             moved=moved.cpu().numpy(), epoch=self.epoch,

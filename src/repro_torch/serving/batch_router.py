@@ -27,6 +27,14 @@ With a ``LoadMonitor`` attached (``attach_load_monitor``) the fused launch
 is the instrumented one (``ops.route_load_bulk``): the same replica ids,
 and the monitor's per-shard count advanced in the same launch.
 
+With a ``SpanTrace`` as ``tracer``, the single-host datapath records its
+stages as nested spans on ``time.perf_counter_ns``: each ``route_keys``
+call (guard, coercion, launch; trace id: the count of traced calls), each
+burst of ``coalesced_events`` (each event, the flush) and each
+``fleet.upload`` (trace id: the routing epoch a burst or upload began at).
+``StorePlacement`` records into the same tracer.  With none, a stage pays
+one ``is not None`` test: no clock read, no allocation.
+
 Handed a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``), the router
 splits every key batch over the spec's ``shard_axis``: every rank passes
 the same batch, routes its own block in one launch of the fused kernel
@@ -53,6 +61,16 @@ from repro_torch.core.memento_torch import memento_remap_table
 from repro_torch.core.registry import make_bulk
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.observability.trace import (
+    SPAN_BURST,
+    SPAN_BURST_EVENT,
+    SPAN_BURST_FLUSH,
+    SPAN_FLEET_UPLOAD,
+    SPAN_ROUTE_COERCE,
+    SPAN_ROUTE_GUARD,
+    SPAN_ROUTE_KEYS,
+    SPAN_ROUTE_LAUNCH,
+)
 from repro_torch.serving.lifecycle.errors import FleetUnavailableError
 from repro_torch.serving.router import SessionRouter, hash_session_ids
 from repro_torch.sharding.rules import P, placements
@@ -81,6 +99,7 @@ class BatchRouter:
         omega=_UNSET,
         shard_axis=_UNSET,
         donate_keys=_UNSET,
+        tracer=None,
     ):
         """Configuration is one ``RouterSpec`` (``BatchRouter(16, spec)``)
         or its fields as keywords (``BatchRouter(16, engine="jump")``), not
@@ -90,7 +109,8 @@ class BatchRouter:
         forwarded to the control plane as the JAX package's router does.
         A ``mesh`` (a ``DeviceMesh``) shards every key batch over the
         spec's ``shard_axis``; the router then runs on the mesh's device
-        type."""
+        type.  ``tracer``: a ``SpanTrace`` the datapath's stages are
+        recorded into (None: nothing recorded)."""
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
         kwargs = {
@@ -177,6 +197,10 @@ class BatchRouter:
         self._state_dirty = False
         #: attached LoadMonitor (None = the bare route)
         self._load_monitor = None
+        #: SpanTrace of the datapath's stages (None: nothing recorded), and
+        #: the count of the calls it traced (their trace ids)
+        self.tracer = tracer
+        self.traced_calls = 0
         self._put_state()
 
     # -- spec facade ----------------------------------------------------------
@@ -230,7 +254,12 @@ class BatchRouter:
         if self._coalescing:
             self._state_dirty = True
             return
+        tr = self.tracer
+        if tr is not None:
+            tr.open(SPAN_FLEET_UPLOAD, self._epoch)
         self._fleet_dev = self._fleet_host.to(self.device)
+        if tr is not None:
+            tr.close()
 
     def _set_removed_bit(self, replica: int, removed: bool) -> None:
         """Incremental fleet-event update: flip one mask bit, re-pin."""
@@ -253,13 +282,20 @@ class BatchRouter:
         if self._coalescing:
             yield
             return
+        tr = self.tracer
+        if tr is not None:
+            burst = tr.open(SPAN_BURST, self._epoch)
         self._coalescing = True
         try:
             yield
         finally:
             self._coalescing = False
             if self._state_dirty:
+                if tr is not None:
+                    tr.open(SPAN_BURST_FLUSH)
                 self._flush_events()
+            if tr is not None:
+                tr.close(burst)
 
     def _flush_events(self) -> None:
         self._state_dirty = False
@@ -382,16 +418,19 @@ class BatchRouter:
         block; the result is a DTensor of the batch's shape, sharded over
         ``shard_axis`` (along the flat batch: a batch whose first dim the
         shard count does not divide is gathered and replicated)."""
-        self._check_routable()
         if self.mesh is None:
-            keys = self._coerce_keys(keys)
-            if keys.numel() == 0:
-                return torch.zeros(keys.shape, dtype=torch.int32, device=self.device)
-            out = self._dispatch(keys)
-            self.stats.lookups += keys.numel()
-            return out
+            tr = self.tracer
+            if tr is None:
+                return self._route_local(keys, None)
+            self.traced_calls += 1
+            root = tr.open(SPAN_ROUTE_KEYS, self.traced_calls)
+            try:
+                return self._route_local(keys, tr)
+            finally:
+                tr.close(root)
         from torch.distributed.tensor import DTensor, Replicate
 
+        self._check_routable()
         keys = self._host_tensor(keys)
         shape, total = tuple(keys.shape), keys.numel()
         if total == 0:
@@ -406,6 +445,23 @@ class BatchRouter:
         out = DTensor.from_local(block, self.mesh, self._sharded_place, run_check=False,
                                  shape=(total,), stride=(1,))
         return out if len(shape) == 1 else out.reshape(shape)
+
+    def _route_local(self, keys, tr) -> torch.Tensor:
+        """``route_keys`` on one host; ``tr``: the tracer its stages are
+        recorded into, inside the caller's ``route_keys`` span, or None."""
+        if tr is not None:
+            tr.open(SPAN_ROUTE_GUARD)
+        self._check_routable()
+        if tr is not None:
+            tr.next(SPAN_ROUTE_COERCE)
+        keys = self._coerce_keys(keys)
+        if keys.numel() == 0:
+            return torch.zeros(keys.shape, dtype=torch.int32, device=self.device)
+        if tr is not None:
+            tr.next(SPAN_ROUTE_LAUNCH)  # closed with its root, at one clock reading
+        out = self._dispatch(keys)
+        self.stats.lookups += keys.numel()
+        return out
 
     def route_keys_np(self, keys) -> np.ndarray:
         """Numpy-out convenience wrapper around ``route_keys``; under a mesh
@@ -469,18 +525,31 @@ class BatchRouter:
                 f"fleet at device-table capacity ({self.spec.capacity}); "
                 "construct BatchRouter with a larger capacity"
             )
+        tr = self.tracer
+        if tr is not None and self._coalescing:
+            tr.open(SPAN_BURST_EVENT)
         r = self.scalar.scale_up()
         self._epoch += 1
         self._put_state()
+        if tr is not None and self._coalescing:
+            tr.close()
         return r
 
     def scale_down(self) -> int:
+        tr = self.tracer
+        if tr is not None and self._coalescing:
+            tr.open(SPAN_BURST_EVENT)
         r = self.scalar.scale_down()
         self._epoch += 1
         self._resync_device_state()
+        if tr is not None and self._coalescing:
+            tr.close()
         return r
 
     def fail(self, replica: int) -> None:
+        tr = self.tracer
+        if tr is not None and self._coalescing:
+            tr.open(SPAN_BURST_EVENT)
         self.scalar.fail(replica)
         self._epoch += 1
         if replica in self.domain.removed:
@@ -489,11 +558,18 @@ class BatchRouter:
             # failing the LAST slot is a true LIFO removal in the control
             # plane (slot space shrinks, tombstones may GC) — resync wholesale
             self._resync_device_state()
+        if tr is not None and self._coalescing:
+            tr.close()
 
     def recover(self, replica: int) -> None:
+        tr = self.tracer
+        if tr is not None and self._coalescing:
+            tr.open(SPAN_BURST_EVENT)
         self.scalar.recover(replica)
         self._epoch += 1
         self._set_removed_bit(replica, False)
+        if tr is not None and self._coalescing:
+            tr.close()
 
     @property
     def alive(self) -> int:

@@ -37,6 +37,7 @@ import torch
 from repro_torch.core.bulk import FleetState
 from repro_torch.core.registry import make_bulk
 from repro_torch.kernels import ops
+from repro_torch.observability.trace import SPAN_LIFECYCLE_TICK
 from repro_torch.placement.elastic import FailureDomain
 from repro_torch.serving.lifecycle.detector import (
     FailureDetector,
@@ -153,7 +154,7 @@ class LifecycleManager:
         if self.tracer is not None:
             now_us = int(self.clock.now() * 1_000_000)
             self.tracer.record(
-                "lifecycle_tick", now_us, now_us,
+                SPAN_LIFECYCLE_TICK, now_us, now_us,
                 events=len(events), epoch=self.epoch,
             )
         return events

@@ -48,6 +48,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.observability.trace import (
+    SPAN_ADMIT,
+    SPAN_BATCH_CLOSE,
+    SPAN_DISPATCH,
+    SPAN_REQUEST,
+)
 from repro_torch.serving.lifecycle.errors import SHED_LATE
 
 from .admission import AdmissionConfig, AdmissionController
@@ -279,7 +285,7 @@ class MicroBatcher:
         )
         if self.tracer is not None:
             self.tracer.record(
-                "admit", now, now, tenant=request.tenant,
+                SPAN_ADMIT, now, now, tenant=request.tenant,
                 deadline_us=request.deadline_us,
             )
         if not self._open:
@@ -350,11 +356,11 @@ class MicroBatcher:
         )
         if self.tracer is not None:
             self.tracer.record(
-                "batch_close", start, start, size=len(keep),
+                SPAN_BATCH_CLOSE, start, start, size=len(keep),
                 shed=len(batch) - len(keep),
             )
             self.tracer.record(
-                "dispatch", start, start + int(bound), size=len(keep)
+                SPAN_DISPATCH, start, start + int(bound), size=len(keep)
             )
         self._inflight = _Inflight(keep, handle, start, start + int(bound))
 
@@ -391,7 +397,7 @@ class MicroBatcher:
             ).observe(max(0, done - req.arrival_us))
             if self.tracer is not None:
                 self.tracer.record(
-                    "request", req.arrival_us, done, tenant=req.tenant,
+                    SPAN_REQUEST, req.arrival_us, done, tenant=req.tenant,
                     replica=int(rep), epoch=epoch,
                 )
         self._served.inc(len(inf.requests))

@@ -29,6 +29,7 @@ from collections import deque
 
 import numpy as np
 
+from repro_torch.observability.trace import SPAN_READ
 from repro_torch.serving.lifecycle.detector import REMOVED, SUSPECT
 
 
@@ -211,7 +212,7 @@ class HedgedReader:
         if self.tracer is not None:
             now = self.clock.now_us()
             self.tracer.record(
-                "read", now, now + latency, shard=winner, hedged=hedged
+                SPAN_READ, now, now + latency, shard=winner, hedged=hedged
             )
         return HedgedRead(
             key_index=key_index,
