@@ -39,8 +39,9 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    ``lookup_router`` (the MoE router's keys built in the launch) at the
    serve path's shapes and at 2^20 keys; the placement kernels (the route
    kernel over a key's r salted families, ``route_family``, and the
-   distinct-resolution pass, ``resolve``, with and without the moved mask)
-   against their plain versions at 2^20 keys over the same fleets at
+   distinct-resolution pass, ``resolve``, with and without the moved mask,
+   and ``place``, both in one launch) against their plain versions at 2^20
+   keys over the same fleets at
    r = 1, 3 and 5, with a too-small ``max_resalt`` where keys exhaust, at
    the ragged sizes, and a 4,096-key sample against a scalar placement
    computed on the host from the ``FailureDomain``; the same at r = 9, 16,
@@ -240,9 +241,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    the serve path calls it, at the serve path's own sizes: device time per
    launch (the launches queued behind a sleeping kernel, so the card runs
    them back to back) and the wrapper's host time per call; the
-   placement pass (``place_keys``: the family route and resolve) and the
-   migration diff (``plan_migration``) at 2^24 keys, r = 3, on the fleet of
-   1000 with 250 failed, each launch's share and its bound;
+   placement pass (``place_keys``: one ``place`` launch) and the migration
+   diff (``plan_migration``, two) at 2^24 keys, r = 3, on the fleet of 1000
+   with 250 failed, the family route and resolve alone, each beside its
+   bound; ``place`` against the family route and resolve it replaces, in
+   turns, alone and with the old rows, on 200 of 256 healthy and with 50
+   failed (the store cells' fleet) and on 1000 of 1024 with 250 failed,
+   beside its bound (17 B an object against the family route's and the
+   resolution's operations);
    ``BatchRouter.route_keys`` at 2^24 keys on the healthy fleet and with
    250 failed (the storm/steady ratio); ``route_load`` at 2^24 and 2^20
    keys, shifts 6 and 0, on that fleet and on 40000/65536 (its
@@ -320,6 +326,8 @@ REPLACES = {
     "route_family": "src/repro/placement/store.py:87 (its family route: the K1/K2 pallas_call, "
                     "src/repro/kernels/fused.py:202)",
     "resolve": "src/repro/placement/store.py:131 (jnp in the JAX package; no pallas_call)",
+    "place": "src/repro/placement/store.py:87 and :131 (the family route on the K1/K2 "
+             "pallas_call, src/repro/kernels/fused.py:202, then the jnp resolve), in one launch",
     "route_load": "src/repro/observability/load.py:71 (route_with_load_impl: jnp in the JAX "
                   "package, no pallas_call; its route is the K1/K2 pallas_call, "
                   "src/repro/kernels/fused.py:202)",
@@ -395,12 +403,14 @@ SASS_STATIC = {
     ("binomial", "route_load_global"): 3000, ("jump", "route_load_global"): 2304,
     # the chain-mode remap, one function for both engines
     ("binomial", "chain_remap"): 768, ("jump", "chain_remap"): 768,
+    # the family route and the resolution in one launch (r <= 8)
+    ("binomial", "place"): 2904, ("jump", "place"): 2376,
 }
 #: bytes each kernel must move per key: keys (or two id halves) in, ids out
 BYTES_PER_KEY = {"route": 8, "ingest": 12, "lookup_dyn": 8, "lookup_vec": 8}
-#: the placement kernels: the route kernel over a key's r salted families
-#: and the distinct-resolution pass
-PLACEMENT_KINDS = ("route_family", "resolve")
+#: the placement kernels: the route kernel over a key's r salted families,
+#: the distinct-resolution pass, and both in one launch (r <= 8)
+PLACEMENT_KINDS = ("route_family", "resolve", "place")
 #: the kernels line's rows: every kind, the router's static-n lookup, the
 #: placement kernels, the instrumented route, then the chain remap
 ROWS = (*KINDS, "lookup_router", *PLACEMENT_KINDS, "route_load", "chain_remap")
@@ -790,25 +800,30 @@ def scalar_placement(domain, key: int, r: int, max_resalt: int) -> tuple[list[in
     return cols, exhausted
 
 
+def _max_err(got, want) -> int:
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want) if g is not None)
+
+
 def check_placement(kernels, keys, fleet, r: int, max_resalt: int, old=None):
-    """The family route and resolve on the card against their plain
-    versions on the same inputs -> (the kernels' (replicas, exhausted,
-    moved), max |kernel - plain| of each)."""
+    """The family route and resolve, and ``place`` (both in one launch), on
+    the card against their plain versions on the same inputs -> (the
+    kernels' (replicas, exhausted, moved), max |kernel - plain| of the
+    family route, of resolve and of place)."""
     args = (fleet.packed, fleet.table, fleet.state)
     base = kernels.route_family(keys, r, *args)
     want_base = kernels.route_family_plain(keys, r, *args)
     got = kernels.resolve(keys, base, fleet.table, fleet.state, max_resalt, old)
     want = kernels.resolve_plain(keys, base, fleet.table, fleet.state, max_resalt, old)
+    placed = kernels.place(keys, r, *args, 16, max_resalt, old)
     torch.cuda.synchronize()
     err_route = int((base.to(torch.int64) - want_base.to(torch.int64)).abs().max()) if base.numel() else 0
-    err_resolve = max(
-        int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
-        for g, w in zip(got, want) if g is not None)
+    err_resolve, err_place = _max_err(got, want), _max_err(placed, want)
     if base.shape != want_base.shape or any(
             (g is None) != (w is None) or (g is not None and g.shape != w.shape)
-            for g, w in zip(got, want)):
-        fail(f"route_family/resolve[{kernels.name}] at r = {r} gave other shapes")
-    return got, err_route, err_resolve
+            for g, w in (*zip(got, want), *zip(placed, want))):
+        fail(f"route_family/resolve/place[{kernels.name}] at r = {r} gave other shapes")
+    return got, err_route, err_resolve, err_place
 
 
 def phase_placement_kernels(max_err: dict) -> None:
@@ -829,35 +844,36 @@ def phase_placement_kernels(max_err: dict) -> None:
         for label, (plane, fleet) in fleets(engine).items():
             report = []
             for r in PLACEMENT_RS:
-                (rep, exhausted, moved), e_route, e_res = check_placement(
+                (rep, exhausted, moved), e_route, e_res, e_place = check_placement(
                     kernels, keys, fleet, r, r, last.get(r))
                 last[r] = rep
-                for kind, err in (("route_family", e_route), ("resolve", e_res)):
+                for kind, err in (("route_family", e_route), ("resolve", e_res), ("place", e_place)):
                     max_err[engine, kind] = max(max_err.get((engine, kind), 0), err)
                 host = [scalar_placement(plane.domain, k, r, r) for k in sample]
                 n_ok = int((rep[:N_ORACLE].cpu().numpy() == np.asarray([c for c, _ in host])).all(1).sum())
                 n_ok_ex = int((exhausted[:N_ORACLE].cpu().numpy() == np.asarray([x for _, x in host])).sum())
                 distinct = int((rep.sort(1).values.diff(1) != 0).sum(1).add(1).min())
-                report.append(f"r={r}: max |kernel - plain| = {e_route}/{e_res}, host placement "
+                report.append(f"r={r}: max |kernel - plain| = {e_route}/{e_res}/{e_place}, host placement "
                               f"{n_ok}/{N_ORACLE}, exhausted {int(exhausted.sum())}, fewest distinct "
                               f"{distinct}" + ("" if moved is None else f", moved {int(moved.sum())}"))
-                if e_route or e_res or n_ok != N_ORACLE or n_ok_ex != N_ORACLE or exhausted.any() \
+                if e_route or e_res or e_place or n_ok != N_ORACLE or n_ok_ex != N_ORACLE or exhausted.any() \
                         or distinct != min(r, plane.domain.alive_count):
                     fail(f"placement[{engine}] on fleet {label} at r = {r} disagrees")
-            print(f"phase 2 placement[{engine}] fleet {label}, {N_CHECK} keys (route_family/resolve): "
+            print(f"phase 2 placement[{engine}] fleet {label}, {N_CHECK} keys (route_family/resolve/place): "
                   + "; ".join(report))
         # a too-small probe bound: exhaustion, counted as the plain version counts it
         for label, plane, fleet in (("1000/1024 250 failed", *make_fleet(engine, 1000, 1024, 250, 2)),
                                     ("8/64", *make_fleet(engine, 8, 64, 0, 8))):
-            (rep, exhausted, _), e_route, e_res = check_placement(kernels, keys, fleet, 5, 1)
+            (rep, exhausted, _), e_route, e_res, e_place = check_placement(kernels, keys, fleet, 5, 1)
             host = [scalar_placement(plane.domain, k, 5, 1) for k in sample]
             n_ok_ex = int((exhausted[:N_ORACLE].cpu().numpy() == np.asarray([x for _, x in host])).sum())
             want = kernels.resolve_plain(keys, kernels.route_family_plain(
                 keys, 5, fleet.packed, fleet.table, fleet.state), fleet.table, fleet.state, 1)[1]
             print(f"phase 2 placement[{engine}] fleet {label}, r=5, max_resalt=1: exhausted "
                   f"{int(exhausted.sum())} (plain {int(want.sum())}), max |kernel - plain| = "
-                  f"{e_route}/{e_res}, host exhausted flags {n_ok_ex}/{N_ORACLE}")
-            if e_route or e_res or int(exhausted.sum()) != int(want.sum()) or n_ok_ex != N_ORACLE \
+                  f"{e_route}/{e_res}/{e_place}, host exhausted flags {n_ok_ex}/{N_ORACLE}")
+            if e_route or e_res or e_place or int(exhausted.sum()) != int(want.sum()) \
+                    or n_ok_ex != N_ORACLE \
                     or (label == "8/64" and not exhausted.any()):
                 fail(f"placement[{engine}] exhaustion on fleet {label} disagrees")
         _, fleet = make_fleet(engine, 1000, 1024, 250, 2)
@@ -865,9 +881,10 @@ def phase_placement_kernels(max_err: dict) -> None:
         worst = 0
         for size in TAIL_SIZES:
             for r in (PLACE_R, 5, 16):
-                _, e_route, e_res = check_placement(kernels, tails[:size], fleet, r, r, None)
-                worst = max(worst, e_route, e_res)
-        print(f"phase 2 placement tails[{engine}]: route_family and resolve at r = {PLACE_R}, 5 and 16, "
+                _, *errs = check_placement(kernels, tails[:size], fleet, r, r, None)
+                worst = max(worst, *errs)
+        print(f"phase 2 placement tails[{engine}]: route_family, resolve and place at r = {PLACE_R}, 5 "
+              f"and 16, "
               f"{', '.join(map(str, TAIL_SIZES))} keys: max |kernel - plain| = {worst}")
         if worst:
             fail(f"placement[{engine}] at the ragged sizes disagrees")
@@ -1029,9 +1046,9 @@ def phase_placement_wide(max_err: dict) -> None:
                                                                   old.state), old.table, old.state, r)[0]
                 errs = []
                 for with_old in (None, prev):
-                    (rep, exhausted, moved), e_route, e_res = check_placement(kernels, keys, fleet, r, r,
-                                                                              with_old)
-                    errs += [e_route, e_res]
+                    (rep, exhausted, moved), e_route, e_res, e_place = check_placement(
+                        kernels, keys, fleet, r, r, with_old)
+                    errs += [e_route, max(e_res, e_place)]
                 for kind, err in (("route_family", max(errs[::2])), ("resolve", max(errs[1::2]))):
                     max_err[engine, kind] = max(max_err.get((engine, kind), 0), err)
                 host = np.asarray([scalar_placement(plane.domain, k, r, r)[0] for k in sample])
@@ -3980,12 +3997,11 @@ def placement_storyline(engine: str, device: str, n_keys: int) -> dict:
                  f"distinct live copies (backlog {rep.backlog})")
 
     def launched(fn):
-        before = (kernels.launches["route_family"], kernels.launches["resolve"])
+        before = [kernels.launches[k] for k in PLACEMENT_KINDS]
         result = fn()
         if device == "cuda":
             torch.cuda.synchronize()
-        return result, (kernels.launches["route_family"] - before[0],
-                        kernels.launches["resolve"] - before[1])
+        return result, tuple(kernels.launches[k] - n for k, n in zip(PLACEMENT_KINDS, before))
 
     # two replicas fall silent past fail_after
     first = [int(s) for s in rng.choice(999, size=2, replace=False)]
@@ -4073,8 +4089,8 @@ def phase_placement() -> tuple[dict, dict]:
         counts = BULK_ENGINES[engine].kernels.launches
         launches[engine] = {k: counts[k] for k in PLACEMENT_KINDS}
         host[engine] = {k: v for k, v in run.items() if isinstance(v, (int, float, tuple))}
-        if min(launches[engine].values()) == 0 or run["place_launches"] != (1, 1) \
-                or run["plan_launches"] != (2, 2):
+        if launches[engine]["place"] == 0 or run["place_launches"] != (0, 0, 1) \
+                or run["plan_launches"] != (0, 0, 2):
             fail(f"placement[{engine}]: launches {launches[engine]}, per place "
                  f"{run['place_launches']}, per plan_migration {run['plan_launches']}")
         print(f"phase 3 placement[{engine}]: {STORE_KEYS} keys on {PLACE_R} distinct live copies of "
@@ -4728,14 +4744,73 @@ def registers(prefix: str) -> int:
     fail(f"no register count for {prefix} in the ptxas log")
 
 
+#: the fused placement's timed fleets (n, capacity, failed): the store
+#: cells' 200 OSDs in 256, healthy and with 50 failed, and phase 4's 1000 in
+#: 1024 with 250 failed (the ``place`` row's)
+PLACE_TIME_FLEETS = {"200/256 healthy": (200, 256, 0), "200/256 50 failed": (200, 256, 50),
+                     "1000/1024 250 failed": (1000, 1024, 250)}
+
+
+def place_bound(engine, keys, fleet, r: int, out) -> dict:
+    """The least time ``place`` could take on these keys: its bytes (a key
+    read, r ids and the exhausted flag written, 4 + 4r + 1 B an object, and
+    the fleet once, at the HBM rate) against its operations: ``bound``'s
+    count for the route of the r family keys (``WORK``: a key's load and
+    its bucket's store included) plus the resolution's, per object one
+    compare per pair of columns and the flag's store, and per collision
+    (``out``'s column equal to an earlier routed one) the re-salt hash and
+    one probe, as ``resolve_bound`` counts them."""
+    from repro_torch.core.placement_torch import family_keys
+    from repro_torch.core.registry import make_bulk
+
+    n = keys.numel()
+    fkeys = family_keys(keys, r).reshape(-1)
+    fb = bound(engine, "route", fkeys, fleet)
+    kernels = make_bulk(engine).kernels
+    base = kernels.route_family(keys, r, fleet.packed, fleet.table, fleet.state)
+    collisions = [int((base[:, j:j + 1] == out[:, :j]).any(1).sum()) for j in range(1, r)]
+    ops = n * (1 + r * (r - 1) // 2) + sum(c * (12 + j + 4) for j, c in enumerate(collisions, 1))
+    t_ops = fb["t_ops"] + ops / hw.LANE_INSTR_S * 1e3
+    nbytes = (4 + 4 * r + 1) * n + 4 * (fleet.packed.numel() + fleet.table.numel()
+                                        + fleet.state.numel())
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                t_ops=t_ops, t_bytes=t_bytes, first_trip=fb["first_trip"],
+                diverted=fb["diverted"], collisions=sum(collisions) / n)
+
+
+def place_times(kernels, keys, fleet, r: int, rounds: int = 2) -> dict:
+    """``place`` (one launch) against the family route and resolve it
+    replaces (two launches), in turns: the median ms of each, alone and
+    with ``old`` (the diff's second launch; its old rows this placement's,
+    each row's columns rotated)."""
+    args = (fleet.packed, fleet.table, fleet.state)
+    old = kernels.place(keys, r, *args, 16, r)[0].roll(1, 1)  # each old row's columns rotated
+    cases = {
+        "place": lambda: kernels.place(keys, r, *args, 16, r),
+        "pair": lambda: kernels.resolve(keys, kernels.route_family(keys, r, *args), fleet.table,
+                                        fleet.state, r),
+        "place_old": lambda: kernels.place(keys, r, *args, 16, r, old),
+        "pair_old": lambda: kernels.resolve(keys, kernels.route_family(keys, r, *args),
+                                            fleet.table, fleet.state, r, old),
+    }
+    got = {name: [] for name in cases}
+    for _ in range(rounds):
+        for name, fn in (*cases.items(), *reversed(cases.items())):
+            got[name].append(time_ms(fn))
+    return {name: statistics.median(v) for name, v in got.items()}
+
+
 def phase_placement_times(rows: dict, card: str) -> None:
     """At 2^24 keys on the fleet of 1000 in capacity 1024: ``route_keys``
     healthy and with 250 failed (the storm/steady ratio); then with 250
-    failed, r = 3: ``place_keys`` (``route_replicas_bulk``: the family
-    route and resolve) and each launch alone, and ``plan_migration``'s diff
-    (``placement_diff_bulk``, healthy -> 250 failed), beside their bounds
-    and the plain versions.  Adds the ``route_family`` and ``resolve``
-    rows."""
+    failed, r = 3: ``place_keys`` (``route_replicas_bulk``: one ``place``
+    launch), the family route and resolve alone, and ``plan_migration``'s
+    diff (``placement_diff_bulk``, healthy -> 250 failed, two launches),
+    beside their bounds and the plain versions; then ``place`` against the
+    family route and resolve it replaces, in turns, on ``PLACE_TIME_FLEETS``
+    at r = 3, alone and with the old rows.  Adds the ``route_family``,
+    ``resolve`` and ``place`` rows."""
     from repro_torch.core.bulk import PlacementSpec
     from repro_torch.core.placement_torch import family_keys
     from repro_torch.core.registry import make_bulk
@@ -4777,27 +4852,51 @@ def phase_placement_times(rows: dict, card: str) -> None:
         hb_out = kernels.resolve(keys, hb_base, healthy.table, healthy.state, PLACE_R)[0]
         hfb = bound(engine, "route", fkeys, healthy, nbytes=4 * keys.numel() + 4 * fkeys.numel())
         hrb = resolve_bound(keys, hb_base, hb_out, PLACE_R)
-        # the second resolve also reads the old columns and writes the mask
+        # the second place also reads the old columns and writes the mask
         moved_bytes = (4 + 1) * fkeys.numel() / hw.HBM_BW * 1e3
-        place_bound = fb["bound_ms"] + rb["bound_ms"]
-        plan_bound = hfb["bound_ms"] + hrb["bound_ms"] + fb["bound_ms"] + rb["bound_ms"] + moved_bytes
+        pb, hpb = place_bound(engine, keys, fleet, PLACE_R, out), place_bound(
+            engine, keys, healthy, PLACE_R, hb_out)
+        place_bound_ms = pb["bound_ms"]
+        plan_bound = hpb["bound_ms"] + pb["bound_ms"] + moved_bytes
         rows[engine, "route_family"] = dict(ms=fam, plain_ms=fam_plain, **bound_row(fb),
-                                            place_keys_ms=place, place_keys_bound_ms=place_bound,
+                                            place_keys_ms=place, place_keys_bound_ms=place_bound_ms,
                                             plan_migration_ms=plan, plan_migration_bound_ms=plan_bound)
         rows[engine, "resolve"] = dict(ms=res, plain_ms=res_plain, bound_ms=rb["bound_ms"],
                                        bound_by=rb["bound_by"])
         print(f"phase 4 route_family[{engine}] {N_TIME} keys x r = {PLACE_R}, 1000/1024 with 250 "
-              f"failed: {fam:.4f} ms ({fam / place:.1%} of place_keys), {bound_text(fb, fam)}, plain "
+              f"failed: {fam:.4f} ms, {bound_text(fb, fam)}, plain "
               f"version {fam_plain:.3f} ms")
-        print(f"phase 4 resolve[{engine}] {N_TIME} keys x r = {PLACE_R}: {res:.4f} ms ({res / place:.1%} "
-              f"of place_keys), bound {rb['bound_ms']:.4f} ms ({rb['bound_by']}; operations "
+        print(f"phase 4 resolve[{engine}] {N_TIME} keys x r = {PLACE_R}: {res:.4f} ms, "
+              f"bound {rb['bound_ms']:.4f} ms ({rb['bound_by']}; operations "
               f"{rb['t_ops']:.4f} ms, bytes {rb['t_bytes']:.4f} ms), bound/time "
               f"{share(rb['bound_ms'], res)}, plain version {res_plain:.3f} ms")
-        print(f"phase 4 place_keys[{engine}] (route_replicas_bulk, 2 launches) {N_TIME} keys, r = "
-              f"{PLACE_R}: {place:.4f} ms, bound {place_bound:.4f} ms, bound/time "
-              f"{share(place_bound, place)}; plan_migration's diff (placement_diff_bulk, 4 launches, "
+        print(f"phase 4 place_keys[{engine}] (route_replicas_bulk, 1 launch) {N_TIME} keys, r = "
+              f"{PLACE_R}: {place:.4f} ms, bound {place_bound_ms:.4f} ms, bound/time "
+              f"{share(place_bound_ms, place)}; plan_migration's diff (placement_diff_bulk, 2 launches, "
               f"healthy -> 250 failed) {plan:.4f} ms, bound {plan_bound:.4f} ms, bound/time "
               f"{share(plan_bound, plan)}; on {card}")
+        cells = {}
+        for label, (n, cap, n_fail) in PLACE_TIME_FLEETS.items():
+            _, f = make_fleet(engine, n, cap, n_fail, 2)
+            t = place_times(kernels, keys, f, PLACE_R)
+            placed = kernels.place(keys, PLACE_R, f.packed, f.table, f.state, 16, PLACE_R)[0]
+            b = place_bound(engine, keys, f, PLACE_R, placed)
+            cells[label] = dict(t, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                                t_ops=b["t_ops"], t_bytes=b["t_bytes"])
+            print(f"phase 4 place[{engine}] {N_TIME} objects x r = {PLACE_R}, {label}: one launch "
+                  f"{t['place']:.4f} ms against the family route + resolve {t['pair']:.4f} ms "
+                  f"({t['pair'] / t['place']:.3f}x; in turns); with old {t['place_old']:.4f} against "
+                  f"{t['pair_old']:.4f} ms ({t['pair_old'] / t['place_old']:.3f}x); bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}: operations {b['t_ops']:.4f} ms, bytes "
+                  f"{b['t_bytes']:.4f} ms = 17 B an object; {b['first_trip']:.1%} of family keys "
+                  f"settled on the first trip, {b['diverted']:.1%} diverted, {b['collisions']:.2%} "
+                  f"of objects collide), bound/time {share(b['bound_ms'], t['place'])}; "
+                  f"{N_TIME / t['place'] / 1e6:.3f} Gobjects/s on {card}")
+        main = cells["1000/1024 250 failed"]
+        place_plain = time_ms(lambda: kernels.place_plain(keys, PLACE_R, *args, 16, PLACE_R), 1, 3)
+        rows[engine, "place"] = dict(ms=main["place"], plain_ms=place_plain,
+                                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                                     fleets=cells)
 
 
 #: the wide placement timed in phase 4 (resolve's row path)

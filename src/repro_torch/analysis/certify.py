@@ -644,8 +644,7 @@ def placement_target(engine_name: str, contract: EngineContract, device="cpu") -
     """The R-way replicated placement pass (DESIGN.md §13),
     ``ops.route_replicas_bulk``: the family route over all R salted key
     families plus the bounded distinct-resolution probes — plain ops on the
-    CPU, affine in R; on the card two launches (``route_family``,
-    ``resolve``), flat in R."""
+    CPU, affine in R; on the card one launch (``place``), flat in R."""
     from repro_torch.core.bulk import PlacementSpec, RouterSpec
     from repro_torch.core.registry import make_bulk
     from repro_torch.kernels import ops
@@ -661,7 +660,7 @@ def placement_target(engine_name: str, contract: EngineContract, device="cpu") -
                       sync_check=_on_card(device))
 
     return Target("placement/route_replicas", tracer, {},
-                  launches={"route_family": 1, "resolve": 1} if _on_card(device) else None)
+                  launches={"place": 1} if _on_card(device) else None)
 
 
 def load_pass_target(engine_name: str, contract: EngineContract, device="cpu") -> Target:

@@ -66,7 +66,7 @@ WAIVER_TOKEN = "ct: host-ok"
 HOT_FUNCTIONS = (
     *(f"repro_torch.kernels.fused.RoutingKernels.{m}" for m in (
         "route", "route_load", "ingest", "lookup_dyn", "lookup_vec", "lookup_router",
-        "route_family", "resolve", "chain_remap")),
+        "route_family", "resolve", "place", "chain_remap")),
     "repro_torch.serving.batch_router.BatchRouter.route_keys",
     "repro_torch.serving.batch_router.BatchRouter.route_ids",
     *(f"repro_torch.kernels.ops.{f}" for f in (

@@ -110,6 +110,7 @@ FUNCTIONS = {
         ("route_load", "_ZN7routing17route_load_kernelINS_{E}ELb1EEEv"),
         ("route_load_global", "_ZN7routing17route_load_kernelINS_{E}ELb0EEEv"),
         ("chain_remap", "_ZN7routing18chain_remap_kernelE"),
+        ("place", "_ZN7routing12place_kernelINS_{E}EEEv"),
     )
 }
 
@@ -123,10 +124,12 @@ class Launch:
     """What a counted loop's bound may read: one launch's parameters, never
     its keys or its fleet's failures.
 
-    n             the launch's keys (a family route: N x r; a router call:
-                  tokens x top_k; resolve: N, one thread a key)
+    n             the launch's keys (a family route and place: N x r; a
+                  router call: tokens x top_k; resolve: N, one thread a key)
     grid, items   the launch's shape, as the library logged it (resolve:
-                  items 1; its row path, r > 8: the keys a warp takes)
+                  items 1; its row path, r > 8: the keys a warp takes;
+                  place: MAX_ITEMS, a chunk holding the whole objects
+                  whose family keys fit in 32 x items)
     omega         the lookup's unroll bound
     capacity      the fleet's slot space (the histogram's bins)
     r, max_resalt the placement's replication factor and probe bound
@@ -168,8 +171,8 @@ class Bound:
 #:   key a thread and items 1: ⌈n / (grid x THREADS)⌉);
 #: - capacity: the block's bins, THREADS a trip: ⌈capacity / THREADS⌉;
 #: - r: a key's columns, at most r (``taken_row`` compares at most r - 1);
-#:   the row path's staging and write-back walk a round's span of at most
-#:   32 rows, 32 words a trip: ⌈32 r / 32⌉ = r trips;
+#:   the row path's staging and write-back and ``place``'s write-back walk a
+#:   span of at most 32 rows, 32 words a trip: ⌈32 r / 32⌉ = r trips;
 #: - max_resalt: at most max_resalt probes a column;
 #: - max_chain: a walked key takes at most max_chain steps (the count held
 #:   is each key's steps; the loop's trips follow its keys' walks);
@@ -202,8 +205,17 @@ def jump_chain_trips(launch: Launch) -> int:
     return (32 * launch.items + 31) * _cdiv(launch.omega, 4) // 32
 
 
+def place_grid_trips(launch: Launch) -> int:
+    """The trips of ``place_kernel``'s chunk loop (routing.cu): a chunk
+    holds ⌊32 items / r⌋ whole objects, so that no object's r columns
+    straddle two warps, and the n / r objects take ⌈(n / r) / ⌊32 items /
+    r⌋⌉ chunks, one resident grid's warps apart."""
+    return _cdiv(_cdiv(launch.n // launch.r, 32 * launch.items // launch.r),
+                 launch.grid * WARPS)
+
+
 #: counted loops whose trips take a bound of their own, beside their tag's
-LOOP_BOUNDS = {"JUMP_CHAINS": jump_chain_trips}
+LOOP_BOUNDS = {"JUMP_CHAINS": jump_chain_trips, "PLACE_GRID": place_grid_trips}
 
 #: tags whose loops also record each key's steps, and the steps' bound
 KEY_STEPS = {"omega": lambda L: L.omega, "max_chain": lambda L: L.max_chain}

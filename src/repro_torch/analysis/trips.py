@@ -17,7 +17,8 @@ fleet over the same keys:
 - the contract's (64 slots, 2,048 keys; the storm fails every odd slot);
 - the serving fleet (``sass_gate.SERVING_FLEET``: 1000 in 1024, 0 and 250
   failed, 2^20 keys), with the placement at r = 3 and r = 16 and with a
-  too-small ``max_resalt``;
+  too-small ``max_resalt``: the family route and resolve alone, and at
+  r = 3 ``place`` (both in one launch) without and with the old rows;
 - 40000 in 65536 with 0 and 10,000 failed (``route_load``'s global
   instance, capacity > 4,096);
 - the lookups at n = 1 (the jump chunk's zero fill), 1025 (half the
@@ -34,7 +35,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.analysis.sass_gate import SERVING_FLEET, Launch, fleet_of, trip_loop_names
+from repro_torch.analysis.sass_gate import (
+    MAX_R,
+    SERVING_FLEET,
+    Launch,
+    fleet_of,
+    trip_loop_names,
+)
 from repro_torch.kernels import build
 
 #: the contract's fleet and batch (``certify.EngineContract``'s defaults)
@@ -189,6 +196,15 @@ def engine_runs(engine: str, device) -> list:
                         lambda k, r=r, base=base, m=max_resalt: k.resolve(
                             keys, base, fleet.table, fleet.state, m, old[r]),
                         r=r, max_resalt=max_resalt)
+                if r > MAX_R:
+                    continue  # place takes the two launches above
+                for max_resalt, prev in ((64, None), (64, old[r]), (SMALL_RESALT, old[r])):
+                    run("place" + (" old" if prev is not None else "")
+                        + (f" max_resalt {max_resalt}" if max_resalt != 64 else ""),
+                        label, storm, batch * r,
+                        lambda k, r=r, m=max_resalt, prev=prev: k.place(
+                            keys, r, *args, OMEGA, m, prev),
+                        omega=OMEGA, capacity=capacity, r=r, max_resalt=max_resalt)
     n, capacity, k_wide = WIDE_FLEET
     keys = _u32(4, keys_ser, device)
     for storm, removed in ((False, []), (True, _failed(n, k_wide, 3))):

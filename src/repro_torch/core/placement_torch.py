@@ -1,6 +1,7 @@
 """R-way placement on torch tensors — the plain versions of the placement
 kernels (``csrc/routing.cu``: the family route, ``resolve_kernel`` and
-``resolve_rows_kernel``).
+``resolve_rows_kernel``, and ``place_kernel``, which runs the first two in
+one launch).
 
 A key's ``r`` replica columns are ``r`` salted key *families* routed through
 the engine's fused route, then a distinct-resolution pass breaks collisions
@@ -33,8 +34,9 @@ from repro_torch.core.binomial_torch import GOLDEN32, mix32, mulhi32, u32
 #: resolution probes decorrelate from the base placements they collide with
 RESALT_SALT = 0x7F4A7C15
 
-#: replica columns ``resolve_kernel`` keeps in registers per key; past it
-#: ``resolve_rows_kernel`` stages a warp's rows in shared memory (any r)
+#: replica columns ``resolve_kernel`` and ``place_kernel`` keep in registers
+#: per key; past it ``resolve_rows_kernel`` stages a warp's rows in shared
+#: memory (any r)
 MAX_R = 8
 
 

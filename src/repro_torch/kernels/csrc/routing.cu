@@ -25,6 +25,13 @@
 //       elementwise jnp outside any Pallas kernel; one thread per key with
 //       its columns in registers up to r = MAX_R, and beyond, a warp's rows
 //       staged in shared memory and resolved there, a lane a key;
+//   place_kernel<Engine>              the family route and the resolution in
+//       one launch for r <= MAX_R (the placement's main path): a warp routes
+//       a chunk of whole objects with the route's chunk code, keeps their
+//       columns in shared memory, resolves them a lane an object and writes
+//       the rows coalesced, so the (N, r) routed columns never reach device
+//       memory (see its note); r > MAX_R keeps the family route and the row
+//       path;
 //   route_load_kernel<Engine, kShared> the instrumented route of
 //       src/repro/observability/load.py:71-118 (route_with_load_impl, jnp in
 //       the reference, one jitted dispatch): route_kernel's chunk loop with
@@ -175,12 +182,14 @@ struct NoCount {
   static constexpr bool kKeeps = false;
   static constexpr bool kReads = false;
   static constexpr bool kPerKey = false;
+  static constexpr bool kStores = true;
 };
 
 struct SharedCount {
   static constexpr bool kKeeps = true;
   static constexpr bool kReads = false;
   static constexpr bool kPerKey = false;
+  static constexpr bool kStores = true;
   uint32_t hist;  // the block's bins: their shared-memory address
   uint32_t cap;
   int shift;
@@ -196,6 +205,7 @@ struct GlobalCount {
   static constexpr bool kKeeps = false;
   static constexpr bool kReads = true;
   static constexpr bool kPerKey = false;
+  static constexpr bool kStores = true;
   uint32_t* counts;
   uint32_t cap;
   int shift;
@@ -210,11 +220,22 @@ struct DenseCount {
   static constexpr bool kKeeps = false;
   static constexpr bool kReads = false;
   static constexpr bool kPerKey = true;
+  static constexpr bool kStores = true;
   uint32_t* counts;
   uint32_t cap;
   __device__ __forceinline__ void add(uint32_t b) const {
     if (b < cap) asm volatile("red.global.add.u32 [%0], %1;" ::"l"(counts + b), "r"(1u) : "memory");
   }
+};
+
+// The fused placement's (place_kernel): no count, every settled replica
+// kept in the warp's w.out for the resolution in the same launch, and none
+// stored to `out` (kStores false; every other policy stores).
+struct Stage {
+  static constexpr bool kKeeps = true;
+  static constexpr bool kReads = false;
+  static constexpr bool kPerKey = false;
+  static constexpr bool kStores = false;
 };
 
 // Binomial over one warp's chunk of `count` keys (base .. base + count - 1):
@@ -260,7 +281,9 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
       more = in && !(p.omega >= 1 && c < p.n);
     }
     const bool hit = in && !more && d.removed(c);
-    if (in && !more && !hit) out[base + e] = static_cast<int32_t>(c);
+    if constexpr (C::kStores) {
+      if (in && !more && !hit) out[base + e] = static_cast<int32_t>(c);
+    }
     if constexpr (C::kPerKey) {
       if (in && !more && !hit) cnt.add(c);
     }
@@ -293,7 +316,7 @@ __device__ void binomial_chunk(WarpArea& w, const Source& src, const D& d, const
     const uint32_t key = w.key[e];
     uint32_t b = goes_on ? Binomial::rest(key, p.n, p.E, p.M, p.omega) : w.out[e];
     if (!goes_on || d.removed(b)) b = d.redirect(key, b);
-    out[base + e] = static_cast<int32_t>(b);
+    if constexpr (C::kStores) out[base + e] = static_cast<int32_t>(b);
     if constexpr (C::kPerKey) cnt.add(b);
     if constexpr (C::kKeeps) w.out[e] = b;
   }
@@ -404,7 +427,9 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       const bool in = e < count;
       const uint32_t b = in ? w.out[e] : 0u;
       const bool hit = in && d.removed(b);
-      if (in && !hit) out[base + e] = static_cast<int32_t>(b);
+      if constexpr (C::kStores) {
+        if (in && !hit) out[base + e] = static_cast<int32_t>(b);
+      }
       if constexpr (C::kPerKey) {
         if (in && !hit) cnt.add(b);
       }
@@ -420,7 +445,7 @@ __device__ void jump_chunk(WarpArea& w, const Source& src, const D& d, const Loo
       const int e = w.queue[q];
       if constexpr (C::kKeeps || C::kPerKey) {
         const uint32_t b = d.redirect(w.key[e], w.out[e]);
-        out[base + e] = static_cast<int32_t>(b);
+        if constexpr (C::kStores) out[base + e] = static_cast<int32_t>(b);
         if constexpr (C::kKeeps) w.out[e] = b;
         if constexpr (C::kPerKey) cnt.add(b);
       } else {
@@ -827,6 +852,150 @@ resolve_rows_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict
   }
 }
 
+// The fused placement (r <= MAX_R): the family route and the
+// distinct-resolution pass in one launch, bit for bit what
+// route_kernel<Engine, FamilyKeySource> followed by resolve_kernel gives.
+// It replaces src/repro/placement/store.py:87's family route (the fused
+// route, the K1/K2 pallas_call at fused.py:202) and store.py:131-178's jnp
+// resolve, which the reference runs one after the other over an (N, r)
+// array.  As two launches the routed (N, r) columns went to device memory
+// and came back with the keys: 8r + 4 B an object beyond the 4 + 4r + 1 B
+// the call must move (17 B at r = 3), and at r = 3 on 200 of 256 OSDs the
+// second launch was 35 % of the call's device time (PERF.md §6).  Here the
+// columns stay on chip.  A warp takes a chunk of the whole objects whose
+// family keys fit in SEG (SEG / r of them, 85 at r = 3), so that no
+// object's columns straddle two warps, and routes the chunk's family keys
+// (entry e: column e % r of object e / r, as the family route lays them
+// out) with the route kernel's own chunk code (binomial_chunk, jump_chunk),
+// told by Stage to keep every settled column in the warp's w.out and store
+// none; then a lane takes an object, resolves its row there in registers
+// with resolve_kernel's taken test, re-salt and probes, and writes it back
+// in place (moved bytes beside it in w.key, free by then), and the warp
+// copies the chunk's rows, which w.out holds in the output's own layout, to
+// `out` coalesced.  A first design gave each lane one object with its r
+// columns as its items: 3 items a lane at r = 3 against the family route's
+// 8, and 61 registers; it ran 0.594 ms against the two launches' 0.692 at
+// 2^24 objects on 200 of 256 (binomial; jump no faster), this one 0.508
+// (PERF.md §6).  What bounds it on the H100 is the family route's:
+// instruction issue and its latency, not bytes (17 B an object, 0.085 ms at
+// 2^24).  r > MAX_R keeps the two launches: the row path's rows take up to a
+// block's whole opt-in shared memory, which the route's WarpAreas (18 KB a
+// block) would cost occupancy to share.
+
+// The family keys of a fused placement's chunk: entry e (< SEG) is column
+// e % r of the chunk's object e / r, mix32(keys[e / r] ^ family_salt(e % r));
+// e / r is (e * inv) >> 16 with inv = 2^16 / r rounded up, exact for every
+// e < 2^8 and r <= 8 (a multiply, no division).
+struct ChunkFamilySource {
+  // loads as it goes, as FamilyKeySource: preloaded, 2^24 objects at r = 3
+  // on 200 of 256 took 0.538 ms against 0.520 (binomial; PERF.md §6)
+  static constexpr bool kPreload = false;
+  const uint32_t* keys;  // the chunk's first object's key
+  uint32_t r, inv;
+  __device__ __forceinline__ uint32_t operator()(int64_t i) const {
+    const uint32_t e = static_cast<uint32_t>(i);
+    const uint32_t t = (e * inv) >> 16;
+    return mix32(keys[t] ^ family_salt(e - t * r));
+  }
+};
+
+template <class Engine>
+__global__ void __launch_bounds__(THREADS)
+place_kernel(const uint32_t* __restrict__ keys, Fleet fleet, const int32_t* __restrict__ state,
+             int omega, int r, int max_resalt, const int32_t* __restrict__ old,
+             int32_t* __restrict__ out, uint8_t* __restrict__ exhausted,
+             uint8_t* __restrict__ moved, int64_t n) {
+  __shared__ WarpArea area[WARPS];
+  WarpArea& w = area[threadIdx.x >> 5];
+  const uint32_t n_total = static_cast<uint32_t>(state[0]);
+  const uint32_t n_alive = static_cast<uint32_t>(state[1]);
+  const Divert d{fleet, n_total, n_alive};
+  const Lookup p = fold(n_total, omega);
+  const int lane = threadIdx.x & 31;
+  const int objs = SEG / r;  // a chunk's objects: at most SEG family keys
+  const uint32_t inv = (65536u + r - 1u) / static_cast<uint32_t>(r);
+  uint8_t* const moves = reinterpret_cast<uint8_t*>(w.key);  // the chunk's moved bytes
+  const int64_t step = static_cast<int64_t>(gridDim.x) * WARPS * objs;
+  CT_TRIPS(PLACE_GRID);
+  // ct-loop: grid: the warp's chunks of SEG / r objects, one resident grid's stride apart
+  for (int64_t first = (static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * objs;
+       first < n; first += step) {
+    CT_TRIP(PLACE_GRID);
+    const int cnt = static_cast<int>(n - first < objs ? n - first : objs);
+    const ChunkFamilySource src{keys + first, static_cast<uint32_t>(r), inv};
+    if constexpr (std::is_same_v<Engine, Binomial>) {
+      binomial_chunk(w, src, d, p, nullptr, 0, cnt * r, Stage{});
+    } else {
+      jump_chunk(w, src, d, p, nullptr, 0, cnt * r, Stage{});
+    }
+    CT_TRIPS(PLACE_OBJECTS);
+    // ct-loop: chunk: the chunk's objects (at most SEG / r), a lane each, 32 a trip
+    for (int t = lane; t < cnt; t += 32) {
+      CT_TRIP(PLACE_OBJECTS);
+      uint32_t* row = w.out + t * r;
+      uint32_t col[MAX_R];
+      // ct-loop: static: MAX_R columns, unrolled
+#pragma unroll
+      for (int j = 0; j < MAX_R; ++j) col[j] = j < r ? row[j] : 0u;
+      bool ex = false;
+      // ct-loop: static: MAX_R columns, unrolled
+#pragma unroll
+      for (int j = 1; j < MAX_R; ++j) {
+        if (j >= r) break;
+        uint32_t b = col[j];
+        bool coll = taken(col, j, b);
+        if (coll) {
+          uint32_t q = __umulhi(mix32(mix32(keys[first + t] ^ family_salt(j)) ^ RESALT_SALT),
+                                n_alive);
+          CT_TRIPS(PLACE_PROBE);
+          // ct-loop: max_resalt: the column's probes
+          for (int k = 0; coll && k < max_resalt; ++k) {
+            CT_TRIP(PLACE_PROBE);
+            const uint32_t cand = static_cast<uint32_t>(fleet.slots[q]);
+            if (!taken(col, j, cand)) {
+              b = cand;
+              coll = false;
+            }
+            q += 1u;
+            if (q >= n_alive) q -= n_alive;  // conditional wrap, no division
+          }
+          row[j] = b;
+        }
+        ex |= coll && static_cast<uint32_t>(j) < n_alive;
+        col[j] = b;
+      }
+      exhausted[first + t] = ex;
+      if (old != nullptr) {
+        uint32_t prev[MAX_R];
+        // ct-loop: static: MAX_R old columns, unrolled
+#pragma unroll
+        for (int k = 0; k < MAX_R; ++k) {
+          prev[k] = k < r ? static_cast<uint32_t>(old[(first + t) * r + k]) : 0u;
+        }
+        // ct-loop: static: MAX_R columns, unrolled
+#pragma unroll
+        for (int j = 0; j < MAX_R; ++j) {
+          if (j >= r) break;
+          bool kept = false;
+          // ct-loop: static: MAX_R old columns, unrolled
+#pragma unroll
+          for (int k = 0; k < MAX_R; ++k) kept |= k < r && prev[k] == col[j];
+          moves[t * r + j] = !kept;
+        }
+      }
+    }
+    __syncwarp();
+    CT_TRIPS(PLACE_WRITE);
+    // ct-loop: chunk: the chunk's cnt x r columns (at most SEG), 32 a trip
+    for (int e = lane; e < cnt * r; e += 32) {
+      CT_TRIP(PLACE_WRITE);
+      out[first * r + e] = static_cast<int32_t>(w.out[e]);
+      if (old != nullptr) moved[first * r + e] = moves[e];
+    }
+    __syncwarp();  // the rows are read before the next chunk's route writes w
+  }
+}
+
 // The rejection-chain remap: a key whose base bucket b is removed moves to
 // hash_pair(hash^(s+1)(key), b) % n_total at step s = 0, 1, ... until it
 // lands on an alive slot; after max_chain steps it takes first_alive.  It
@@ -1041,7 +1210,7 @@ inline void log_launch(Shape shape) {
 }
 
 template <class Kernel>
-Shape shape_for(Kernel kernel, int64_t n, int (&resident)[64]) {
+int64_t resident_blocks(Kernel kernel, int (&resident)[64]) {
   int dev = 0;
   cudaGetDevice(&dev);
   const int slot = dev >= 0 && dev < 64 ? dev : 0;
@@ -1051,7 +1220,12 @@ Shape shape_for(Kernel kernel, int64_t n, int (&resident)[64]) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     resident[slot] = per_sm * sms > 0 ? per_sm * sms : 1;
   }
-  const int64_t blocks = resident[slot];
+  return resident[slot];
+}
+
+template <class Kernel>
+Shape shape_for(Kernel kernel, int64_t n, int (&resident)[64]) {
+  const int64_t blocks = resident_blocks(kernel, resident);
   int64_t items = (n + blocks * THREADS - 1) / (blocks * THREADS);
   items = items < 1 ? 1 : (items > MAX_ITEMS ? MAX_ITEMS : items);
   const int64_t tiles = (n + THREADS * items - 1) / (THREADS * items);
@@ -1193,6 +1367,27 @@ int rows_shape(int r, bool with_old, int64_t n, RowsShape* shape) {
   if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
   shape->grid = static_cast<int>(blocks);
   return 0;
+}
+
+// The fused placement's launch: chunks of SEG / r objects a warp over the
+// resident grid, at most one block per WARPS chunks; logged with items =
+// MAX_ITEMS (a chunk's family keys are at most 32 x items; the SASS gate's
+// place_grid_trips counts its chunks).  1 <= r <= MAX_R.
+template <class Engine>
+int launch_place(const void* keys, int r, const Fleet& fleet, const void* state, int omega,
+                 int max_resalt, const void* old, void* out, void* exhausted, void* moved,
+                 int64_t n, cudaStream_t stream) {
+  static int resident[64] = {};
+  const int64_t blocks = resident_blocks(place_kernel<Engine>, resident);
+  const int64_t per_block = int64_t{WARPS} * (SEG / r);  // objects
+  const int64_t tiles = (n + per_block - 1) / per_block;
+  const Shape shape{static_cast<int>(tiles < blocks ? tiles : blocks), MAX_ITEMS};
+  log_launch(shape);
+  place_kernel<Engine><<<shape.grid, THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(keys), fleet, static_cast<const int32_t*>(state), omega, r,
+      max_resalt, static_cast<const int32_t*>(old), static_cast<int32_t*>(out),
+      static_cast<uint8_t*>(exhausted), static_cast<uint8_t*>(moved), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_resolve(const void* keys, const void* base, const void* slots, const void* state,
@@ -1356,6 +1551,28 @@ extern "C" int routing_resolve(const void* keys, const void* base, const void* s
                                void* stream) {
   return routing::launch_resolve(keys, base, slots, state, r, max_resalt, old, out, exhausted,
                                  moved, n, static_cast<cudaStream_t>(stream));
+}
+
+// An R-way placement in one launch: keys (n,) -> out (n, r) row-major, the
+// family route and the distinct-resolution pass, exhausted (n,) bytes and,
+// with old (n, r), moved (n, r) bytes (old and moved may both be null);
+// 1 <= r <= 8 and max_resalt >= 0 (-1 otherwise, or for an unknown engine).
+extern "C" int routing_place(int engine, const void* keys, int r, const void* mask, int n_words,
+                             const void* slots, int n_slots, const void* state, int omega,
+                             int max_resalt, const void* old, void* out, void* exhausted,
+                             void* moved, long long n, void* stream) {
+  using namespace routing;
+  if (r < 1 || r > MAX_R || max_resalt < 0) return -1;
+  const Fleet fleet{static_cast<const uint32_t*>(mask), n_words,
+                    static_cast<const int32_t*>(slots), n_slots};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (engine) {
+    case 0: return launch_place<Binomial>(keys, r, fleet, state, omega, max_resalt, old, out,
+                                          exhausted, moved, n, s);
+    case 1: return launch_place<Jump>(keys, r, fleet, state, omega, max_resalt, old, out,
+                                      exhausted, moved, n, s);
+    default: return -1;
+  }
 }
 
 // The row path's launch for r > 8 columns (with or without the old rows)

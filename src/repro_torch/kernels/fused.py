@@ -3,7 +3,8 @@
 building the MoE hash router's keys from token ids), ``route_load`` (the
 route with the load monitor's per-shard count in the same launch), and the
 R-way placement's ``route_family`` (the route kernel over a key's ``r``
-salted families) and ``resolve`` (the distinct-resolution pass), and ``chain_remap`` (the chain-mode
+salted families), ``resolve`` (the distinct-resolution pass) and ``place``
+(both in one launch for ``r <= MAX_R``), and ``chain_remap`` (the chain-mode
 Memento remap), each beside its plain torch version and with a launch
 count.
 
@@ -27,7 +28,8 @@ TPU's Pallas kernels of ``repro.kernels.fused.make_fused_kernels``
                 store.py:87, which runs the fused route, pallas_call at
                 fused.py:202, on TPU); ``resolve`` is that function's
                 distinct-resolution pass, which the reference computes
-                outside any Pallas kernel
+                outside any Pallas kernel; ``place`` runs both in one
+                launch, the routed columns kept on chip
     route_load  the instrumented route of
                 ``repro.observability.load.route_with_load_impl``
                 (load.py:71-118; jnp in the reference, no Pallas kernel)
@@ -45,8 +47,8 @@ the fleet operands are those of ``repro_torch.core.bulk.FleetState``
 (packed mask ``(W,)``, table ``(C,)``, state ``(2,)``, all int32); ``n`` of
 ``lookup_dyn`` is a 1-element int32 tensor, that of ``lookup_vec`` a Python
 int.  Outputs are int32 tensors of the keys' shape (``lookup_router``: the
-token ids' shape plus ``top_k``; ``route_family`` and ``resolve``: the
-keys' count by ``r``).  ``chain_remap`` takes the keys, their base
+token ids' shape plus ``top_k``; ``route_family``, ``resolve`` and
+``place``: the keys' count by ``r``).  ``chain_remap`` takes the keys, their base
 buckets, the packed mask and a ``(2,)`` int32 ``[n_total, first_alive]``
 (``repro_torch.core.bulk.ChainFleet``).  ``route_load``'s accumulator is a ``(capacity,)``
 int32 tensor of u32 bit patterns, advanced in place.
@@ -78,13 +80,13 @@ from repro_torch.core.memento_torch import (
     binomial_memento_route,
     chain_remap_impl,
 )
-from repro_torch.core.placement_torch import family_keys, resolve_columns
+from repro_torch.core.placement_torch import MAX_R, family_keys, resolve_columns
 from repro_torch.kernels import build
 from repro_torch.observability.load import route_with_load_impl
 
 #: kernel kinds, as the launch counts are keyed
 KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec", "route_family", "resolve", "route_load",
-         "chain_remap")
+         "chain_remap", "place")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -360,6 +362,48 @@ class RoutingKernels:
         return out
 
     resolve_plain = staticmethod(resolve_columns)
+
+    def place_plain(self, keys, r: int, packed, table, state, omega: int, max_resalt: int,
+                    old=None):
+        base = self.route_family_plain(keys, r, packed, table, state, omega)
+        return self.resolve_plain(keys, base, table, state, max_resalt, old)
+
+    def place(self, keys, r: int, packed, table, state, omega: int, max_resalt: int, old=None):
+        """An R-way placement: keys (N,) -> ``(replicas (N, r) int32,
+        exhausted (N,) bool, moved (N, r) bool or None)``, the family route
+        then the distinct-resolution pass (``max_resalt`` probes a column),
+        with ``old`` (N, r) also the moved mask, as ``route_family``
+        followed by ``resolve`` gives them.  Up to ``MAX_R`` columns one
+        launch (``place``: the columns stay on chip); past it
+        ``route_family`` and ``resolve``'s row path, two launches."""
+        operands = (keys, packed, table, state) + (() if old is None else (old,))
+        if _on_cpu(*operands):
+            return self.place_plain(keys, r, packed, table, state, omega, max_resalt, old)
+        if r < 1:
+            raise ValueError(f"the placement kernels take r >= 1, got {r}")
+        if max_resalt < 0:
+            raise ValueError(f"max_resalt must be >= 0, got {max_resalt}")
+        _check_state(state)
+        n = keys.numel()
+        if old is not None and old.shape != (n, r):
+            raise ValueError(f"old must be ({n}, {r}), got {tuple(old.shape)}")
+        if r > MAX_R:
+            base = self.route_family(keys, r, packed, table, state, omega)
+            return self.resolve(keys, base, table, state, max_resalt, old)
+        out = torch.empty((n, r), dtype=torch.int32, device=keys.device)
+        exhausted = torch.empty(n, dtype=torch.bool, device=keys.device)
+        moved = None if old is None else torch.empty((n, r), dtype=torch.bool, device=keys.device)
+        if n:
+            with torch.cuda.device(keys.device):
+                rc = self._library().routing_place(
+                    self.engine_id, _ptr(keys), r, _ptr(packed), packed.numel(), _ptr(table),
+                    table.numel(), _ptr(state), omega, max_resalt,
+                    None if old is None else _ptr(old), _ptr(out), _ptr(exhausted),
+                    None if moved is None else _ptr(moved), n, _stream(keys),
+                )
+            _check(rc, f"{self.name} place")
+            self.launches["place"] += 1
+        return out, exhausted, moved
 
     def resolve(self, keys, base, table, state, max_resalt: int, old=None):
         """The distinct-resolution pass: keys (N,) and their routed family

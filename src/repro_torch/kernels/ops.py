@@ -13,9 +13,10 @@ tensors and runs the plain torch version for CPU tensors:
 * ``route_chain_bulk(keys, chain, spec)``    — the chain-mode two-pass path:
   the dynamic-n lookup, then the rejection-chain remap (two launches);
 * ``route_replicas_bulk(keys, fleet, pspec)`` — R-way placement: the family
-  route, then the distinct-resolution pass (two launches);
+  route and the distinct-resolution pass (one launch up to r = 8, two
+  past it);
 * ``placement_diff_bulk(keys, old, new, pspec)`` — both placements and the
-  moved mask (four launches);
+  moved mask (two launches up to r = 8, four past it);
 * ``make_sharded_route(mesh, spec)`` — the mesh-sharded route: each rank
   routes its shard of the batch in one launch.
 
@@ -101,15 +102,14 @@ def route_replicas_bulk(keys: torch.Tensor, fleet: FleetState, pspec: PlacementS
     """R-way replicated placement: keys (N,) + fleet state -> ``(replicas
     (N, r) int32 distinct alive shards, exhausted (N,) bool)``
     (``repro_torch.placement.store.route_replicas_impl`` says what they
-    hold).  On CUDA tensors: one family-route launch (all ``r`` salted
-    families) and one resolve launch; on CPU tensors their plain versions.
-    ``n_alive >= 1`` is the caller's precondition, as for ``route_bulk``."""
+    hold).  On CUDA tensors one ``place`` launch, the family route and the
+    resolution with the columns on chip (r > 8: a family-route launch and a
+    resolve launch); on CPU tensors their plain versions.  ``n_alive >= 1``
+    is the caller's precondition, as for ``route_bulk``."""
     spec = pspec.router
-    k = _kernels(spec)
-    keys = keys.reshape(-1)
-    base = k.route_family(keys, pspec.r, fleet.packed, fleet.table, fleet.state, spec.omega)
-    replicas, exhausted, _ = k.resolve(keys, base, fleet.table, fleet.state,
-                                       pspec.resolved_max_resalt)
+    replicas, exhausted, _ = _kernels(spec).place(
+        keys.reshape(-1), pspec.r, fleet.packed, fleet.table, fleet.state, spec.omega,
+        pspec.resolved_max_resalt)
     return replicas, exhausted
 
 
@@ -119,15 +119,14 @@ def placement_diff_bulk(
     """Bulk migration diff: ``(old (N, r), new (N, r), moved (N, r) bool,
     exhausted_new (N,))`` with ``moved[i, j] = new[i, j] not in old[i, :]``
     (membership, not positional inequality: a column swap is free, only a
-    shard with no prior copy needs bytes).  On CUDA: two family-route
-    launches and two resolve launches, the second computing ``moved``."""
+    shard with no prior copy needs bytes).  On CUDA: two ``place`` launches,
+    the second computing ``moved`` (r > 8: two family-route launches and two
+    resolve launches)."""
     old, _ = route_replicas_bulk(keys, fleet_old, pspec)
-    k = _kernels(pspec.router)
-    keys = keys.reshape(-1)
     f = fleet_new
-    routed = k.route_family(keys, pspec.r, f.packed, f.table, f.state, pspec.router.omega)
-    new, exhausted, moved = k.resolve(keys, routed, f.table, f.state, pspec.resolved_max_resalt,
-                                      old)
+    new, exhausted, moved = _kernels(pspec.router).place(
+        keys.reshape(-1), pspec.r, f.packed, f.table, f.state, pspec.router.omega,
+        pspec.resolved_max_resalt, old)
     return old, new, moved, exhausted
 
 

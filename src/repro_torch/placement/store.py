@@ -20,8 +20,8 @@ Three layers:
   collisions between columns.  The default bound of ``r`` probes makes
   distinctness DETERMINISTIC whenever ``n_alive > column``, so every key
   gets exactly ``min(r, n_alive)`` distinct alive shards.  On the card
-  ``repro_torch.kernels.ops.route_replicas_bulk`` runs them as two kernel
-  launches (the family route and ``resolve``).
+  ``repro_torch.kernels.ops.route_replicas_bulk`` runs them as one kernel
+  launch (``place``; past r = 8 the family route and ``resolve``, two).
 
 * ``StorePlacement`` — the host control plane: guarded placement with typed
   degradation (``n_alive == 0`` stays ``FleetUnavailableError``;

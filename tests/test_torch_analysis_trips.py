@@ -34,7 +34,7 @@ def test_every_bounded_loop_is_counted_once():
     assert FINDINGS == []
     tagged = [lp for p in PATHS for lp in sass_gate.source_loops(p) if lp.bound != "static"]
     assert sorted((lp.file, lp.first) for lp in tagged) == sorted((c.file, c.line) for c in LOOPS)
-    assert [c.name for c in LOOPS] == NAMES and len(LOOPS) == 22
+    assert [c.name for c in LOOPS] == NAMES and len(LOOPS) == 26
     assert {c.tag for c in LOOPS} == set(BOUNDS) - {"static"}
 
 
@@ -89,7 +89,7 @@ def test_every_tag_has_a_formula_of_the_launch():
     for tag, bound in BOUNDS.items():
         assert isinstance(bound.text, str) and bound.text
         assert isinstance(bound.trips(CONTRACT), int), tag
-    assert set(sass_gate.LOOP_BOUNDS) == {"JUMP_CHAINS"}
+    assert set(sass_gate.LOOP_BOUNDS) == {"JUMP_CHAINS", "PLACE_GRID"}
     assert set(sass_gate.KEY_STEPS) == {"omega", "max_chain"} == {
         c.tag for c in LOOPS if c.tag in sass_gate.KEY_STEPS}
 
@@ -110,6 +110,22 @@ def test_formulas_give_the_hand_derived_bounds(launch, want):
     # resolve: one key a thread (items 1), so the grid bound is n over the threads
     resolve = Launch(1 << 20, 512, 1)
     assert BOUNDS["grid"].trips(resolve) == -(-(1 << 20) // (512 * sass_gate.THREADS)) == 8
+
+
+@pytest.mark.parametrize("r", range(1, 9))
+@pytest.mark.parametrize("objects, grid", [(1, 1), (85, 1), (86, 1), (4097, 3), (1 << 20, 1024)])
+def test_place_grid_bound_is_the_busiest_warps_chunks(r, objects, grid):
+    """``place_kernel``'s chunk loop: warp w of the grid takes the chunks of
+    ⌊256 / r⌋ whole objects starting at w, w + grid x WARPS, ...; the bound
+    is the busiest warp's count, and no chunk holds more than 256 family
+    keys (32 x items)."""
+    per = 32 * sass_gate.MAX_ITEMS // r
+    assert per * r <= 32 * sass_gate.MAX_ITEMS < (per + 1) * r
+    warps = grid * sass_gate.WARPS
+    chunks = -(-objects // per)
+    busiest = max(len(range(w, chunks, warps)) for w in range(min(warps, chunks)))
+    launch = Launch(objects * r, grid, sass_gate.MAX_ITEMS, r=r)
+    assert sass_gate.place_grid_trips(launch) == busiest
 
 
 def _lane_refill_trips(key_trips: list) -> int:

@@ -6,7 +6,8 @@ with n rewritten on the device, the MoE router's fused key build
 ``BatchRouter`` on the card against the plain-version router, a 2-layer
 hash-routed MoE ``ServingTier`` on the card against the same tier on the CPU,
 the R-way placement kernels (the family route and ``resolve``, also past
-the register columns at r = 9, 16 and 32) against their plain versions,
+the register columns at r = 9, 16 and 32, and ``place``, both in one
+launch up to r = 8) against their plain versions,
 resolve's row path (r = 9 to 64, odd and even row strides, and two r whose
 rows outgrow a block's shared memory) at its launch's edges, the
 placement tier with its lifecycle and repairer on the card against the same
@@ -180,8 +181,9 @@ def test_batch_router_on_card(cuda, engine, fused):
 
 
 def test_wrappers_refuse_non_int32_on_card(cuda):
-    """What the kernels do not take: r = 0, non-int32 keys, a short state.
-    r = 9 (past resolve's register columns) is taken."""
+    """What the kernels do not take: r = 0, a negative probe bound, old rows
+    of another shape, non-int32 keys, a short state.  r = 9 (past resolve's
+    register columns) is taken."""
     k = BULK_ENGINES["binomial"].kernels
     f = _fleet("binomial", 10, 64, 0, 0)
     keys = torch.zeros(8, dtype=torch.int32, device=cuda)
@@ -193,6 +195,13 @@ def test_wrappers_refuse_non_int32_on_card(cuda):
     assert base.shape == (8, 9)
     out, ex, _ = k.resolve(keys, base, f.table, f.state, 9)
     assert out.shape == (8, 9) and not ex.any()
+    with pytest.raises(ValueError, match="r >= 1"):
+        k.place(keys, 0, f.packed, f.table, f.state, 16, 0)
+    with pytest.raises(ValueError, match="max_resalt"):
+        k.place(keys, 3, f.packed, f.table, f.state, 16, -1)
+    with pytest.raises(ValueError, match="old must be"):
+        k.place(keys, 3, f.packed, f.table, f.state, 16, 3, out)
+    assert torch.equal(k.place(keys, 9, f.packed, f.table, f.state, 16, 9)[0], out)
     with pytest.raises(ValueError, match="int32"):
         k.route(torch.zeros(8, dtype=torch.int64, device=cuda), f.packed, f.table, f.state)
     with pytest.raises(ValueError, match="n_total, n_alive"):
@@ -417,26 +426,78 @@ def test_resolve_row_path_where_rows_do_not_fit(cuda, r, with_old):
     assert build.library().routing_resolve_rows_shape(8, 0, 1, (ctypes.c_int * 4)()) == -1
 
 
+#: (route_family, resolve, place) launches of a placement and of a diff: one
+#: ``place`` launch up to r = 8; past it the family route and the row path
+PLACEMENT_LAUNCHES = {3: ((0, 0, 1), (0, 0, 3)), 9: ((1, 1, 0), (3, 3, 0))}
+
+
+@pytest.mark.parametrize("r", sorted(PLACEMENT_LAUNCHES))
 @pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
-def test_placement_entry_points_launch_as_documented(cuda, engine):
+def test_placement_entry_points_launch_as_documented(cuda, engine, r):
     k = BULK_ENGINES[engine].kernels
     router = BatchRouter(1000, engine=engine, capacity=1024)
-    pspec = PlacementSpec(router=router.spec, r=3)
+    pspec = PlacementSpec(router=router.spec, r=r)
     keys = _u32(21, 1 << 16, cuda)
     old = router._fleet_dev
     router.fail(17), router.fail(500)
     k.reset_launches()
+
+    def launched():
+        return tuple(k.launches[kind] for kind in ("route_family", "resolve", "place"))
+
+    one, diff = PLACEMENT_LAUNCHES[r]
     rep, ex = ops.route_replicas_bulk(keys, router._fleet_dev, pspec)
-    assert (k.launches["route_family"], k.launches["resolve"]) == (1, 1)
+    assert launched() == one
     o, n, moved, ex2 = ops.placement_diff_bulk(keys, old, router._fleet_dev, pspec)
-    assert (k.launches["route_family"], k.launches["resolve"]) == (3, 3)
+    assert launched() == diff
     assert torch.equal(n, rep) and torch.equal(ex, ex2) and not ex.any()
     f = router._fleet_dev
     from repro_torch.placement.store import placement_diff_impl
     want = placement_diff_impl(keys, old.packed, old.table, old.state, f.packed, f.table, f.state,
-                               r=3, omega=16, max_resalt=3, route=k.route_plain)
+                               r=r, omega=16, max_resalt=r, route=k.route_plain)
     for g, w in zip((o, n, moved, ex2), want):
         assert torch.equal(g, w)
+
+
+#: the fused placement's fleets: healthy, ``PLACEMENT_FLEETS`` (n_alive below
+#: r among them) and the store's 200 of 256 with 50 failed
+PLACE_FLEETS = ((1000, 1024, 0), *PLACEMENT_FLEETS, (200, 256, 50))
+#: sizes around the place kernel's chunks (85 objects at r = 3, 32 at r = 8,
+#: 256 at r = 1): one, a warp, past a block's pass, and 1000, which ends
+#: mid-chunk at every r
+PLACE_SIZES = (1, 33, 257, 1000, 4097, 1 << 14)
+
+
+@pytest.mark.parametrize("max_resalt", [None, 0, 1])
+@pytest.mark.parametrize("r", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+def test_place_matches_plain(cuda, engine, r, max_resalt):
+    """The fused placement (the family route and resolve in one launch)
+    against its plain version and the two launches it replaces, bit for bit:
+    replicas, exhausted and, with ``old``, moved; one ``place`` launch a
+    call and none of the other two."""
+    k = BULK_ENGINES[engine].kernels
+    mr = r if max_resalt is None else max_resalt
+    for fleet in PLACE_FLEETS:
+        f = _fleet(engine, *fleet, seed=fleet[2] + 11)
+        healthy = _fleet(engine, fleet[0], fleet[1], 0, 0)
+        args = (f.packed, f.table, f.state)
+        for size in PLACE_SIZES:
+            keys = _u32(size + 7 * r, size, cuda)
+            prev = k.place(keys, r, healthy.packed, healthy.table, healthy.state, 16, mr)[0]
+            for old in (None, prev):
+                before = dict(k.launches)
+                got = k.place(keys, r, *args, 16, mr, old)
+                assert k.launches["place"] == before["place"] + 1
+                assert (k.launches["route_family"], k.launches["resolve"]) == (
+                    before["route_family"], before["resolve"])
+                want = k.place_plain(keys, r, *args, 16, mr, old)
+                pair = k.resolve(keys, k.route_family(keys, r, *args), f.table, f.state, mr, old)
+                assert (got[2] is None) == (old is None)
+                for g, w, p in zip(got, want, pair):
+                    if g is not None:
+                        assert g.is_cuda and g.shape == w.shape
+                        assert torch.equal(g, w) and torch.equal(g, p)
 
 
 @pytest.mark.parametrize("r", [3, 16])
@@ -880,8 +941,9 @@ def test_sass_gate_on_card(cuda):
 def test_launch_log_reads_the_launched_shapes(cuda, engine):
     """The library's launch log gives the (grid, items) of each launch a
     call made, in order, and is emptied by the read: a monitored route's one
-    launch at the grid ``routing_route_load_grid`` reckons, and the chain
-    path's two, the remap's at ``routing_chain_grid``'s."""
+    launch at the grid ``routing_route_load_grid`` reckons, the chain
+    path's two, the remap's at ``routing_chain_grid``'s, and a placement's
+    one."""
     from repro_torch.analysis.sass_gate import clear_launches, fleet_of, take_launches
     from repro_torch.kernels import build
 
@@ -899,6 +961,10 @@ def test_launch_log_reads_the_launched_shapes(cuda, engine):
     shapes = take_launches()
     assert len(shapes) == 2
     assert shapes[1][0] == build.library().routing_chain_grid(keys.numel())
+    # a placement's one launch: chunks of 85 whole objects at r = 3, items 8
+    ops.route_replicas_bulk(keys, fleet, PlacementSpec(spec, r=3))
+    ((grid, items),) = take_launches()
+    assert items == 8 and 1 <= grid <= -(-keys.numel() // (8 * 85))
 
 
 @pytest.mark.parametrize("donate", [False, True], ids=["keep", "donate"])

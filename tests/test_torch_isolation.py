@@ -134,6 +134,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         BINOMIAL.resolve(keys.to("meta"), keys.reshape(4, 1).to("meta"), keys.to("meta"),
                          keys[:2].to("meta"), 1)
     with pytest.raises(ValueError, match="CUDA devices"):
+        BINOMIAL.place(keys.to("meta"), 3, keys.to("meta"), keys.to("meta"), keys[:2].to("meta"),
+                       16, 3)
+    with pytest.raises(ValueError, match="CUDA devices"):
         BINOMIAL.route_load(keys.to("meta"), keys.to("meta"), keys.to("meta"), keys[:2].to("meta"),
                             keys.to("meta"))
     with pytest.raises(ValueError, match="CUDA devices"):
@@ -141,4 +144,4 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                              keys[:2].to("meta"))
     assert BINOMIAL.launches == {"route": 0, "ingest": 0, "lookup_dyn": 0, "lookup_vec": 0,
                                  "route_family": 0, "resolve": 0, "route_load": 0,
-                                 "chain_remap": 0}
+                                 "chain_remap": 0, "place": 0}

@@ -150,6 +150,44 @@ def test_route_replicas_matches_reference_ops(engine, capacity, max_resalt):
             assert (distinct(got) == 2).all() and not got_ex.any()
 
 
+@pytest.mark.parametrize("max_resalt", [None, 0, 1])
+@pytest.mark.parametrize("r", [1, 3, 8, 9])
+@pytest.mark.parametrize("engine", ENGINES)
+def test_place_plain_path_equals_the_store_passes(engine, r, max_resalt):
+    """``RoutingKernels.place`` on CPU tensors (its plain version: the
+    family route, then resolve) against ``route_replicas_impl`` and
+    ``placement_diff_impl``, also through ``ops``, over fleets of 64 slots
+    with n_alive below and above r; the CPU launches nothing."""
+    k = BULK_ENGINES[engine].kernels
+    mr = r if max_resalt is None else max_resalt
+    pspec = PlacementSpec(RouterSpec(engine, 64, 16), r=r, max_resalt=max_resalt)
+    keys = torch.from_numpy(KEYS.view(np.int32))
+    before = dict(k.launches)
+    for n, failed in ((3, [1]), (3, []), (64, range(0, 60, 3))):
+        old = BatchRouter(n, engine=engine, capacity=64, device="cpu")._fleet_dev
+        pr = BatchRouter(n, engine=engine, capacity=64, device="cpu")
+        with pr.coalesced_events():
+            for s in failed:
+                pr.fail(s)
+        f = pr._fleet_dev
+        rep, ex = store.route_replicas_impl(keys, f.packed, f.table, f.state, r=r, omega=16,
+                                            max_resalt=mr, route=k.route_plain)
+        got = k.place(keys, r, f.packed, f.table, f.state, 16, mr)
+        assert got[2] is None and torch.equal(got[0], rep) and torch.equal(got[1], ex)
+        assert all(torch.equal(a, b) for a, b in zip(ops.route_replicas_bulk(keys, f, pspec),
+                                                     (rep, ex)))
+        want = store.placement_diff_impl(keys, old.packed, old.table, old.state, f.packed, f.table,
+                                         f.state, r=r, omega=16, max_resalt=mr,
+                                         route=k.route_plain)
+        prev = k.place(keys, r, old.packed, old.table, old.state, 16, mr)[0]
+        new, ex_new, moved = k.place(keys, r, f.packed, f.table, f.state, 16, mr, prev)
+        for got, w in ((prev, want[0]), (new, want[1]), (moved, want[2]), (ex_new, want[3])):
+            assert torch.equal(got, w)
+        for got, w in zip(ops.placement_diff_bulk(keys, old, f, pspec), want):
+            assert torch.equal(got, w)
+    assert k.launches == before
+
+
 @pytest.mark.parametrize("capacity", [64, 1024])
 @pytest.mark.parametrize("engine", ENGINES)
 def test_placement_diff_matches_reference_ops(engine, capacity):
