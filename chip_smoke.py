@@ -263,7 +263,14 @@ Needs one CUDA card and ``nvcc``; builds the kernels from
    (table) at 2^24 keys in turns at 0, 6, 25 and 50 % failed,
    ``chain_remap`` alone beside its bound, with the walk steps per lane of
    its resident grid beside the per-warp-maximum walk that one thread per
-   key would issue.
+   key would issue; then the erasure-coded store (``phase_racks``: 20
+   racks of 10 with 20 DataNodes down, 2^24 block groups at r = 9, each
+   engine): ``place_keys`` in three launches (the family route,
+   ``resolve``'s row path, ``node_route``), counted from 0 just before it;
+   ``place`` over the rack fleet and ``node_route``, each without and with
+   ``old``, bit-exact against their plain versions; their times beside
+   their bounds (``node_route``: 76 B a group against the route of its 9
+   node keys a group) and their plain versions' times.
 
 ``--baseline DIR [DIR ...]`` also builds each ``DIR/train.cu`` there is
 (another build of the training kernels) and times the select's rounds
@@ -333,6 +340,8 @@ REPLACES = {
                   "src/repro/kernels/fused.py:202)",
     "chain_remap": "src/repro/core/memento_jax.py:101 (memento_remap: a jnp lax.while_loop in "
                    "the JAX package, no pallas_call)",
+    "node_route": "none: the JAX package has no failure domains (the route's K1/K2 pallas_call, "
+                  "src/repro/kernels/fused.py:202, is its body)",
 }
 ENGINES = ("binomial", "jump")
 #: the kernels that read a fleet (the routing datapath), and all kernels
@@ -405,6 +414,8 @@ SASS_STATIC = {
     ("binomial", "chain_remap"): 768, ("jump", "chain_remap"): 768,
     # the family route and the resolution in one launch (r <= 8)
     ("binomial", "place"): 2904, ("jump", "place"): 2376,
+    # the node level of a placement over failure domains (PR 33)
+    ("binomial", "node_route"): 1888, ("jump", "node_route"): 1336,
 }
 #: bytes each kernel must move per key: keys (or two id halves) in, ids out
 BYTES_PER_KEY = {"route": 8, "ingest": 12, "lookup_dyn": 8, "lookup_vec": 8}
@@ -412,8 +423,9 @@ BYTES_PER_KEY = {"route": 8, "ingest": 12, "lookup_dyn": 8, "lookup_vec": 8}
 #: the distinct-resolution pass, and both in one launch (r <= 8)
 PLACEMENT_KINDS = ("route_family", "resolve", "place")
 #: the kernels line's rows: every kind, the router's static-n lookup, the
-#: placement kernels, the instrumented route, then the chain remap
-ROWS = (*KINDS, "lookup_router", *PLACEMENT_KINDS, "route_load", "chain_remap")
+#: placement kernels, the instrumented route, the chain remap, then the
+#: node level over failure domains
+ROWS = (*KINDS, "lookup_router", *PLACEMENT_KINDS, "route_load", "chain_remap", "node_route")
 
 N_CHECK = 1 << 20  # the repo's acceptance batch (benchmarks/bench_router.py)
 N_TIME = 1 << 24
@@ -4899,6 +4911,142 @@ def phase_placement_times(rows: dict, card: str) -> None:
                                      fleets=cells)
 
 
+#: the erasure-coded store's layout (racks, DataNodes a rack), its r (the
+#: row path) and its DataNodes down (the benchmark's ``store-ec-rs63``)
+RACKS_LAYOUT, RACKS_R, RACKS_FAILED = (20, 10), 9, 20
+
+
+def node_route_bound(engine, keys, cols, fleet) -> dict:
+    """The least time ``node_route`` could take on these keys and rack
+    columns ``cols`` (N, r) over the device ``RackFleet``: its bytes (the key
+    4, the rack columns read 4r and the DataNodes written 4r, 76 B a group
+    at r = 9, and the racks' fleets once, at the HBM rate) against its
+    operations, ``bound``'s count for the route of each column's node key
+    over its rack's fleet (the lookup over the rack's slots and the
+    divert), summed over the racks."""
+    from repro_torch.core.bulk import FleetState
+    from repro_torch.core.placement_torch import node_keys
+
+    r = cols.shape[1]
+    nk, flat = node_keys(keys, r).reshape(-1), cols.reshape(-1).to(torch.int64)
+    t_ops = 0.0
+    for g in torch.unique(flat).tolist():
+        f = FleetState(fleet.packed[g], fleet.table[g], fleet.state[g], fleet.table.shape[1])
+        t_ops += bound(engine, "route", nk[flat == g], f, nbytes=0)["t_ops"]
+    nbytes = (4 + 8 * r) * keys.numel() + 4 * (fleet.packed.numel() + fleet.table.numel()
+                                              + fleet.state.numel())
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                t_ops=t_ops, t_bytes=t_bytes, bytes_per_group=nbytes / keys.numel())
+
+
+def phase_racks(rows: dict, max_err: dict, card: str) -> dict:
+    """The erasure-coded store on the card: ``RACKS_LAYOUT`` with
+    ``RACKS_FAILED`` DataNodes down, 2^24 block groups at r = ``RACKS_R``.
+    ``place_keys`` once with the launch counts set to 0 just before it (the
+    family route, ``resolve``'s row path and the node route: one each); then
+    ``place`` over the rack fleet (two launches at r > 8) and ``node_route``
+    over the racks' node fleets, each without and with ``old`` (the healthy
+    layout's placement), against their plain versions on the same inputs,
+    bit-exact; their times, the plain versions' and their bounds, and
+    ``place_keys``'s.  Adds the ``node_route`` rows (``racks``: the rack
+    level's ``place`` and the whole call) -> the launches of that one call,
+    by engine."""
+    from repro_torch.core.bulk import FailureDomains
+    from repro_torch.core.registry import make_bulk
+    from repro_torch.placement.store import StorePlacement
+    from repro_torch.serving.batch_router import BatchRouter
+
+    n_racks, per_rack = RACKS_LAYOUT
+    r = RACKS_R
+    keys = u32_tensor(np.random.default_rng(33), N_TIME).cuda()
+    failed = np.random.default_rng(33).choice(n_racks * per_rack, RACKS_FAILED, replace=False)
+    launches = {}
+    for engine in ENGINES:
+        kernels = make_bulk(engine).kernels
+        router = BatchRouter(n_racks * per_rack, engine=engine, capacity=256, omega=16)
+        store = StorePlacement(router, r=r, domains=FailureDomains(n_racks, per_rack))
+        healthy = router.racks_dev
+        with router.coalesced_events():
+            for d in failed:
+                router.fail(int(d))
+        fleet = router.racks_dev
+        f, h = fleet.racks, healthy.racks
+        torch.cuda.synchronize()
+        for kind in kernels.launches:
+            kernels.launches[kind] = 0
+        nodes, exhausted = store.place_keys(keys)
+        torch.cuda.synchronize()
+        launches[engine] = {k: n for k, n in kernels.launches.items() if n}
+        if launches[engine] != {"route_family": 1, "resolve": 1, "node_route": 1}:
+            fail(f"place_keys[{engine}] over failure domains made {launches[engine]}")
+        old_cols = kernels.place(keys, r, h.packed, h.table, h.state, 16, r)[0]
+        old_nodes = kernels.node_route(keys, old_cols, healthy.packed, healthy.table,
+                                       healthy.state, per_rack, 16)[0]
+        errs, moved = {}, {}
+        for label, old_c, old_n in (("", None, None), ("old", old_cols, old_nodes)):
+            (cols, _, m_cols), e_route, e_res, e_place = check_placement(kernels, keys, f, r, r,
+                                                                         old_c)
+            nargs = (keys, cols, fleet.packed, fleet.table, fleet.state, per_rack, 16, old_n)
+            got = kernels.node_route(*nargs)
+            want = kernels.node_route_plain(*nargs)
+            torch.cuda.synchronize()
+            errs[label or "alone"] = (e_route, e_res, e_place, _max_err(got, want))
+            if old_n is not None:
+                moved = dict(racks=int(m_cols.sum()), nodes=int(got[1].sum()))
+            if any(errs[label or "alone"]) or not torch.equal(got[0], nodes):
+                fail(f"racks[{engine}] {label}: max |kernel - plain| {errs[label or 'alone']}, "
+                     "or place_keys's DataNodes differ from the two kernels'")
+        for kind, i in (("route_family", 0), ("resolve", 1), ("place", 2), ("node_route", 3)):
+            max_err[engine, kind] = max(max_err.get((engine, kind), 0), *(e[i] for e in errs.values()))
+        racks_of = torch.div(nodes, per_rack, rounding_mode="floor")
+        if bool(exhausted.any()) or not bool(
+                ((racks_of[:, :, None] == racks_of[:, None, :]).sum(dim=(1, 2)) == r).all()):
+            fail(f"racks[{engine}]: a group exhausted or with two blocks in one rack")
+        fargs = (f.packed, f.table, f.state, 16, r)
+        nargs = (fleet.packed, fleet.table, fleet.state, per_rack, 16)
+        t = {
+            "node_route": time_ms(lambda: kernels.node_route(keys, cols, *nargs)),
+            "node_route_old": time_ms(lambda: kernels.node_route(keys, cols, *nargs, old_nodes)),
+            "place": time_ms(lambda: kernels.place(keys, r, *fargs)),
+            "place_old": time_ms(lambda: kernels.place(keys, r, *fargs, old_cols)),
+            "place_keys": time_ms(lambda: store.place_keys(keys)),
+        }
+        plain = {
+            "node_route": time_ms(lambda: kernels.node_route_plain(keys, cols, *nargs), 1, 3),
+            "node_route_old": time_ms(lambda: kernels.node_route_plain(keys, cols, *nargs,
+                                                                       old_nodes), 1, 3),
+            "place": time_ms(lambda: kernels.place_plain(keys, r, *fargs), 1, 3),
+        }
+        nb = node_route_bound(engine, keys, cols, fleet)
+        nb_old = max(nb["t_ops"], nb["t_bytes"] + (4 + 1) * r * N_TIME / hw.HBM_BW * 1e3)
+        pb = place_bound(engine, keys, f, r, cols)
+        rows[engine, "node_route"] = dict(
+            ms=t["node_route"], plain_ms=plain["node_route"], bound_ms=nb["bound_ms"],
+            bound_by=nb["bound_by"], old_ms=t["node_route_old"],
+            old_plain_ms=plain["node_route_old"], old_bound_ms=nb_old,
+            racks=dict(layout=f"{n_racks}x{per_rack}, {RACKS_FAILED} failed", r=r,
+                       place_ms=t["place"], place_plain_ms=plain["place"],
+                       place_bound_ms=pb["bound_ms"], place_old_ms=t["place_old"],
+                       place_keys_ms=t["place_keys"],
+                       place_keys_bound_ms=pb["bound_ms"] + nb["bound_ms"], moved=moved,
+                       launches=launches[engine]))
+        print(f"phase 4 racks[{engine}] {N_TIME} groups x r = {r} over {n_racks}x{per_rack} with "
+              f"{RACKS_FAILED} DataNodes down: place_keys {t['place_keys']:.4f} ms in "
+              f"{sum(launches[engine].values())} launches {launches[engine]}; node_route "
+              f"{t['node_route']:.4f} ms, bound {nb['bound_ms']:.4f} ms ({nb['bound_by']}: "
+              f"operations {nb['t_ops']:.4f} ms, bytes {nb['t_bytes']:.4f} ms = "
+              f"{nb['bytes_per_group']:.1f} B a group), bound/time {share(nb['bound_ms'], t['node_route'])}, "
+              f"plain {plain['node_route']:.3f} ms; with old {t['node_route_old']:.4f} ms, bound "
+              f"{nb_old:.4f} ms, plain {plain['node_route_old']:.3f} ms; place over the racks "
+              f"(family route + resolve's row path) {t['place']:.4f} ms, with old "
+              f"{t['place_old']:.4f} ms, bound {pb['bound_ms']:.4f} ms ({pb['bound_by']}), "
+              f"bound/time {share(pb['bound_ms'], t['place'])}, plain {plain['place']:.3f} ms; "
+              f"max |kernel - plain| {errs}; moved against the healthy layout {moved}; "
+              f"{N_TIME / t['place_keys'] / 1e6:.3f} Ggroups/s on {card}")
+    return launches
+
+
 #: the wide placement timed in phase 4 (resolve's row path)
 WIDE_R_TIME = 16
 
@@ -5583,6 +5731,8 @@ def main() -> int:
     phase_placement_times(rows, card)
     phase_route_load_times(rows, card)
     phase_chain_times(rows, card)
+    by_path["racks"] = {(e, k): n for e, counts in phase_racks(rows, max_err, card).items()
+                        for k, n in counts.items()}
     for engine, numbers in stream_numbers.items():
         rows[engine, "route_load"]["streaming"] = {
             k: v for k, v in numbers.items() if isinstance(v, (int, float))}

@@ -111,6 +111,7 @@ FUNCTIONS = {
         ("route_load_global", "_ZN7routing17route_load_kernelINS_{E}ELb0EEEv"),
         ("chain_remap", "_ZN7routing18chain_remap_kernelE"),
         ("place", "_ZN7routing12place_kernelINS_{E}EEEv"),
+        ("node_route", "_ZN7routing17node_route_kernelINS_{E}EEEv"),
     )
 }
 
@@ -206,16 +207,17 @@ def jump_chain_trips(launch: Launch) -> int:
 
 
 def place_grid_trips(launch: Launch) -> int:
-    """The trips of ``place_kernel``'s chunk loop (routing.cu): a chunk
-    holds ⌊32 items / r⌋ whole objects, so that no object's r columns
-    straddle two warps, and the n / r objects take ⌈(n / r) / ⌊32 items /
-    r⌋⌉ chunks, one resident grid's warps apart."""
+    """The trips of ``place_kernel``'s and ``node_route_kernel``'s chunk
+    loops (routing.cu): a chunk holds ⌊32 items / r⌋ whole objects, so that
+    no object's r columns straddle two warps, and the n / r objects take
+    ⌈(n / r) / ⌊32 items / r⌋⌉ chunks, one resident grid's warps apart."""
     return _cdiv(_cdiv(launch.n // launch.r, 32 * launch.items // launch.r),
                  launch.grid * WARPS)
 
 
 #: counted loops whose trips take a bound of their own, beside their tag's
-LOOP_BOUNDS = {"JUMP_CHAINS": jump_chain_trips, "PLACE_GRID": place_grid_trips}
+LOOP_BOUNDS = {"JUMP_CHAINS": jump_chain_trips, "PLACE_GRID": place_grid_trips,
+               "NODE_GRID": place_grid_trips}
 
 #: tags whose loops also record each key's steps, and the steps' bound
 KEY_STEPS = {"omega": lambda L: L.omega, "max_chain": lambda L: L.max_chain}

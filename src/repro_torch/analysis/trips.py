@@ -21,6 +21,9 @@ fleet over the same keys:
   r = 3 ``place`` (both in one launch) without and with the old rows;
 - 40000 in 65536 with 0 and 10,000 failed (``route_load``'s global
   instance, capacity > 4,096);
+- the node route over 20 racks of 10 DataNodes (``RACKS``), healthy and
+  with 20 DataNodes and a whole rack down, at r = 9 and r = 3, without and
+  with the old rows (its rack columns from the shipping build);
 - the lookups at n = 1 (the jump chunk's zero fill), 1025 (half the
   binomial keys go past the loop's first trip) and 2^31 - 1;
 and for the chain remap (``chain_runs``), chain-mode fleets of 1000 in 1024
@@ -52,6 +55,11 @@ WIDE_FLEET = (40000, 65536, 10000)
 #: small for the fleet (keys exhaust it)
 PLACE_RS = (3, 16)
 SMALL_RESALT = 1
+#: the node route's layout (racks, DataNodes a rack),
+#: its failed DataNodes beside a whole rack, and its r
+RACKS = (20, 10)
+RACKS_FAILED, RACKS_DOWN = 20, 7
+NODE_RS = (9, 3)
 #: the bare lookups' extra n
 LOOKUP_NS = (1, 1025, (1 << 31) - 1)
 #: the chain fleets' failed shares, and the walk bound of the last run
@@ -214,6 +222,7 @@ def engine_runs(engine: str, device) -> list:
                                             torch.zeros(capacity, dtype=torch.int32,
                                                         device=device), OMEGA, 6),
             omega=OMEGA, capacity=capacity)
+    runs += node_runs(counter, shipping, counting, keys[:1 << 16], device)
     for n in LOOKUP_NS:
         n_dev = torch.tensor([n], dtype=torch.int32, device=device)
         run("lookup_dyn", f"n = {n}", False, keys_ser,
@@ -221,6 +230,52 @@ def engine_runs(engine: str, device) -> list:
         if n > 1:
             run("lookup_vec", f"n = {n}", False, keys_ser,
                 lambda k, n=n: k.lookup_vec(keys, n, OMEGA), omega=OMEGA)
+    return runs
+
+
+def rack_fleet(failed, device):
+    """The device ``RackFleet`` of ``RACKS`` with the DataNodes ``failed``
+    failed (in order)."""
+    from repro_torch.core.bulk import FailureDomains, RackDomains
+
+    plane = RackDomains(FailureDomains(*RACKS))
+    for node in failed:
+        plane.fail(int(node))
+    return plane.host.to(device)
+
+
+def node_runs(counter: Counter, shipping, counting, keys, device) -> list:
+    """The node route on the counting build over ``RACKS``, healthy and
+    storm (``RACKS_FAILED`` random DataNodes and every DataNode of rack
+    ``RACKS_DOWN``), at each of ``NODE_RS``, without and with the old rows;
+    the rack columns come from the shipping build's placement over the rack
+    fleet."""
+    from repro_torch.core.bulk import FailureDomains
+
+    racks, per_rack = RACKS
+    node_cap = FailureDomains(*RACKS).node_capacity
+    n = racks * per_rack
+    down = range(RACKS_DOWN * per_rack, (RACKS_DOWN + 1) * per_rack)
+    failed = [int(d) for d in _failed(n, RACKS_FAILED, 6) if d not in down] + list(down)
+    runs = []
+    healthy = rack_fleet([], device)
+    for storm, fleet in ((False, healthy), (True, rack_fleet(failed, device))):
+        f = fleet.racks
+        for r in NODE_RS:
+            cols = shipping.place(keys, r, f.packed, f.table, f.state, OMEGA, 64)[0]
+            old = None
+            for prev in (None, "old"):
+                if prev is not None:
+                    h = healthy.racks
+                    hcols = shipping.place(keys, r, h.packed, h.table, h.state, OMEGA, 64)[0]
+                    old = shipping.node_route(keys, hcols, healthy.packed, healthy.table,
+                                              healthy.state, per_rack, OMEGA)[0]
+                runs.append(_run(
+                    counter, shipping, counting, "node_route" + (" old" if prev else ""),
+                    f"racks {racks}x{per_rack}", storm, keys.numel() * r,
+                    lambda k, c=cols, o=old: k.node_route(keys, c, fleet.packed, fleet.table,
+                                                          fleet.state, per_rack, OMEGA, o),
+                    omega=OMEGA, capacity=node_cap, r=r))
     return runs
 
 

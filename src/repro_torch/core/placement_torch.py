@@ -1,7 +1,8 @@
 """R-way placement on torch tensors — the plain versions of the placement
 kernels (``csrc/routing.cu``: the family route, ``resolve_kernel`` and
 ``resolve_rows_kernel``, and ``place_kernel``, which runs the first two in
-one launch).
+one launch; ``node_route_kernel``, the node level of a placement over
+failure domains).
 
 A key's ``r`` replica columns are ``r`` salted key *families* routed through
 the engine's fused route, then a distinct-resolution pass breaks collisions
@@ -22,17 +23,29 @@ settled before ``j``, and every shard id is below ``32 * n_words``, so
 "bit ``b`` set" is exactly "``b`` equals an earlier column": this version
 and the kernel compare against those columns.  u32 values travel as int64
 in ``[0, 2^32)``, as in ``binomial_torch``.
+
+Over failure domains (racks of DataNodes, ``repro_torch.core.bulk
+.FailureDomains``) the columns above are racks, placed over the rack fleet,
+and ``route_nodes_impl`` gives column ``j`` its DataNode: the route (lookup
+and divert) of the node key ``mix32(k ^ node_salts(r)[j])`` over the fleet
+of the rack column ``j`` was given, as the global id ``rack x
+nodes_per_rack + local``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.binomial_torch import GOLDEN32, mix32, mulhi32, u32
+from repro_torch.core.binomial_torch import GOLDEN32, MASK32, hash_pair, mix32, mulhi32, u32
 
 #: salt seeding the re-salt chain — distinct from every family salt so the
 #: resolution probes decorrelate from the base placements they collide with
 RESALT_SALT = 0x7F4A7C15
+
+#: salt of the node keys (xored into the family salts): distinct from every
+#: family salt and from the re-salt, so a column's node decorrelates from
+#: its rack
+NODE_SALT = 0x2545F491
 
 #: replica columns ``resolve_kernel`` and ``place_kernel`` keep in registers
 #: per key; past it ``resolve_rows_kernel`` stages a warp's rows in shared
@@ -53,6 +66,60 @@ def family_keys(keys: torch.Tensor, r: int) -> torch.Tensor:
     flat index ``i`` is key ``i // r`` under salt ``i % r``."""
     salts = torch.from_numpy(family_salts(r).astype(np.int64)).to(keys.device)
     return mix32(u32(keys.reshape(-1))[:, None] ^ salts)
+
+
+def node_salts(r: int) -> np.ndarray:
+    """The ``r`` salts of the node keys (uint32): ``family_salts(r) ^
+    NODE_SALT``."""
+    return family_salts(r) ^ np.uint32(NODE_SALT)
+
+
+def node_keys(keys: torch.Tensor, r: int) -> torch.Tensor:
+    """keys (any int shape) -> ``(N, r)`` int64 u32 node keys, row-major:
+    column ``j`` of key ``k`` is ``mix32(k ^ node_salts(r)[j])``."""
+    salts = torch.from_numpy(node_salts(r).astype(np.int64)).to(keys.device)
+    return mix32(u32(keys.reshape(-1))[:, None] ^ salts)
+
+
+def route_nodes_impl(
+    keys: torch.Tensor, racks: torch.Tensor, packed: torch.Tensor, table: torch.Tensor,
+    state: torch.Tensor, nodes: int, omega: int, lookup, old: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The node level of a placement over failure domains.
+
+    keys    (N,) u32 keys (any int dtype); racks (N, r) the rack columns
+            (alive racks, from the placement over the rack fleet)
+    packed / table / state — the racks' fleets stacked, a row a rack:
+            ``(R, W)`` removed-slot words, ``(R, C)`` slots permutations,
+            ``(R, 2)`` ``[n_total, n_alive]``; every rack's slot space is
+            ``nodes`` (DataNodes fail and recover, the layout never scales)
+    lookup  the engine's plain dynamic-n lookup ``(keys, n, omega)``
+    old     optional (N, r) placement to diff against
+
+    Returns ``(nodes (N, r) int32, moved)``: column ``j``'s DataNode is
+    ``rack x nodes + b``, ``b`` the lookup of its node key over ``nodes``
+    slots diverted, where its rack has removed ``b``, through that rack's
+    replacement table (two redirects at most, as ``_table_divert``);
+    ``moved[i, j] = nodes[i, j] not in old[i, :]``, or None without ``old``.
+    """
+    r = racks.shape[-1]
+    key = node_keys(keys, r).reshape(-1)
+    rack = racks.reshape(-1).to(torch.int64)
+    b = u32(lookup(key, nodes, omega))
+    words, width = packed.shape[-1], table.shape[-1]
+    hit = ((u32(packed.reshape(-1))[rack * words + (b >> 5)] >> (b & 31)) & 1) != 0
+    total, alive = u32(state[:, 0])[rack], u32(state[:, 1])[rack]
+    h = hash_pair(key, b)
+    q = mulhi32(h, total)
+    deep = mulhi32(mix32(h ^ ((q * GOLDEN32) & MASK32)), alive)
+    q = torch.where(q >= alive, deep, q)
+    b = torch.where(hit, u32(table.reshape(-1))[rack * width + q], b)
+    out = (rack * nodes + b).to(torch.int32).reshape(-1, r)
+    moved = None
+    if old is not None:
+        old = old.reshape(out.shape).to(torch.int32)
+        moved = ~(out[:, :, None] == old[:, None, :]).any(dim=2)
+    return out, moved
 
 
 def resolve_columns(

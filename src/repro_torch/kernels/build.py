@@ -59,6 +59,7 @@ SIGNATURES = {
     "routing_route_family": (_I, _P, _U, _P, _I, _P, _I, _P, _I, _P, _N, _P),
     "routing_resolve": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _N, _P),
     "routing_place": (_I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _N, _P),
+    "routing_node_route": (_I, _P, _P, _I, _P, _I, _P, _I, _P, _U, _I, _P, _P, _P, _N, _P),
     "routing_chain_remap": (_P, _P, _P, _I, _P, _I, _P, _N, _P),
     "routing_chain_grid": (_N,),
     "routing_route_load_grid": (_I, _N, _I),

@@ -32,6 +32,12 @@
 //       the rows coalesced, so the (N, r) routed columns never reach device
 //       memory (see its note); r > MAX_R keeps the family route and the row
 //       path;
+//   node_route_kernel<Engine>         the node level of a rack-aware
+//       placement: each object's r columns, given r distinct racks by the
+//       placement above over the rack fleet, routed inside their racks over
+//       a stacked table of the racks' fleets, with the same chunk code (no
+//       TPU counterpart: the JAX package has no failure domains; see its
+//       note);
 //   route_load_kernel<Engine, kShared> the instrumented route of
 //       src/repro/observability/load.py:71-118 (route_with_load_impl, jnp in
 //       the reference, one jitted dispatch): route_kernel's chunk loop with
@@ -996,6 +1002,122 @@ place_kernel(const uint32_t* __restrict__ keys, Fleet fleet, const int32_t* __re
   }
 }
 
+// The node level of a rack-aware placement (node_route_kernel): each object
+// (a block group) is first placed on r distinct alive racks by the store's
+// R-way placement over the rack fleet (the family route and the
+// distinct-resolution pass, above), then column j's DataNode is the route,
+// lookup and divert, of the node key mix32(key ^ node_salt(j)) over the
+// fleet of the rack column j was given, and its global id is rack x nodes +
+// local.  The racks' fleets are stacked: rack g's removed words at g x
+// n_words, its table at g x n_slots, its [n_total, n_alive] at 2 g.  No TPU
+// kernel has a counterpart: the JAX package knows no failure domains; it is
+// the node level of repro_torch.core.placement_torch.route_nodes_impl.
+//
+// A warp takes a chunk of the whole objects whose node keys fit in SEG (SEG
+// / r of them, 28 at r = 9), as place_kernel does, and runs the lookup of
+// its keys with the route's own chunk code (binomial_chunk, jump_chunk),
+// told by Defer to divert nothing and by Stage to keep every bucket in
+// w.out and store none: every rack's slot space is the layout's `nodes`
+// (DataNodes fail and recover, the layout never scales), so one fold serves
+// the chunk.  Then the warp walks the chunk's items in the output's own
+// layout, 32 a trip: each lane reads its item's rack (coalesced, the rack
+// columns' row-major layout), diverts a bucket its rack has removed through
+// that rack's table (its node key recomputed: at a tenth of the DataNodes
+// down, one item in ten), and writes the global id coalesced; with `old`
+// (the placement before a membership change) it also writes moved[i, j] =
+// out[i, j] not in old[i, :].  What bounds it on the H100: 76 B an object at
+// r = 9 (the key, the rack columns read, the ids written), 0.38 ms at 2^24
+// objects; the lookup's issue rate at 9 keys an object comes close (the
+// family route of r = 3 objects ran 0.36 ms for 3 keys an object, PERF.md §6).
+constexpr uint32_t NODE_SALT = 0x2545F491u;
+
+// The salt of the node key of column j, distinct from every family salt
+// (the rack level's) and from the re-salt.
+__device__ __forceinline__ uint32_t node_salt(uint32_t j) { return family_salt(j) ^ NODE_SALT; }
+
+// The node keys of a chunk: entry e (< SEG) is column e % r of the chunk's
+// object e / r, mix32(keys[e / r] ^ node_salt(e % r)); e / r is (e * inv)
+// >> 16 with inv = 2^16 / r rounded up, exact for every e < 2^8 and r <= 256.
+struct ChunkNodeSource {
+  static constexpr bool kPreload = false;
+  const uint32_t* keys;  // the chunk's first object's key
+  uint32_t r, inv;
+  __device__ __forceinline__ uint32_t operator()(int64_t i) const {
+    const uint32_t e = static_cast<uint32_t>(i);
+    const uint32_t t = (e * inv) >> 16;
+    return mix32(keys[t] ^ node_salt(e - t * r));
+  }
+};
+
+// The node level's policy in the chunk code: the lookup alone, the divert of
+// each bucket deferred to the pass over its rack's fleet after the chunk.
+// kDiverts so that jump_chunk takes its divert branch, which with Stage
+// stores nothing (its other branch stores every bucket to `out`).
+struct Defer {
+  static constexpr bool kDiverts = true;
+  __device__ __forceinline__ bool removed(uint32_t) const { return false; }
+  __device__ __forceinline__ uint32_t redirect(uint32_t, uint32_t b) const { return b; }
+};
+
+template <class Engine>
+__global__ void __launch_bounds__(THREADS)
+node_route_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ racks, int r,
+                  const uint32_t* __restrict__ mask, int n_words,
+                  const int32_t* __restrict__ slots, int n_slots,
+                  const int32_t* __restrict__ state, uint32_t nodes, int omega,
+                  const int32_t* __restrict__ old, int32_t* __restrict__ out,
+                  uint8_t* __restrict__ moved, int64_t n) {
+  __shared__ WarpArea area[WARPS];
+  WarpArea& w = area[threadIdx.x >> 5];
+  const Lookup p = fold(nodes, omega);
+  const int lane = threadIdx.x & 31;
+  const int objs = SEG / r;  // a chunk's objects: at most SEG node keys
+  const uint32_t inv = (65536u + r - 1u) / static_cast<uint32_t>(r);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * WARPS * objs;
+  CT_TRIPS(NODE_GRID);
+  // ct-loop: grid: the warp's chunks of SEG / r objects, one resident grid's stride apart
+  for (int64_t first = (static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * objs;
+       first < n; first += step) {
+    CT_TRIP(NODE_GRID);
+    const int cnt = static_cast<int>(n - first < objs ? n - first : objs);
+    const ChunkNodeSource src{keys + first, static_cast<uint32_t>(r), inv};
+    if constexpr (std::is_same_v<Engine, Binomial>) {
+      binomial_chunk(w, src, Defer{}, p, nullptr, 0, cnt * r, Stage{});
+    } else {
+      jump_chunk(w, src, Defer{}, p, nullptr, 0, cnt * r, Stage{});
+    }
+    const int64_t span = first * r;
+    CT_TRIPS(NODE_ITEMS);
+    // ct-loop: chunk: the chunk's cnt x r node keys (at most SEG), 32 a trip
+    for (int e = lane; e < cnt * r; e += 32) {
+      CT_TRIP(NODE_ITEMS);
+      const uint32_t rack = static_cast<uint32_t>(racks[span + e]);
+      const uint32_t t = (static_cast<uint32_t>(e) * inv) >> 16;
+      const Fleet f{mask + rack * n_words, n_words, slots + rack * n_slots, n_slots};
+      uint32_t b = w.out[e];
+      if (f.removed(b)) {
+        const uint32_t key = mix32(keys[first + t] ^ node_salt(e - t * r));
+        b = f.redirect(key, b, static_cast<uint32_t>(state[2 * rack]),
+                       static_cast<uint32_t>(state[2 * rack + 1]));
+      }
+      const int32_t id = static_cast<int32_t>(rack * nodes + b);
+      out[span + e] = id;
+      if (old != nullptr) {
+        const int32_t* prev = old + (first + t) * r;
+        bool kept = false;
+        CT_TRIPS(NODE_OLD);
+        // ct-loop: r: the object's old columns
+        for (int k = 0; k < r; ++k) {
+          CT_TRIP(NODE_OLD);
+          kept |= prev[k] == id;
+        }
+        moved[span + e] = !kept;
+      }
+    }
+    __syncwarp();  // w.out is read before the next chunk's lookup writes it
+  }
+}
+
 // The rejection-chain remap: a key whose base bucket b is removed moves to
 // hash_pair(hash^(s+1)(key), b) % n_total at step s = 0, 1, ... until it
 // lands on an alive slot; after max_chain steps it takes first_alive.  It
@@ -1390,6 +1512,27 @@ int launch_place(const void* keys, int r, const Fleet& fleet, const void* state,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The node level's launch: chunks of SEG / r objects a warp over the
+// resident grid, at most one block per WARPS chunks, logged as
+// launch_place's is.  1 <= r <= SEG.
+template <class Engine>
+int launch_node_route(const void* keys, const void* racks, int r, const Fleet& fleets,
+                      const void* state, unsigned nodes, int omega, const void* old, void* out,
+                      void* moved, int64_t n, cudaStream_t stream) {
+  static int resident[64] = {};
+  const int64_t blocks = resident_blocks(node_route_kernel<Engine>, resident);
+  const int64_t per_block = int64_t{WARPS} * (SEG / r);  // objects
+  const int64_t tiles = (n + per_block - 1) / per_block;
+  const Shape shape{static_cast<int>(tiles < blocks ? tiles : blocks), MAX_ITEMS};
+  log_launch(shape);
+  node_route_kernel<Engine><<<shape.grid, THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(racks), r, fleets.mask,
+      fleets.n_words, fleets.slots, fleets.n_slots, static_cast<const int32_t*>(state), nodes,
+      omega, static_cast<const int32_t*>(old), static_cast<int32_t*>(out),
+      static_cast<uint8_t*>(moved), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_resolve(const void* keys, const void* base, const void* slots, const void* state,
                    int r, int max_resalt, const void* old, void* out, void* exhausted,
                    void* moved, int64_t n, cudaStream_t stream) {
@@ -1571,6 +1714,32 @@ extern "C" int routing_place(int engine, const void* keys, int r, const void* ma
                                           exhausted, moved, n, s);
     case 1: return launch_place<Jump>(keys, r, fleet, state, omega, max_resalt, old, out,
                                       exhausted, moved, n, s);
+    default: return -1;
+  }
+}
+
+// The node level of a rack-aware placement: keys (n,) and their (n, r)
+// row-major rack columns -> out (n, r), the global DataNode ids (rack x
+// nodes + the route of the column's node key over its rack's fleet), and
+// with old (n, r) moved (n, r) bytes (old and moved may both be null).  The
+// racks' fleets are stacked: n_words removed words, n_slots table entries
+// and [n_total, n_alive] a rack; every rack's slot space is `nodes`.
+// 1 <= r <= 256 and nodes >= 1 (-1 otherwise, or for an unknown engine).
+extern "C" int routing_node_route(int engine, const void* keys, const void* racks, int r,
+                                  const void* mask, int n_words, const void* slots, int n_slots,
+                                  const void* state, unsigned int nodes, int omega,
+                                  const void* old, void* out, void* moved, long long n,
+                                  void* stream) {
+  using namespace routing;
+  if (r < 1 || r > SEG || nodes < 1) return -1;
+  const Fleet fleets{static_cast<const uint32_t*>(mask), n_words,
+                     static_cast<const int32_t*>(slots), n_slots};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (engine) {
+    case 0: return launch_node_route<Binomial>(keys, racks, r, fleets, state, nodes, omega, old,
+                                               out, moved, n, s);
+    case 1: return launch_node_route<Jump>(keys, racks, r, fleets, state, nodes, omega, old, out,
+                                           moved, n, s);
     default: return -1;
   }
 }

@@ -27,7 +27,7 @@ enum TripLoop : int {
   BINOMIAL_REST, BINOMIAL_QUEUE, JUMP_CHAINS, JUMP_STAGE, JUMP_ZERO, JUMP_SCAN, JUMP_DIVERT,
   JUMP_COPY, COUNT_CHUNK, CHUNKS, HIST_ZERO, HIST_FLUSH, TAKEN_ROW, RESOLVE_GRID, ROW_STAGE,
   ROW_COLUMNS, ROW_PROBE, ROW_WRITE, ROW_OLD, REG_PROBE, PLACE_GRID, PLACE_OBJECTS, PLACE_PROBE,
-  PLACE_WRITE, CHAIN_WALK, CHAIN_SCAN, TRIP_LOOPS
+  PLACE_WRITE, NODE_GRID, NODE_ITEMS, NODE_OLD, CHAIN_WALK, CHAIN_SCAN, TRIP_LOOPS
 };
 
 #ifdef ROUTING_COUNT_TRIPS

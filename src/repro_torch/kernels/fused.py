@@ -4,9 +4,10 @@ building the MoE hash router's keys from token ids), ``route_load`` (the
 route with the load monitor's per-shard count in the same launch), and the
 R-way placement's ``route_family`` (the route kernel over a key's ``r``
 salted families), ``resolve`` (the distinct-resolution pass) and ``place``
-(both in one launch for ``r <= MAX_R``), and ``chain_remap`` (the chain-mode
-Memento remap), each beside its plain torch version and with a launch
-count.
+(both in one launch for ``r <= MAX_R``), ``node_route`` (a placement's node
+level over failure domains: each column routed inside its rack), and
+``chain_remap`` (the chain-mode Memento remap), each beside its plain torch
+version and with a launch count.
 
 A wrapper given CPU tensors returns its plain version's result.  Given CUDA
 tensors it launches the hand-written kernel (``csrc/routing.cu``, built by
@@ -30,6 +31,9 @@ TPU's Pallas kernels of ``repro.kernels.fused.make_fused_kernels``
                 distinct-resolution pass, which the reference computes
                 outside any Pallas kernel; ``place`` runs both in one
                 launch, the routed columns kept on chip
+    node_route  no TPU kernel: the JAX package has no failure domains; the
+                node level of ``repro_torch.core.placement_torch
+                .route_nodes_impl``, on the route's chunk code
     route_load  the instrumented route of
                 ``repro.observability.load.route_with_load_impl``
                 (load.py:71-118; jnp in the reference, no Pallas kernel)
@@ -80,13 +84,17 @@ from repro_torch.core.memento_torch import (
     binomial_memento_route,
     chain_remap_impl,
 )
-from repro_torch.core.placement_torch import MAX_R, family_keys, resolve_columns
+from repro_torch.core.placement_torch import MAX_R, family_keys, resolve_columns, route_nodes_impl
 from repro_torch.kernels import build
 from repro_torch.observability.load import route_with_load_impl
 
 #: kernel kinds, as the launch counts are keyed
 KINDS = ("route", "ingest", "lookup_dyn", "lookup_vec", "route_family", "resolve", "route_load",
-         "chain_remap", "place")
+         "chain_remap", "place", "node_route")
+
+#: object columns a chunk of ``node_route``'s kernel holds at most (its
+#: warp's chunk of 32 x 8 node keys takes whole objects)
+MAX_NODE_R = 256
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -441,6 +449,50 @@ class RoutingKernels:
             self.launches["resolve"] += 1
         return out, exhausted, moved
 
+    def node_route_plain(self, keys, racks, packed, table, state, nodes: int, omega: int = 16,
+                         old=None):
+        return route_nodes_impl(keys, racks, packed, table, state, nodes, omega,
+                                self.lookup_dyn_plain, old)
+
+    def node_route(self, keys, racks, packed, table, state, nodes: int, omega: int = 16,
+                   old=None):
+        """A placement's node level over failure domains: keys (N,) and their
+        rack columns ``racks`` (N, r) -> ``(DataNodes (N, r) int32, moved
+        (N, r) bool or None)``, as ``route_nodes_impl`` says: each column's
+        node key routed over its rack's fleet, the racks' fleets stacked a
+        row a rack (``packed`` (R, W), ``table`` (R, C), ``state`` (R, 2)),
+        every rack ``nodes`` slots; with ``old`` (N, r) the same launch
+        computes the moved mask.  One launch, for 1 <= r <= ``MAX_NODE_R``."""
+        operands = (keys, racks, packed, table, state) + (() if old is None else (old,))
+        if _on_cpu(*operands):
+            return self.node_route_plain(keys, racks, packed, table, state, nodes, omega, old)
+        n, r = keys.numel(), racks.shape[-1]
+        if racks.numel() != n * r or not 1 <= r <= MAX_NODE_R or (
+                old is not None and old.shape != racks.shape):
+            raise ValueError(
+                f"node_route takes (N,) keys with (N, r) rack columns, 1 <= r <= {MAX_NODE_R}: "
+                f"got keys {tuple(keys.shape)}, racks {tuple(racks.shape)}"
+                + ("" if old is None else f", old {tuple(old.shape)}"))
+        if packed.dim() != 2 or table.dim() != 2 or state.shape != (packed.shape[0], 2) or (
+                table.shape[0] != packed.shape[0]):
+            raise ValueError(
+                f"the racks' fleets are (R, W) words, (R, C) tables and (R, 2) states: got "
+                f"{tuple(packed.shape)}, {tuple(table.shape)}, {tuple(state.shape)}")
+        if not 1 <= nodes <= table.shape[1]:
+            raise ValueError(f"nodes must be in [1, {table.shape[1]}], got {nodes}")
+        out = torch.empty((n, r), dtype=torch.int32, device=keys.device)
+        moved = None if old is None else torch.empty((n, r), dtype=torch.bool, device=keys.device)
+        if n:
+            with torch.cuda.device(keys.device):
+                rc = self._library().routing_node_route(
+                    self.engine_id, _ptr(keys), _ptr(racks), r, _ptr(packed), packed.shape[1],
+                    _ptr(table), table.shape[1], _ptr(state), nodes, omega,
+                    None if old is None else _ptr(old), _ptr(out),
+                    None if moved is None else _ptr(moved), n, _stream(keys),
+                )
+            _check(rc, f"{self.name} node_route")
+            self.launches["node_route"] += 1
+        return out, moved
 
     # -- chain-mode failure resolution --------------------------------------
     chain_remap_plain = staticmethod(chain_remap_impl)

@@ -17,6 +17,11 @@ tensors and runs the plain torch version for CPU tensors:
   past it);
 * ``placement_diff_bulk(keys, old, new, pspec)`` — both placements and the
   moved mask (two launches up to r = 8, four past it);
+* ``route_racks_bulk(keys, racks, pspec)`` — R-way placement over failure
+  domains: r distinct racks over the rack fleet, then each column's
+  DataNode inside its rack (the node level, one launch more);
+* ``racks_diff_bulk(keys, old, new, pspec)`` — both such placements and the
+  moved mask;
 * ``make_sharded_route(mesh, spec)`` — the mesh-sharded route: each rank
   routes its shard of the batch in one launch.
 
@@ -35,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.binomial_torch import u32
-from repro_torch.core.bulk import ChainFleet, FleetState, PlacementSpec, RouterSpec
+from repro_torch.core.bulk import ChainFleet, FleetState, PlacementSpec, RackFleet, RouterSpec
 from repro_torch.device import resolve_device
 
 
@@ -128,6 +133,40 @@ def placement_diff_bulk(
         keys.reshape(-1), pspec.r, f.packed, f.table, f.state, pspec.router.omega,
         pspec.resolved_max_resalt, old)
     return old, new, moved, exhausted
+
+
+def route_racks_bulk(keys: torch.Tensor, racks: RackFleet, pspec: PlacementSpec) -> tuple:
+    """R-way placement over failure domains (``pspec.domains``): keys (N,) +
+    the device ``RackFleet`` -> ``(DataNodes (N, r) int32, exhausted (N,)
+    bool)``.  The racks are the store's R-way placement over the rack fleet
+    (``route_replicas_bulk``'s: one launch up to r = 8, the family route and
+    ``resolve``'s row path past it); then ``node_route`` routes each
+    column's node key inside its rack, one launch.  At least one alive rack
+    is the caller's precondition."""
+    nodes, exhausted, _ = _route_racks(keys, racks, pspec)
+    return nodes, exhausted
+
+
+def racks_diff_bulk(keys: torch.Tensor, racks_old: RackFleet, racks_new: RackFleet,
+                    pspec: PlacementSpec) -> tuple:
+    """The migration diff over failure domains: ``(old (N, r), new (N, r),
+    moved (N, r) bool, exhausted_new (N,))``, ``moved[i, j] = new[i, j] not
+    in old[i, :]``: ``route_racks_bulk`` under both fleets, the second node
+    route computing ``moved`` in its launch."""
+    old, _ = route_racks_bulk(keys, racks_old, pspec)
+    new, exhausted, moved = _route_racks(keys, racks_new, pspec, old)
+    return old, new, moved, exhausted
+
+
+def _route_racks(keys, racks: RackFleet, pspec: PlacementSpec, old=None) -> tuple:
+    spec = pspec.router
+    k = _kernels(spec)
+    f = racks.racks
+    cols, exhausted, _ = k.place(keys.reshape(-1), pspec.r, f.packed, f.table, f.state, spec.omega,
+                                 pspec.resolved_max_resalt)
+    nodes, moved = k.node_route(keys.reshape(-1), cols, racks.packed, racks.table, racks.state,
+                                racks.nodes, spec.omega, old)
+    return nodes, exhausted, moved
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,14 @@ Three layers:
   placement diff in one device pass.  The device is the router's; no work
   moves to the CPU.
 
+* Over failure domains (``StorePlacement(..., domains=FailureDomains)``:
+  racks of DataNodes) the ``r`` columns are ``r`` distinct alive racks, the
+  placement above over the rack fleet, and each column's DataNode is the
+  route of a node key of its own inside its rack (``ops.route_racks_bulk``:
+  one launch more); the guard and the degraded mode count racks, so fewer
+  than ``r`` alive racks is ``"degraded"`` (or ``PlacementDegradedError``
+  under ``strict``), never a silent shared rack.
+
 * ``PlacementRepairer`` (``repro_torch.serving.lifecycle.manager``) — the
   repair scheduler that drives holders back to the target placement in
   bounded-bandwidth batches after every journaled membership event.
@@ -46,7 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.bulk import FleetState, PlacementSpec
+from repro_torch.core.bulk import FailureDomains, FleetState, PlacementSpec, RackFleet
 from repro_torch.core.placement_torch import (  # noqa: F401  (re-exported)
     RESALT_SALT,
     family_keys,
@@ -229,9 +237,15 @@ class StorePlacement:
     """
 
     def __init__(self, router, r: int = 3, *, max_resalt: int | None = None,
-                 strict: bool = False):
+                 strict: bool = False, domains: FailureDomains | None = None):
+        """``domains``: place over these failure domains (the router's
+        replicas are their DataNodes, and it tracks them from now on:
+        ``BatchRouter.attach_domains``)."""
         self.router = router
-        self.spec = PlacementSpec(router=router.spec, r=r, max_resalt=max_resalt)
+        self.spec = PlacementSpec(router=router.spec, r=r, max_resalt=max_resalt,
+                                  domains=domains)
+        if domains is not None:
+            router.attach_domains(domains)
         #: strict=True turns an n_alive < r placement into a typed
         #: PlacementDegradedError instead of a degraded-mode batch
         self.strict = strict
@@ -255,7 +269,17 @@ class StorePlacement:
     def n_alive(self) -> int:
         return self.router.domain.alive_count
 
-    def _fleet_snapshot(self) -> FleetState:
+    @property
+    def n_distinct(self) -> int:
+        """Distinct alive places a key's columns can take: alive racks over
+        failure domains, else alive shards."""
+        if self.spec.domains is not None:
+            return self.router.racks.alive_racks
+        return self.n_alive
+
+    def _fleet_snapshot(self) -> FleetState | RackFleet:
+        if self.spec.domains is not None:
+            return self.router.racks.host.copy()
         h = self.router._fleet_host
         return FleetState(h.packed.copy(), h.table.copy(), h.state.copy(), h.capacity)
 
@@ -279,9 +303,9 @@ class StorePlacement:
 
     # -- guarded placement ---------------------------------------------------
     def _guard(self) -> str:
-        n = self.n_alive
-        if n == 0:
+        if self.n_alive == 0:
             raise FleetUnavailableError(epoch=self.epoch)
+        n = self.n_distinct
         if n < self.spec.r:
             if self.strict:
                 raise PlacementDegradedError(n, self.spec.r, epoch=self.epoch)
@@ -307,19 +331,23 @@ class StorePlacement:
     def _place_keys(self, keys, tr) -> tuple[torch.Tensor, torch.Tensor]:
         if tr is not None:
             tr.open(SPAN_PLACE_GUARD)
-        fleet = self._fleet_dev()
+        if self.spec.domains is None:
+            fleet, place = self._fleet_dev(), ops.route_replicas_bulk
+        else:
+            fleet, place = self.router.racks_dev, ops.route_racks_bulk
         if tr is not None:
             tr.next(SPAN_PLACE_COERCE)
         keys = self.router._coerce_keys(keys)
         if tr is not None:
             tr.next(SPAN_PLACE_LAUNCH)  # closed with its root, at one clock reading
-        return ops.route_replicas_bulk(keys, fleet, self.spec)
+        return place(keys, fleet, self.spec)
 
     def place(self, keys) -> PlacedBatch:
-        """Place keys on ``r`` distinct alive shards, typed and epoch-
-        stamped: ``FleetUnavailableError`` at ``n_alive == 0``; fewer alive
-        shards than ``r`` degrades (every key on all ``n_alive`` distinct
-        shards) or raises under ``strict=True``; an exhausted re-salt chain
+        """Place keys on ``r`` distinct alive shards (over failure domains,
+        in ``r`` distinct alive racks), typed and epoch-stamped:
+        ``FleetUnavailableError`` at ``n_alive == 0``; fewer alive shards
+        (racks) than ``r`` degrades (every key on all ``n_distinct`` of
+        them) or raises under ``strict=True``; an exhausted re-salt chain
         (explicit ``max_resalt`` below the default only) raises
         ``PlacementExhaustedError``."""
         mode = self._guard()
@@ -330,7 +358,7 @@ class StorePlacement:
                 n_exhausted, self.spec.resolved_max_resalt, epoch=self.epoch,
             )
         return PlacedBatch(
-            replicas.cpu().numpy(), self.epoch, mode, min(self.spec.r, self.n_alive),
+            replicas.cpu().numpy(), self.epoch, mode, min(self.spec.r, self.n_distinct),
         )
 
     # -- the registered store ------------------------------------------------
@@ -403,15 +431,15 @@ class StorePlacement:
                 f"key {int(self._keys[key_index])} has no reachable replica "
                 f"(all holders failed)", epoch=self.epoch,
             )
-        mode = MODE_NORMAL if len(found) >= min(self.spec.r, self.n_alive) else MODE_DEGRADED
+        mode = MODE_NORMAL if len(found) >= min(self.spec.r, self.n_distinct) else MODE_DEGRADED
         return np.asarray(found, np.int64), mode
 
     # -- migration + repair enumeration --------------------------------------
-    def plan_migration(self, old_fleet: FleetState | None = None) -> MigrationPlan:
+    def plan_migration(self, old_fleet: FleetState | RackFleet | None = None) -> MigrationPlan:
         """Diff the registered keys' placement between ``old_fleet`` (a host
-        ``FleetState``; default: the snapshot captured at the last
-        register/sync) and the CURRENT fleet — one device pass over both
-        placements (DESIGN.md §13)."""
+        ``FleetState``, over failure domains a host ``RackFleet``; default:
+        the snapshot captured at the last register/sync) and the CURRENT
+        fleet — one device pass over both placements (DESIGN.md §13)."""
         tr = self.router.tracer
         if tr is None:
             return self._plan_migration(old_fleet, None)
@@ -429,10 +457,13 @@ class StorePlacement:
         if tr is not None:
             tr.next(SPAN_PLAN_FLEET_UP)
         old = old.to(self.router.device)
-        new = self._fleet_dev()
+        if self.spec.domains is None:
+            new, diff = self._fleet_dev(), ops.placement_diff_bulk
+        else:
+            new, diff = self.router.racks_dev, ops.racks_diff_bulk
         if tr is not None:
             tr.next(SPAN_PLAN_DIFF)
-        o, n, moved, _ = ops.placement_diff_bulk(keys, old, new, self.spec)
+        o, n, moved, _ = diff(keys, old, new, self.spec)
         if tr is not None:
             tr.next(SPAN_PLAN_COPY_BACK)  # closed with its root, at one clock reading
         return MigrationPlan(

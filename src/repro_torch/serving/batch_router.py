@@ -27,6 +27,14 @@ With a ``LoadMonitor`` attached (``attach_load_monitor``) the fused launch
 is the instrumented one (``ops.route_load_bulk``): the same replica ids,
 and the monitor's per-shard count advanced in the same launch.
 
+With ``FailureDomains`` attached (``attach_domains``: racks of DataNodes,
+which a rack-aware ``StorePlacement`` asks for), the racks' two-level fleet
+takes the flat fleet's place: every DataNode event updates its rack's node
+fleet, and the rack fleet where a rack loses its last alive DataNode or
+gets one back (``RackDomains``); both levels go to the device in one copy.
+The flat routes are refused from then on.  ``uploads`` counts the
+host-to-device fleet copies made.
+
 With a ``SpanTrace`` as ``tracer``, the single-host datapath records its
 stages as nested spans on ``time.perf_counter_ns``: each ``route_keys``
 call (guard, coercion, launch; trace id: the count of traced calls), each
@@ -56,7 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bits
-from repro_torch.core.bulk import FleetState, RouterSpec
+from repro_torch.core.bulk import FailureDomains, FleetState, RackDomains, RouterSpec
 from repro_torch.core.memento_torch import memento_remap_table
 from repro_torch.core.registry import make_bulk
 from repro_torch.device import resolve_device
@@ -188,8 +196,15 @@ class BatchRouter:
         # host mirror of the device fleet state, mutated incrementally on
         # fleet events; the device twin is refreshed only then (under a
         # mesh every rank holds its own whole twin)
-        self._fleet_host = FleetState.pack(self.domain, spec.capacity)
+        self._fleet_host = FleetState.pack(self.scalar.domain, spec.capacity)
         self._fleet_dev: FleetState | None = None
+        #: the control plane over failure domains and its device twin (None:
+        #: no domains attached)
+        self.racks: RackDomains | None = None
+        self._racks_dev = None
+        #: host-to-device fleet copies made (the flat fleet, with the racks'
+        #: levels where domains are attached: one copy each)
+        self.uploads = 0
         #: routing epoch: one tick per fleet event
         self._epoch = 0
         # event-storm coalescing state (see ``coalesced_events``)
@@ -230,7 +245,9 @@ class BatchRouter:
 
     @property
     def domain(self):
-        return self.scalar.domain
+        """The membership the events keep: the flat control plane's, or with
+        failure domains attached the DataNodes' (``RackDomains``)."""
+        return self.scalar.domain if self.racks is None else self.racks
 
     @property
     def stats(self):
@@ -257,9 +274,53 @@ class BatchRouter:
         tr = self.tracer
         if tr is not None:
             tr.open(SPAN_FLEET_UPLOAD, self._epoch)
-        self._fleet_dev = self._fleet_host.to(self.device)
+        if self.racks is None:
+            self._fleet_dev = self._fleet_host.to(self.device)
+        else:
+            self._racks_dev = self.racks.host.to(self.device)
+        self.uploads += 1
         if tr is not None:
             tr.close()
+
+    # -- failure domains ------------------------------------------------------
+    def attach_domains(self, domains: FailureDomains) -> None:
+        """Track ``domains`` (racks of this router's replicas, its
+        DataNodes) from now on, in the flat fleet's place: a rack fleet and
+        a node fleet a rack, through every event, uploaded together.  The
+        replicas failed already fail there in ascending order.  Attaching
+        the same layout again changes nothing; another is refused.  The
+        layout is fixed: scale events are refused from then on, and so are
+        the flat routes (the flat fleet is no longer kept)."""
+        if self.racks is not None:
+            if self.racks.domains != domains:
+                raise ValueError(f"the router tracks {self.racks.domains}, not {domains}")
+            return
+        if domains.n_nodes != self.domain.total_count:
+            raise ValueError(f"the layout holds {domains.n_nodes} DataNodes; the router has "
+                             f"{self.domain.total_count} replicas")
+        if self.mesh is not None:
+            raise ValueError("failure domains are single-host only")
+        racks = RackDomains(domains)
+        for node in sorted(self.domain.removed):
+            racks.fail(node)
+        self.racks = racks
+        self._fleet_dev = None
+        self._upload_state()
+
+    @property
+    def racks_dev(self):
+        """The device ``RackFleet`` (flushing coalesced events)."""
+        self._check_routable()
+        return self._racks_dev
+
+    def _check_scale(self) -> None:
+        if self.racks is not None:
+            raise ValueError("a router with failure domains has a fixed layout: no scale events")
+
+    def _check_flat(self) -> None:
+        if self.racks is not None:
+            raise ValueError("a router with failure domains keeps no flat fleet: place through "
+                             "its StorePlacement")
 
     def _set_removed_bit(self, replica: int, removed: bool) -> None:
         """Incremental fleet-event update: flip one mask bit, re-pin."""
@@ -299,7 +360,8 @@ class BatchRouter:
 
     def _flush_events(self) -> None:
         self._state_dirty = False
-        self._fleet_host.resync(self.domain)
+        if self.racks is None:
+            self._fleet_host.resync(self.domain)
         self._upload_state()
 
     # -- routing ------------------------------------------------------------
@@ -308,7 +370,7 @@ class BatchRouter:
     def _check_routable(self) -> None:
         """Route-entry guard: typed error on an all-failed fleet, and land
         any coalesced events the launch would otherwise miss."""
-        if self.scalar.alive == 0:
+        if self.alive == 0:
             raise FleetUnavailableError(epoch=self._epoch)
         if self._state_dirty and not self._coalescing:
             self._flush_events()
@@ -451,6 +513,7 @@ class BatchRouter:
         recorded into, inside the caller's ``route_keys`` span, or None."""
         if tr is not None:
             tr.open(SPAN_ROUTE_GUARD)
+        self._check_flat()
         self._check_routable()
         if tr is not None:
             tr.next(SPAN_ROUTE_COERCE)
@@ -487,6 +550,7 @@ class BatchRouter:
                 "route_ids is single-host only; under a mesh pre-hash with "
                 "hash_session_ids and call route_keys"
             )
+        self._check_flat()
         self._check_routable()
         ids = np.ascontiguousarray(session_ids, dtype=np.uint64)
         if ids.size == 0:
@@ -513,6 +577,7 @@ class BatchRouter:
 
     def route(self, session_id) -> int:
         """Scalar lookup through the control plane (bit-exact with the batch)."""
+        self._check_flat()
         return self.scalar.route(session_id)
 
     # -- fleet events --------------------------------------------------------
@@ -525,6 +590,7 @@ class BatchRouter:
                 f"fleet at device-table capacity ({self.spec.capacity}); "
                 "construct BatchRouter with a larger capacity"
             )
+        self._check_scale()
         tr = self.tracer
         if tr is not None and self._coalescing:
             tr.open(SPAN_BURST_EVENT)
@@ -536,6 +602,7 @@ class BatchRouter:
         return r
 
     def scale_down(self) -> int:
+        self._check_scale()
         tr = self.tracer
         if tr is not None and self._coalescing:
             tr.open(SPAN_BURST_EVENT)
@@ -550,14 +617,19 @@ class BatchRouter:
         tr = self.tracer
         if tr is not None and self._coalescing:
             tr.open(SPAN_BURST_EVENT)
-        self.scalar.fail(replica)
-        self._epoch += 1
-        if replica in self.domain.removed:
-            self._set_removed_bit(replica, True)
+        if self.racks is not None:
+            self.racks.fail(replica)
+            self._epoch += 1
+            self._upload_state()
         else:
-            # failing the LAST slot is a true LIFO removal in the control
-            # plane (slot space shrinks, tombstones may GC) — resync wholesale
-            self._resync_device_state()
+            self.scalar.fail(replica)
+            self._epoch += 1
+            if replica in self.domain.removed:
+                self._set_removed_bit(replica, True)
+            else:
+                # failing the LAST slot is a true LIFO removal in the control
+                # plane (slot space shrinks, tombstones may GC) — resync wholesale
+                self._resync_device_state()
         if tr is not None and self._coalescing:
             tr.close()
 
@@ -565,15 +637,20 @@ class BatchRouter:
         tr = self.tracer
         if tr is not None and self._coalescing:
             tr.open(SPAN_BURST_EVENT)
-        self.scalar.recover(replica)
-        self._epoch += 1
-        self._set_removed_bit(replica, False)
+        if self.racks is not None:
+            self.racks.recover(replica)
+            self._epoch += 1
+            self._upload_state()
+        else:
+            self.scalar.recover(replica)
+            self._epoch += 1
+            self._set_removed_bit(replica, False)
         if tr is not None and self._coalescing:
             tr.close()
 
     @property
     def alive(self) -> int:
-        return self.scalar.alive
+        return self.domain.alive_count
 
     @property
     def routing_epoch(self) -> int:

@@ -34,7 +34,7 @@ def test_every_bounded_loop_is_counted_once():
     assert FINDINGS == []
     tagged = [lp for p in PATHS for lp in sass_gate.source_loops(p) if lp.bound != "static"]
     assert sorted((lp.file, lp.first) for lp in tagged) == sorted((c.file, c.line) for c in LOOPS)
-    assert [c.name for c in LOOPS] == NAMES and len(LOOPS) == 26
+    assert [c.name for c in LOOPS] == NAMES and len(LOOPS) == 29
     assert {c.tag for c in LOOPS} == set(BOUNDS) - {"static"}
 
 
@@ -89,7 +89,7 @@ def test_every_tag_has_a_formula_of_the_launch():
     for tag, bound in BOUNDS.items():
         assert isinstance(bound.text, str) and bound.text
         assert isinstance(bound.trips(CONTRACT), int), tag
-    assert set(sass_gate.LOOP_BOUNDS) == {"JUMP_CHAINS", "PLACE_GRID"}
+    assert set(sass_gate.LOOP_BOUNDS) == {"JUMP_CHAINS", "PLACE_GRID", "NODE_GRID"}
     assert set(sass_gate.KEY_STEPS) == {"omega", "max_chain"} == {
         c.tag for c in LOOPS if c.tag in sass_gate.KEY_STEPS}
 

@@ -25,7 +25,8 @@ a bf16 checkpoint round trip on the card, the constant-time
 certifier's graph targets and SASS gate on the card, and the training
 kernels (the fused AdamW update over every dtype case and alignment, the
 radix select's rounds against ``torch.topk`` on edge cases) against their
-plain versions bit for bit.
+plain versions bit for bit, and the node route of a placement over failure
+domains against its plain version and the benchmark's plain reference.
 Needs a CUDA card and ``nvcc``; skips elsewhere.
 Imports no JAX, so it runs where only the port is installed:
 
@@ -1221,3 +1222,112 @@ def test_training_kernel_wrappers_refuse_on_card(cuda):
     with pytest.raises(ValueError):
         T.radix_hist(torch.zeros(n, device=cuda), torch.zeros(1, dtype=torch.int32), 21, 11)
     assert T.launches == dict.fromkeys(T.KINDS, 0)
+
+
+# ---------------------------------------------------------------------------
+# placement over failure domains (the node route)
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_tables", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("engine", sorted(BULK_ENGINES))
+@pytest.mark.parametrize("r", [1, 3, 9, 28])
+def test_node_route_matches_plain(cuda, engine, r):
+    """The node route kernel against its plain version over 20 racks of 10
+    with DataNodes and a whole rack down, at sizes around its chunks (256 //
+    r whole objects a warp) and 2^18, without and with the old rows."""
+    from repro_torch.core.bulk import FailureDomains, RackDomains
+
+    kernels = BULK_ENGINES[engine].kernels
+    plane = RackDomains(FailureDomains(20, 10))
+    for node in [3, 17, 18, 45, 99, 150, 151, 152] + list(range(60, 70)):
+        plane.fail(node)
+    host, dev = plane.host, plane.host.to(cuda)
+    objs = 256 // r
+    for n in (1, objs - 1, objs, objs + 1, 8 * objs * 7 + 3, 1 << 18):
+        keys = _u32(n + r, n, "cpu")
+        f = host.racks
+        cols = kernels.place(keys, r, torch.from_numpy(f.packed.view(np.int32)),
+                             torch.from_numpy(f.table), torch.from_numpy(f.state.view(np.int32)),
+                             16, r)[0]
+        cpu = [torch.from_numpy(np.asarray(a).view(np.int32)) for a in
+               (host.packed, host.table, host.state)]
+        want, _ = kernels.node_route(keys, cols, *cpu, 10, 16)
+        old = torch.roll(want, 1, dims=0)
+        _, want_moved = kernels.node_route(keys, cols, *cpu, 10, 16, old)
+        before = kernels.launches["node_route"]
+        got, moved = kernels.node_route(keys.to(cuda), cols.to(cuda), dev.packed, dev.table,
+                                        dev.state, 10, 16)
+        got2, moved2 = kernels.node_route(keys.to(cuda), cols.to(cuda), dev.packed, dev.table,
+                                          dev.state, 10, 16, old.to(cuda))
+        torch.cuda.synchronize()
+        assert kernels.launches["node_route"] == before + 2
+        assert moved is None and torch.equal(got.cpu(), want), (n, r)
+        assert torch.equal(got2.cpu(), want) and torch.equal(moved2.cpu(), want_moved), (n, r)
+
+
+def test_rack_store_on_card_matches_the_reference_after_a_rack_fails(cuda):
+    """HDFS RS-6-3 over 20 racks of 10: every DataNode of one rack failed
+    through ``coalesced_events``, then 2^20 block groups placed on the card
+    through ``place_keys`` equal the benchmark's plain reference
+    (``portbench/reference/racks.py``) and the CPU's plain path, in three
+    launches (the family route, ``resolve``'s row path and the node route,
+    each counted); ``place_kernel``'s and ``route_kernel``'s SASS and
+    registers are the build's of record (``chip_smoke.SASS_STATIC``)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.analysis.sass_gate import FUNCTIONS, library_sass
+    from repro_torch.core.bulk import FailureDomains
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from portbench.reference import racks as ref
+    from portbench.reference.hashing import u32
+
+    layout = FailureDomains(20, 10)
+    stores = {}
+    for device in ("cuda", "cpu"):
+        router = BatchRouter(200, engine="binomial", capacity=256, omega=16, device=device)
+        stores[device] = StorePlacement(router, r=9, domains=layout)
+        with router.coalesced_events():
+            for node in [5, 77, 123] + list(range(40, 50)):
+                router.fail(node)
+    twin = ref.Racks(ref.Layout(20, 10))
+    for node in [5, 77, 123] + list(range(40, 50)):
+        twin.apply("fail", node)
+    assert stores["cuda"].router.racks.alive_racks == 19
+    keys = _u32(2026, 1 << 20, "cpu")
+    kernels = BULK_ENGINES["binomial"].kernels
+    before = dict(kernels.launches)
+    got, exhausted = stores["cuda"].place_keys(keys.to(cuda))
+    torch.cuda.synchronize()
+    made = {k: n - before[k] for k, n in kernels.launches.items() if n != before[k]}
+    assert made == {"route_family": 1, "resolve": 1, "node_route": 1}
+    want, want_ex = ref.place(u32(keys).to(cuda), twin.tensors(cuda), 16, 9)
+    assert torch.equal(got.to(torch.int64), want) and not bool(exhausted.any())
+    assert not bool(want_ex.any())
+    plain, _ = stores["cpu"].place_keys(keys)
+    assert torch.equal(got.cpu(), plain)
+    racks = torch.div(want, 10, rounding_mode="floor")
+    assert not bool((racks == 4).any())
+    assert bool(((racks[:, :, None] == racks[:, None, :]).sum(dim=(1, 2)) == 9).all())
+
+    smoke = _chip_smoke()
+    sizes = {name: fn.size for name, fn in library_sass().items()}
+    regs = {("binomial", "route"): 48, ("jump", "route"): 40, ("binomial", "place"): 32,
+            ("jump", "place"): 40}
+    for (engine, kind), want_regs in regs.items():
+        prefix = FUNCTIONS[engine, kind]
+        assert [n for name, n in sizes.items() if name.startswith(prefix)] == [
+            smoke.SASS_STATIC[engine, kind]], (engine, kind)
+        assert smoke.registers(prefix) == want_regs, (engine, kind)

@@ -142,6 +142,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA devices"):
         BINOMIAL.chain_remap(keys.to("meta"), keys.to("meta"), keys.to("meta"),
                              keys[:2].to("meta"))
+    with pytest.raises(ValueError, match="CUDA devices"):
+        BINOMIAL.node_route(keys.to("meta"), keys.reshape(4, 1).to("meta"),
+                            keys.reshape(2, 2).to("meta"), keys.reshape(2, 2).to("meta"),
+                            keys.reshape(2, 2).to("meta"), 2)
     assert BINOMIAL.launches == {"route": 0, "ingest": 0, "lookup_dyn": 0, "lookup_vec": 0,
                                  "route_family": 0, "resolve": 0, "route_load": 0,
-                                 "chain_remap": 0, "place": 0}
+                                 "chain_remap": 0, "place": 0, "node_route": 0}
